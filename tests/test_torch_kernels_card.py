@@ -58,29 +58,29 @@ def _decode_inputs(H, KV, Dh, dev, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("H,KV,Dh", HEADS)
-def test_kernels_match_plain_on_card(cuda_device, dtype, H, KV, Dh):
+def test_kernels_match_plain_on_card(cuda_device, dtype):
     atol, rtol = CARD_TOL[dtype]
     dev = cuda_device
-    args = _decode_inputs(H, KV, Dh, dev, dtype)
-    n = attention.paged_decode_attention.launches
-    got = attention.paged_decode_attention(*args, 2)
-    assert attention.paged_decode_attention.launches == n + 1
-    want = attention.paged_decode_attention_plain(*args, 2)
-    torch.testing.assert_close(got.float(), want.float(), atol=atol,
-                               rtol=rtol)
-    x = torch.randn((70, H, Dh), device=dev).to(dtype)
-    kv = torch.randn((70, KV, Dh), device=dev).to(dtype)
-    torch.testing.assert_close(
-        attention.prefill_attention(x, kv, kv * 0.5, 41).float(),
-        attention.prefill_attention_plain(x, kv, kv * 0.5, 41).float(),
-        atol=atol, rtol=rtol)
-    g = torch.rand(H * Dh, device=dev) + 0.5
-    rows = x.reshape(70, H * Dh)
-    torch.testing.assert_close(norm.rms_norm(rows, g, 1e-5).float(),
-                               norm.rms_norm_plain(rows, g, 1e-5).float(),
-                               atol=atol, rtol=rtol)
-
+    for H, KV, Dh in HEADS:
+        args = _decode_inputs(H, KV, Dh, dev, dtype)
+        n = attention.paged_decode_attention.launches
+        got = attention.paged_decode_attention(*args, 2)
+        assert attention.paged_decode_attention.launches == n + 1
+        want = attention.paged_decode_attention_plain(*args, 2)
+        torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                                   rtol=rtol, msg=f"decode {H, KV, Dh}")
+        x = torch.randn((70, H, Dh), device=dev).to(dtype)
+        kv = torch.randn((70, KV, Dh), device=dev).to(dtype)
+        torch.testing.assert_close(
+            attention.prefill_attention(x, kv, kv * 0.5, 41).float(),
+            attention.prefill_attention_plain(x, kv, kv * 0.5, 41).float(),
+            atol=atol, rtol=rtol, msg=f"prefill {H, KV, Dh}")
+        g = torch.rand(H * Dh, device=dev) + 0.5
+        rows = x.reshape(70, H * Dh)
+        torch.testing.assert_close(
+            norm.rms_norm(rows, g, 1e-5).float(),
+            norm.rms_norm_plain(rows, g, 1e-5).float(),
+            atol=atol, rtol=rtol, msg=f"rms_norm {H, KV, Dh}")
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("n_kv_heads", [4, 2], ids=["mha", "gqa"])

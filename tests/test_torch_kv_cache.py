@@ -96,12 +96,12 @@ SCRIPTS = {
 }
 
 
-@pytest.mark.parametrize("name", sorted(SCRIPTS))
-def test_pool_accounting_matches_jax(name):
+def test_pool_accounting_matches_jax():
     jcfg, tcfg = _configs()
-    want = _run(jkv.PagedKvPool(jcfg, 9, 16), SCRIPTS[name])
-    got = _run(tkv.PagedKvPool(tcfg, 9, 16, device="cpu"), SCRIPTS[name])
-    assert got == want
+    for name, script in SCRIPTS.items():
+        want = _run(jkv.PagedKvPool(jcfg, 9, 16), script)
+        got = _run(tkv.PagedKvPool(tcfg, 9, 16, device="cpu"), script)
+        assert got == want, name
 
 
 def test_pool_rejects_page_not_dividing_max_seq():
@@ -110,13 +110,13 @@ def test_pool_rejects_page_not_dividing_max_seq():
         tkv.PagedKvPool(tcfg, 8, 24, device="cpu")  # 128 % 24 != 0
 
 
-@pytest.mark.parametrize("jdt,tdt", [(jnp.float32, torch.float32),
-                                     (jnp.bfloat16, torch.bfloat16)])
-def test_byte_sizes_match_jax(jdt, tdt):
-    jcfg, tcfg = _configs(2, jdt, tdt)
-    assert tkv.kv_token_bytes(tcfg) == jkv.kv_token_bytes(jcfg)
-    assert tkv.host_page_bytes(tcfg, 16) == jkv.host_page_bytes(jcfg, 16)
-    assert tcfg.wire_dtype == jkv.wire_dtype(jcfg)
+def test_byte_sizes_match_jax():
+    for jdt, tdt in [(jnp.float32, torch.float32),
+                     (jnp.bfloat16, torch.bfloat16)]:
+        jcfg, tcfg = _configs(2, jdt, tdt)
+        assert tkv.kv_token_bytes(tcfg) == jkv.kv_token_bytes(jcfg)
+        assert tkv.host_page_bytes(tcfg, 16) == jkv.host_page_bytes(jcfg, 16)
+        assert tcfg.wire_dtype == jkv.wire_dtype(jcfg)
 
 
 def test_write_blocks_lands_pages_in_place():
@@ -133,33 +133,39 @@ def test_write_blocks_lands_pages_in_place():
 
 # ---- prefill pages and the wire codec ------------------------------------------
 
-@pytest.mark.parametrize("length,bucket,page", [(5, 16, 16), (20, 32, 16),
-                                                (5, 8, 16), (9, 16, 4)])
-def test_prefill_pages_byte_identical_to_jax(models, length, bucket, page):
+def test_prefill_pages_byte_identical_to_jax(models):
     """The same prefill KV cut into pages: byte-identical to the
     reference's pages, pad-token rows and zero rows included, and so are
     the encode_layer wire bytes. The port's own prefill KV agrees within
     the f32 tolerance (XLA and torch sum in other orders, so its bits need
     not match)."""
     jcfg, jp, tcfg, tp = models
-    prompt = np.arange(3, 3 + length, dtype=np.int32)
-    padded = np.pad(prompt, (0, bucket - length))
-    _, jk, jv = jt.prefill(jp, jnp.asarray(padded), jnp.int32(length), jcfg)
-    want_k, want_v = jkv.prefill_cache_pages(jk, jv, length, page)
-    same_k = torch.from_numpy(np.array(jk)[:, :bucket])
-    same_v = torch.from_numpy(np.array(jv)[:, :bucket])
-    got_k, got_v = tkv.prefill_cache_pages(same_k, same_v, length, page)
-    assert got_k.numpy().tobytes() == np.ascontiguousarray(want_k).tobytes()
-    assert got_v.numpy().tobytes() == np.ascontiguousarray(want_v).tobytes()
-    for layer in range(tcfg.n_layers):
-        assert (tkv.encode_layer(same_k[layer], length, page, tcfg)
-                == jkv.encode_layer(np.asarray(jk)[layer, :bucket], length,
-                                    page, jcfg))
-    _, tk, tv = tt.prefill(tp, torch.from_numpy(padded), length, tcfg)
-    own_k, own_v = tkv.prefill_cache_pages(tk, tv, length, page)
-    np.testing.assert_allclose(own_k.numpy(), want_k, **TOL)
-    np.testing.assert_allclose(own_v.numpy(), want_v, **TOL)
-    assert np.array_equal(own_k.numpy() == 0, want_k == 0)
+    for length, bucket, page in [(5, 16, 16), (20, 32, 16), (5, 8, 16),
+                                 (9, 16, 4)]:
+        prompt = np.arange(3, 3 + length, dtype=np.int32)
+        padded = np.pad(prompt, (0, bucket - length))
+        case = f"length={length} bucket={bucket} page={page}"
+        _, jk, jv = jt.prefill(jp, jnp.asarray(padded), jnp.int32(length),
+                               jcfg)
+        want_k, want_v = jkv.prefill_cache_pages(jk, jv, length, page)
+        same_k = torch.from_numpy(np.array(jk)[:, :bucket])
+        same_v = torch.from_numpy(np.array(jv)[:, :bucket])
+        got_k, got_v = tkv.prefill_cache_pages(same_k, same_v, length, page)
+        assert (got_k.numpy().tobytes()
+                == np.ascontiguousarray(want_k).tobytes()), case
+        assert (got_v.numpy().tobytes()
+                == np.ascontiguousarray(want_v).tobytes()), case
+        for layer in range(tcfg.n_layers):
+            assert (tkv.encode_layer(same_k[layer], length, page, tcfg)
+                    == jkv.encode_layer(np.asarray(jk)[layer, :bucket],
+                                        length, page, jcfg)), case
+        _, tk, tv = tt.prefill(tp, torch.from_numpy(padded), length, tcfg)
+        own_k, own_v = tkv.prefill_cache_pages(tk, tv, length, page)
+        np.testing.assert_allclose(own_k.numpy(), want_k, **TOL,
+                                   err_msg=case)
+        np.testing.assert_allclose(own_v.numpy(), want_v, **TOL,
+                                   err_msg=case)
+        assert np.array_equal(own_k.numpy() == 0, want_k == 0), case
 
 
 def test_bf16_wire_bytes_identical_to_jax():

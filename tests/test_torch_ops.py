@@ -85,39 +85,42 @@ def _decode_inputs(H, KV, Dh, seed=0):
 
 
 @pytest.mark.parametrize("H,KV,Dh", HEADS)
-@pytest.mark.parametrize("layer", [0, 2])
-def test_paged_decode_attention_plain_matches_jax(H, KV, Dh, layer):
+def test_paged_decode_attention_plain_matches_jax(H, KV, Dh):
     q, k_pool, v_pool, tables, pos = _decode_inputs(H, KV, Dh)
-    want = _jax_paged_decode_attention(*map(jnp.asarray, (
-        q, k_pool, v_pool, tables, pos)), layer)
-    got = attention.paged_decode_attention(*map(torch.from_numpy, (
-        q, k_pool, v_pool, tables, pos)), layer)
-    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    for layer in (0, 2):
+        want = _jax_paged_decode_attention(*map(jnp.asarray, (
+            q, k_pool, v_pool, tables, pos)), layer)
+        got = attention.paged_decode_attention(*map(torch.from_numpy, (
+            q, k_pool, v_pool, tables, pos)), layer)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL,
+                                   err_msg=f"layer {layer}")
 
 
 @pytest.mark.parametrize("H,KV,Dh", HEADS)
-@pytest.mark.parametrize("P,length", [(8, 5), (16, 16), (64, 37)])
-def test_prefill_attention_plain_matches_jax(H, KV, Dh, P, length):
-    rng = np.random.default_rng(P)
-    q = rng.standard_normal((P, H, Dh), np.float32)
-    k = rng.standard_normal((P, KV, Dh), np.float32)
-    v = rng.standard_normal((P, KV, Dh), np.float32)
-    want = _jax_prefill_attention(jnp.asarray(q), jnp.asarray(k),
-                                  jnp.asarray(v), length)
-    got = attention.prefill_attention(torch.from_numpy(q),
-                                      torch.from_numpy(k),
-                                      torch.from_numpy(v), length)
-    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+def test_prefill_attention_plain_matches_jax(H, KV, Dh):
+    for P, length in [(8, 5), (16, 16), (64, 37)]:
+        rng = np.random.default_rng(P)
+        q = rng.standard_normal((P, H, Dh), np.float32)
+        k = rng.standard_normal((P, KV, Dh), np.float32)
+        v = rng.standard_normal((P, KV, Dh), np.float32)
+        want = _jax_prefill_attention(jnp.asarray(q), jnp.asarray(k),
+                                      jnp.asarray(v), length)
+        got = attention.prefill_attention(torch.from_numpy(q),
+                                          torch.from_numpy(k),
+                                          torch.from_numpy(v), length)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL,
+                                   err_msg=f"P={P} length={length}")
 
 
-@pytest.mark.parametrize("shape", [(8, 128), (3, 5, 96)])
-def test_rms_norm_plain_matches_jax(shape):
+def test_rms_norm_plain_matches_jax():
     rng = np.random.default_rng(3)
-    x = rng.standard_normal(shape, np.float32)
-    g = (1.0 + 0.1 * rng.standard_normal(shape[-1])).astype(np.float32)
-    want = jt._rms_norm(jnp.asarray(x), jnp.asarray(g), 1e-5)
-    got = norm.rms_norm(torch.from_numpy(x), torch.from_numpy(g), 1e-5)
-    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    for shape in [(8, 128), (3, 5, 96)]:
+        x = rng.standard_normal(shape, np.float32)
+        g = (1.0 + 0.1 * rng.standard_normal(shape[-1])).astype(np.float32)
+        want = jt._rms_norm(jnp.asarray(x), jnp.asarray(g), 1e-5)
+        got = norm.rms_norm(torch.from_numpy(x), torch.from_numpy(g), 1e-5)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL,
+                                   err_msg=f"shape {shape}")
 
 
 def test_rms_norm_plain_bf16_matches_jax():
