@@ -5,16 +5,13 @@ Compiles the C++ tree under ``cpp/`` with plain g++ (no cmake) into
 only the ``trpc_*`` C API exported, see ``_build``), with an object cache
 in ``build/torch_native/obj``, and loads it with ctypes. An ``fcntl`` lock
 around the build keeps concurrent processes (test workers) from racing on
-the same outputs. ``cpp/`` is compiled as it is; where the system has no
-zlib headers, a declaration-only ``zlib.h`` for the few functions the tree
-uses is written under ``build/torch_native/include`` and ``libz.so.1`` is
-linked by path.
+the same outputs. ``cpp/`` is compiled as it is, against the system's
+zlib (``<zlib.h>``, ``-lz``).
 """
 
 from __future__ import annotations
 
 import ctypes
-import ctypes.util
 import fcntl
 import os
 import platform
@@ -29,57 +26,6 @@ _BUILD_DIR = os.path.join(_REPO, "build", "torch_native")
 _LIB_PATH = os.path.join(_BUILD_DIR, "libtpurpc.so")
 
 _lib = None
-
-# The declarations cpp/trpc/compress.cc needs, with zlib's ABI (z_stream
-# layout of zlib 1.2/1.3 on LP64). Used only where <zlib.h> is missing.
-_ZLIB_DECLS = r"""
-#pragma once
-#ifdef __cplusplus
-extern "C" {
-#endif
-typedef unsigned char Bytef;
-typedef unsigned int uInt;
-typedef unsigned long uLong;
-typedef void* voidpf;
-typedef voidpf (*alloc_func)(voidpf, uInt, uInt);
-typedef void (*free_func)(voidpf, voidpf);
-struct internal_state;
-typedef struct z_stream_s {
-  const Bytef* next_in; uInt avail_in; uLong total_in;
-  Bytef* next_out; uInt avail_out; uLong total_out;
-  const char* msg; struct internal_state* state;
-  alloc_func zalloc; free_func zfree; voidpf opaque;
-  int data_type; uLong adler; uLong reserved;
-} z_stream;
-typedef z_stream* z_streamp;
-#define Z_NO_FLUSH 0
-#define Z_FINISH 4
-#define Z_OK 0
-#define Z_STREAM_END 1
-#define Z_BUF_ERROR (-5)
-#define Z_DEFAULT_COMPRESSION (-1)
-#define Z_DEFLATED 8
-#define Z_DEFAULT_STRATEGY 0
-#define ZLIB_VERSION "1.2.13"
-int deflate(z_streamp strm, int flush);
-int deflateEnd(z_streamp strm);
-int inflate(z_streamp strm, int flush);
-int inflateEnd(z_streamp strm);
-int deflateInit2_(z_streamp strm, int level, int method, int windowBits,
-                  int memLevel, int strategy, const char* version,
-                  int stream_size);
-int inflateInit2_(z_streamp strm, int windowBits, const char* version,
-                  int stream_size);
-#define deflateInit2(s, l, m, w, ml, st) \
-  deflateInit2_((s), (l), (m), (w), (ml), (st), ZLIB_VERSION, \
-                (int)sizeof(z_stream))
-#define inflateInit2(s, w) \
-  inflateInit2_((s), (w), ZLIB_VERSION, (int)sizeof(z_stream))
-#ifdef __cplusplus
-}
-#endif
-"""
-
 
 def _lib_srcs() -> list:
     """Library .cc list, parsed out of cpp/CMakeLists.txt's set(*_SRCS ...)
@@ -102,31 +48,6 @@ def _newest_mtime(exts) -> float:
     return newest
 
 
-def _zlib_flags(cxx: str) -> tuple:
-    """(extra include flags, link args) for zlib: the system's when its
-    header compiles, else the declaration-only header and libz.so.1."""
-    probe = subprocess.run([cxx, "-x", "c++", "-fsyntax-only", "-"],
-                           input="#include <zlib.h>\n", capture_output=True,
-                           text=True)
-    if probe.returncode == 0:
-        return [], ["-lz"]
-    inc = os.path.join(_BUILD_DIR, "include")
-    os.makedirs(inc, exist_ok=True)
-    with open(os.path.join(inc, "zlib.h"), "w") as f:
-        f.write(_ZLIB_DECLS)
-    found = ctypes.util.find_library("z")
-    candidates = [os.path.join(d, "libz.so.1") for d in
-                  ("/lib/x86_64-linux-gnu", "/usr/lib/x86_64-linux-gnu",
-                   "/lib/aarch64-linux-gnu", "/usr/lib/aarch64-linux-gnu",
-                   "/usr/lib64", "/lib64", "/usr/lib", "/lib")]
-    for path in candidates:
-        if os.path.exists(path):
-            return ["-I", inc], [path]
-    if found:
-        return ["-I", inc], ["-l:" + found]
-    raise RuntimeError("native build failed: no zlib header and no libz.so.1")
-
-
 def _build(cxx: str) -> None:
     obj_dir = os.path.join(_BUILD_DIR, "obj")
     srcs = _lib_srcs()
@@ -135,9 +56,8 @@ def _build(cxx: str) -> None:
     elif platform.machine() in ("aarch64", "arm64"):
         srcs.append("tsched/context_aarch64.S")
     hdr_mtime = _newest_mtime((".h",))
-    zinc, zlink = _zlib_flags(cxx)
     cflags = ["-std=c++20", "-fPIC", "-O2", "-pthread",
-              "-fno-omit-frame-pointer", "-I", _CPP_DIR, *zinc]
+              "-fno-omit-frame-pointer", "-I", _CPP_DIR]
 
     def compile_one(src: str) -> str:
         src_path = os.path.join(_CPP_DIR, src)
@@ -170,7 +90,7 @@ def _build(cxx: str) -> None:
     exports = os.path.join(_BUILD_DIR, "exports.map")
     with open(exports, "w") as f:
         f.write("{ global: trpc_*; local: *; };\n")
-    proc = subprocess.run([cxx, "-shared", "-pthread", *objs, *zlink, "-ldl",
+    proc = subprocess.run([cxx, "-shared", "-pthread", *objs, "-lz", "-ldl",
                            "-static-libstdc++", "-static-libgcc",
                            f"-Wl,--version-script={exports}",
                            "-o", tmp], capture_output=True, text=True)

@@ -162,11 +162,9 @@ class ServingEngine(DrainMixin):
     paged block pool. ``step()`` runs one admit + prefill + decode
     iteration; with ``autostart`` a daemon thread loops it. ``device``
     defaults to ``cuda`` (raises without a card); the tests pass
-    ``device="cpu"``. The constructor is the reference's: the prefix-cache
-    options (``prefix_cache``, ``kv_host_tier``, and ``kv_host_budget_bytes``,
-    ``prefix_ttl_s``, ``prefix_gc_interval_s``, ``admit_finished``, which
-    only tune that cache) are accepted, but only the cache's off setting
-    exists in this package so far.
+    ``device="cpu"``. The constructor is the reference's, less the options
+    that only tune the prefix cache and its host tier: of ``prefix_cache``
+    and ``kv_host_tier`` only the off setting exists in this package so far.
     """
 
     service = SERVICE
@@ -182,10 +180,6 @@ class ServingEngine(DrainMixin):
                  kv_blocks: Optional[int] = None,
                  prefix_cache: bool = False,
                  kv_host_tier: bool = False,
-                 kv_host_budget_bytes: int = 0,
-                 prefix_ttl_s: Optional[float] = 600.0,
-                 prefix_gc_interval_s: float = 30.0,
-                 admit_finished: bool = True,
                  limiter: str = "",
                  port: int = 0, autostart: bool = True,
                  device=None):

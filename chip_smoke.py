@@ -5,9 +5,8 @@ streams exactly the plain forward's greedy tokens, and serves Llama-3-8B
 at full width and depth (random seeded weights) through the native
 batcher and the kernels.
 
-    python3 chip_smoke.py                 # all phases, one card
-    python3 chip_smoke.py --phases 1,2,3  # card, build, kernels only
-    python3 chip_smoke.py --profile       # + a profiled swarm after phase 5
+    python3 chip_smoke.py            # all phases, one card
+    python3 chip_smoke.py --profile  # + a profiled swarm after phase 5
 
 Needs a CUDA card and exits nonzero without one. The last line of stdout
 is {"ok": true, "device": {...}}; the line before the card's name and power
@@ -457,14 +456,12 @@ def phase_main(card: str, profile_it: bool, report_dir: str) -> dict:
 def main() -> int:
     faulthandler.enable()
     ap = argparse.ArgumentParser()
-    ap.add_argument("--phases", default="1,2,3,4,5")
     ap.add_argument("--profile", action="store_true",
                     help="after phase 5, profile a second, shorter swarm")
     ap.add_argument("--report-dir",
                     default=os.path.join(HERE, "build", "chip_smoke"),
                     help="where the JSON report and the profile table go")
     args = ap.parse_args()
-    phases = {int(p) for p in args.phases.split(",")}
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
         return 2
@@ -477,50 +474,45 @@ def main() -> int:
     log(f"[card] {card} | torch {torch.__version__} cuda "
         f"{torch.version.cuda} | {kind} x {torch.cuda.device_count()}")
     report = {"card": card, "torch": torch.__version__}
-    if 2 in phases or 3 in phases or 4 in phases or 5 in phases:
-        t0 = time.monotonic()
-        native.build()
-        t_native = time.monotonic() - t0
-        t0 = time.monotonic()
-        _build.build()
-        t_kernels = time.monotonic() - t0
-        log(f"[build] native runtime {t_native:.1f} s, CUDA kernels "
-            f"{t_kernels:.1f} s")
-        with open(_build.PTXAS_LOG) as f:
-            for line in f:
-                if "registers" in line or "spill" in line or "==" in line:
-                    log("[ptxas] " + line.rstrip())
-        report["build_s"] = {"native": t_native, "kernels": t_kernels}
-    cases = phase_kernels() if 3 in phases else None
-    if 4 in phases:
-        report["exact"] = phase_exactness()
+    t0 = time.monotonic()
+    native.build()
+    t_native = time.monotonic() - t0
+    t0 = time.monotonic()
+    _build.build()
+    t_kernels = time.monotonic() - t0
+    log(f"[build] native runtime {t_native:.1f} s, CUDA kernels "
+        f"{t_kernels:.1f} s")
+    with open(_build.PTXAS_LOG) as f:
+        for line in f:
+            if "registers" in line or "spill" in line or "==" in line:
+                log("[ptxas] " + line.rstrip())
+    report["build_s"] = {"native": t_native, "kernels": t_kernels}
+    cases = phase_kernels()
+    report["exact"] = phase_exactness()
     os.makedirs(args.report_dir, exist_ok=True)
-    main_res = (phase_main(card, args.profile, args.report_dir)
-                if 5 in phases else None)
+    main_res = phase_main(card, args.profile, args.report_dir)
     report["main"] = main_res
     report["kernel_cases"] = cases
     with open(os.path.join(args.report_dir, "chip_smoke_report.json"),
               "w") as f:
         json.dump(report, f, indent=1)
-    if cases is not None:
-        # One row per kernel: the bf16 case at a shape the main path gives
-        # it (its 8 lanes at their last decode step; a 1024-token bucket;
-        # 8 decode rows).
-        pick = {"paged_decode_attention": 1, "prefill_attention": 2,
-                "rms_norm": 0}
-        rows = []
-        for name, i in pick.items():
-            r = cases[name][i]
-            rows.append({
-                "name": name, "route": "cuda", "source": SOURCES[name],
-                "replaces": REPLACES[name],
-                "launches": (main_res["launches"][name] if main_res
-                             else 0),
-                "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-                "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-            })
-        print(json.dumps({"kernels": rows}), flush=True)
+    # One row per kernel: the bf16 case at a shape the main path gives it
+    # (its 8 lanes at their last decode step; a 1024-token bucket; 8 decode
+    # rows), with the launches of the main path's run.
+    pick = {"paged_decode_attention": 1, "prefill_attention": 2,
+            "rms_norm": 0}
+    rows = []
+    for name, i in pick.items():
+        r = cases[name][i]
+        rows.append({
+            "name": name, "route": "cuda", "source": SOURCES[name],
+            "replaces": REPLACES[name],
+            "launches": main_res["launches"][name],
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+        })
+    print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
