@@ -8,14 +8,16 @@ normalisation of the serving path in hand-written CUDA kernels.
 
 - ``brpc_tpu_torch.native`` / ``runtime``: the native builder and the ctypes
   surface the serving path needs (Server, Channel, NativeBatcher, flight
-  records).
-- ``brpc_tpu_torch.models.transformer``: the Llama-style model, its prefill
-  and the batched paged decode step.
+  records, the host KV page store, the metrics dump).
+- ``brpc_tpu_torch.models.transformer``: the Llama-style model, its prefill,
+  the paged suffix prefill of a prefix-cache hit and the batched paged
+  decode step.
 - ``brpc_tpu_torch.ops``: the CUDA kernels (``csrc/``), their builder and
   their wrappers, each with a plain PyTorch version beside it.
-- ``brpc_tpu_torch.kv_cache``: the paged KV block pool on the device.
-- ``brpc_tpu_torch.serving``: continuous-batching engine and streaming
-  client over the native batcher.
+- ``brpc_tpu_torch.kv_cache``: the paged KV block pool on the device, the
+  prefix index with its host tier, and the prefix resume.
+- ``brpc_tpu_torch.serving``: continuous-batching engine (prefix cache and
+  host tier on by default) and streaming client over the native batcher.
 
 Every entry point runs on ``cuda`` unless the caller passes
 ``device="cpu"``; without a card and without that argument it raises.

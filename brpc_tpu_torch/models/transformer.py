@@ -12,11 +12,14 @@ stay f32, as the reference's f32 norm math reads them.
 - ``prefill``: one right-padded sequence; returns the last real position's
   logits and the KV of every layer, ``[L, P, KV, Dh]`` (the reference pads
   its cache to max_seq; the pages cut from either are the same).
+- ``prefill_resume``: the suffix of a prompt whose prefix is cached in the
+  paged pool, written in place and read through the sequence's block table
+  (the reference runs over a dense gathered prefix view).
 - ``decode_step``: one token per lane for a batch of lanes over the paged
   KV pool, written in place and read through the block tables (the
   reference vmaps a per-sequence step over a dense gathered view).
 
-RMSNorm, prefill attention and paged decode attention go through the
+RMSNorm, prefill attention and the two paged attentions go through the
 wrappers in ``brpc_tpu_torch.ops`` (kernels on a CUDA tensor).
 """
 
@@ -289,6 +292,49 @@ def prefill(params: Params, tokens: torch.Tensor, length: int,
     last = _rms_norm(x[length - 1:length], params["ln_out"], cfg.norm_eps)
     logits = last[0] @ params["w_out"]
     return logits.float(), k_all, v_all
+
+
+def prefill_resume(params: Params, tokens: torch.Tensor, start: int,
+                   length: int, table: torch.Tensor, k_pool: torch.Tensor,
+                   v_pool: torch.Tensor, cfg: TransformerConfig
+                   ) -> torch.Tensor:
+    """Suffix prefill for a prefix-cache hit. The pages of ``table`` ([pages]
+    int32 block ids covering positions [0, length)) already hold positions
+    [0, start); ``tokens`` holds the prompt's tokens for positions
+    [start, length) (anything past ``length - start`` is ignored). Per
+    layer, the suffix rows' K/V land in place at (table[p // page], layer,
+    p % page), then attention reads the pool through the table: query
+    start + i attends every position <= start + i (K4 on the card). The
+    same math as ``prefill`` restricted to the suffix. Only the real rows
+    are computed, so no pad row reaches a page; rows of the last page past
+    ``length`` keep what they held, and decode overwrites them from
+    ``length`` on before any query attends them. Returns logits [vocab] f32
+    at position length-1; the pools are updated in place."""
+    n = length - start
+    H, KV, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    page = k_pool.shape[2]
+    dev = tokens.device
+    cos_t, sin_t = _rope_tables(cfg, dev)
+    pos = torch.arange(start, length, device=dev)
+    cos = cos_t[pos][:, None, :]  # [n, 1, half] broadcast over heads
+    sin = sin_t[pos][:, None, :]
+    blk = table.long()[pos // page]
+    off = pos % page
+    x = params["embed"][tokens[:n].long()]  # [n, D]
+    for l in range(cfg.n_layers):
+        lp = _layer(params, l)
+        h = _rms_norm(x, lp["ln_attn"], cfg.norm_eps)
+        q = _rope_apply((h @ lp["wq"]).reshape(n, H, Dh), cos, sin)
+        k = _rope_apply((h @ lp["wk"]).reshape(n, KV, Dh), cos, sin)
+        v = (h @ lp["wv"]).reshape(n, KV, Dh)
+        k_pool[:, l][blk, off] = k
+        v_pool[:, l][blk, off] = v
+        o = attention.paged_prefill_attention(q, k_pool, v_pool, table,
+                                              start, l)
+        x = x + o.reshape(n, H * Dh) @ lp["wo"]
+        x = _mlp(x, lp, cfg, _rms_norm)
+    last = _rms_norm(x[n - 1:n], params["ln_out"], cfg.norm_eps)
+    return (last[0] @ params["w_out"]).float()
 
 
 def decode_step(params: Params, tokens: torch.Tensor, pos: torch.Tensor,

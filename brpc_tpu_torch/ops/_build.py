@@ -112,8 +112,12 @@ def lib() -> ctypes.CDLL:
         i64, i64, i64, f32, ptr]
     handle.brpc_prefill_attention.argtypes = [
         i32, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, f32, ptr]
+    handle.brpc_paged_prefill_attention.argtypes = [
+        i32, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, i64,
+        i64, i64, f32, ptr]
     for fn in (handle.brpc_rms_norm, handle.brpc_paged_decode_attention,
-               handle.brpc_prefill_attention):
+               handle.brpc_prefill_attention,
+               handle.brpc_paged_prefill_attention):
         fn.restype = ctypes.c_int
     _lib = handle
     return _lib

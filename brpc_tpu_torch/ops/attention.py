@@ -1,5 +1,6 @@
-"""Attention of the serving path: the K1 (paged decode) and K2 (prefill)
-kernels' wrappers, each with its plain PyTorch version.
+"""Attention of the serving path: the K1 (paged decode), K2 (prefill) and
+K4 (paged suffix prefill) kernels' wrappers, each with its plain PyTorch
+version.
 
 The plain versions repeat the reference's arithmetic
 (brpc_tpu/models/transformer.py): logits in f32 from the model-dtype
@@ -150,3 +151,75 @@ def prefill_attention(q, k, v, length: int) -> torch.Tensor:
 
 
 prefill_attention.launches = 0
+
+
+# ---- K4: suffix-prefill attention over the paged pool ----------------------
+
+def paged_prefill_attention_plain(q, k_pool, v_pool, table, start: int,
+                                  layer: int) -> torch.Tensor:
+    """q: [n, H, Dh] at positions start .. start + n - 1; k_pool/v_pool:
+    [NB, L, page, KV, Dh]; table: [pages] int32 covering positions
+    [0, start + n) -> o [n, H, Dh]. Gathers the table's pages into a dense
+    view and masks keys past each query's position (the reference's
+    prefix view, cut to the pages in play)."""
+    n, H, Dh = q.shape
+    page, KV = k_pool.shape[2], k_pool.shape[3]
+    npages = -(-(start + n) // page)
+    idx = table[:npages].long()
+    kg = k_pool[:, layer][idx].reshape(npages * page, KV, Dh)
+    vg = v_pool[:, layer][idx].reshape(npages * page, KV, Dh)
+    kr, vr = _repeat_kv(kg, H // KV, 1), _repeat_kv(vg, H // KV, 1)
+    logits = torch.einsum("qhd,khd->hqk", q.float(), kr.float()) \
+        * softmax_scale(Dh)
+    span = torch.arange(npages * page, device=q.device)
+    qpos = start + torch.arange(n, device=q.device)
+    mask = span[None, :] <= qpos[:, None]
+    logits = torch.where(mask[None], logits,
+                         torch.tensor(_NEG, device=q.device))
+    probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    return torch.einsum("hqk,khd->qhd", probs.float(),
+                        vr.float()).to(q.dtype)
+
+
+def paged_prefill_attention(q, k_pool, v_pool, table, start: int,
+                            layer: int) -> torch.Tensor:
+    """Attention of the suffix rows at positions ``start + i`` over every
+    key at or before their position, read through ``table`` from layer
+    ``layer`` of the paged pool (the cached prefix plus the suffix rows
+    already written). On a CUDA tensor launches
+    csrc/paged_prefill_attention.cu (K4)."""
+    if q.device.type == "cpu":
+        return paged_prefill_attention_plain(q, k_pool, v_pool, table, start,
+                                             layer)
+    if q.device.type != "cuda":
+        raise ValueError(f"paged_prefill_attention: unsupported device "
+                         f"{q.device}")
+    n, H, Dh = q.shape
+    NB, L, page, KV, Dh2 = k_pool.shape
+    if (Dh2 != Dh or v_pool.shape != k_pool.shape
+            or k_pool.dtype != q.dtype or v_pool.dtype != q.dtype
+            or not (k_pool.is_contiguous() and v_pool.is_contiguous())):
+        raise ValueError("paged_prefill_attention: pools must be contiguous "
+                         "[NB, L, page, KV, Dh] in q's dtype")
+    if (table.dtype != torch.int32 or table.dim() != 1
+            or table.device != q.device
+            or table.shape[0] * page < start + n):
+        raise ValueError("paged_prefill_attention: table must be int32 [pages]"
+                         " on q's device, covering start + n positions")
+    if not 0 <= layer < L or H % KV or start < 0 or n < 1:
+        raise ValueError("paged_prefill_attention: bad layer, head counts, "
+                         "start or query count")
+    qc, tc = q.contiguous(), table.contiguous()
+    out = torch.empty_like(qc)
+    k_l, v_l = k_pool[:, layer], v_pool[:, layer]
+    rc = _build.lib().brpc_paged_prefill_attention(
+        _dtype_code(q), qc.data_ptr(), k_l.data_ptr(), v_l.data_ptr(),
+        tc.data_ptr(), out.data_ptr(), n, int(start), H, KV, Dh, page,
+        k_pool.stride(0), k_pool.stride(2), k_pool.stride(3),
+        softmax_scale(Dh), torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(rc, "paged_prefill_attention")
+    paged_prefill_attention.launches += 1
+    return out
+
+
+paged_prefill_attention.launches = 0

@@ -1,6 +1,7 @@
 """ctypes surface of the native RPC runtime, as far as the serving path
 needs it: Server, Channel with bidirectional streams, the request batcher,
-error codes, and the flight recorder's stamps.
+error codes, the flight recorder's stamps, the host-tier KV page store and
+the metrics dump.
 
 The C ABI is ``cpp/trpc/c_api.h``; the library is this package's own build
 (``native.lib()``). Handlers and stream sinks run on native worker threads
@@ -91,16 +92,34 @@ def _lib() -> ctypes.CDLL:
         lib.trpc_batcher_destroy.argtypes = [ctypes.c_void_p]
         lib.trpc_batcher_stats.argtypes = [
             ctypes.c_void_p, ctypes.POINTER(ctypes.c_longlong), ctypes.c_int]
+        lib.trpc_kv_host_configure.argtypes = [ctypes.c_longlong]
+        lib.trpc_kv_host_put.argtypes = [
+            ctypes.c_ulonglong, ctypes.c_char_p, ctypes.c_size_t]
+        lib.trpc_kv_host_bytes.argtypes = [ctypes.c_ulonglong]
+        lib.trpc_kv_host_bytes.restype = ctypes.c_longlong
+        lib.trpc_kv_host_get.argtypes = [
+            ctypes.c_ulonglong, ctypes.c_void_p, ctypes.c_size_t]
+        lib.trpc_kv_host_drop.argtypes = [ctypes.c_ulonglong]
+        lib.trpc_kv_tier_stats.argtypes = [
+            ctypes.POINTER(ctypes.c_longlong), ctypes.c_int]
+        lib.trpc_kv_tier_note_fill.argtypes = [
+            ctypes.c_longlong, ctypes.c_int]
+        lib.trpc_dump_metrics.argtypes = [c_char_pp]
+        lib.trpc_dump_metrics.restype = ctypes.c_size_t
         for fn in (lib.trpc_init, lib.trpc_server_start,
                    lib.trpc_server_stop, lib.trpc_stream_close,
                    lib.trpc_stream_open3, lib.trpc_flight_stamp,
                    lib.trpc_flight_route, lib.trpc_batcher_add_method,
                    lib.trpc_batcher_next_batch, lib.trpc_batcher_emit,
                    lib.trpc_batcher_finish, lib.trpc_batcher_note_occupancy,
-                   lib.trpc_batcher_stop, lib.trpc_batcher_stats):
+                   lib.trpc_batcher_stop, lib.trpc_batcher_stats,
+                   lib.trpc_kv_host_configure, lib.trpc_kv_host_put,
+                   lib.trpc_kv_host_get, lib.trpc_kv_host_drop,
+                   lib.trpc_kv_tier_stats):
             fn.restype = ctypes.c_int
         for fn in (lib.trpc_server_destroy, lib.trpc_channel_destroy,
-                   lib.trpc_buf_free, lib.trpc_batcher_destroy):
+                   lib.trpc_buf_free, lib.trpc_batcher_destroy,
+                   lib.trpc_kv_tier_note_fill):
             fn.restype = None
         rc = lib.trpc_init(0)
         if rc != 0:
@@ -361,6 +380,107 @@ def app_counter_add(name: str, delta: int = 0) -> int:
     """Advance (or with ``delta`` 0, read) a process-wide application
     counter exposed beside the native metrics."""
     return int(_lib().trpc_app_counter_add(name.encode(), int(delta)))
+
+
+def dump_metrics() -> str:
+    """All native metrics (and the application counters) in Prometheus
+    text format."""
+    lib = _lib()
+    out = ctypes.POINTER(ctypes.c_char)()
+    n = lib.trpc_dump_metrics(ctypes.byref(out))
+    try:
+        return ctypes.string_at(out, n).decode(errors="replace")
+    finally:
+        lib.trpc_buf_free(out)
+
+
+def metrics() -> dict:
+    """``dump_metrics()`` parsed into ``{name: float}``; labelled samples
+    keep the label text in the key."""
+    out = {}
+    for line in dump_metrics().splitlines():
+        if not line or line.startswith("#"):
+            continue
+        name, _, value = line.rpartition(" ")
+        try:
+            out[name] = float(value)
+        except ValueError:
+            continue
+    return out
+
+
+# ---- host-tier KV page store (cpp/trpc/kv_transfer.h "host tier") ----------
+
+KV_TIER_STAT_NAMES = (
+    "kv_tier_budget_bytes", "kv_tier_host_bytes", "kv_tier_host_pages",
+    "kv_tier_spills", "kv_tier_fills", "kv_tier_peer_fills",
+    "kv_tier_spill_bytes", "kv_tier_evictions", "kv_tier_misses",
+    "kv_tier_pull_serves",
+)
+
+
+def kv_host_configure(budget_bytes: int = 0) -> None:
+    """(Re)size the process-wide host page store; <= 0 keeps the current
+    budget (env TRPC_KV_HOST_MB, default 64 MB)."""
+    _lib().trpc_kv_host_configure(budget_bytes)
+
+
+def kv_host_put(key: int, data) -> int:
+    """Store one page's bytes (``bytes`` or a contiguous numpy array, read
+    in place) under a 64-bit content key (idempotent per key, bounded
+    LRU). 0, or an errno when not stored (ELIMIT: larger than the whole
+    budget); callers treat nonzero as "not stored"."""
+    if isinstance(data, bytes):
+        return _lib().trpc_kv_host_put(key, data, len(data))
+    import numpy as np
+
+    arr = np.ascontiguousarray(data)
+    return _lib().trpc_kv_host_put(
+        key, ctypes.cast(arr.ctypes.data, ctypes.c_char_p), arr.nbytes)
+
+
+def kv_host_has(key: int) -> bool:
+    """Whether the store holds ``key`` (no LRU touch)."""
+    return _lib().trpc_kv_host_bytes(key) >= 0
+
+
+def kv_host_entry_bytes(key: int) -> int:
+    """Size of the entry under ``key``, -1 when absent (no LRU touch)."""
+    return _lib().trpc_kv_host_bytes(key)
+
+
+def kv_host_get(key: int):
+    """The page bytes under ``key`` as a numpy uint8 array, or None when
+    the store no longer holds it."""
+    import numpy as np
+
+    lib = _lib()
+    n = lib.trpc_kv_host_bytes(key)
+    if n < 0:
+        return None
+    out = np.empty(n, dtype=np.uint8)
+    if lib.trpc_kv_host_get(key, out.ctypes.data_as(ctypes.c_void_p), n):
+        return None
+    return out
+
+
+def kv_host_drop(key: int) -> bool:
+    """Drop one entry; True when it existed."""
+    return _lib().trpc_kv_host_drop(key) == 0
+
+
+def kv_tier_stats() -> dict:
+    """Host-tier occupancy and spill/fill counters, ``{name: int}`` (also
+    on /vars and the metrics dump as kv_tier_* gauges)."""
+    buf = (ctypes.c_longlong * len(KV_TIER_STAT_NAMES))()
+    n = _lib().trpc_kv_tier_stats(buf, len(buf))
+    return dict(zip(KV_TIER_STAT_NAMES[:n], [int(v) for v in buf[:n]]))
+
+
+def kv_tier_note_fill(fill_us: int, peer: bool = False) -> None:
+    """Feed the kv_tier_fill_us recorder (and, with ``peer``, the peer-fill
+    counter) with one fill's wall time."""
+    _lib().trpc_kv_tier_note_fill(int(fill_us), 1 if peer else 0)
 
 
 # ---- flight recorder (cpp/trpc/flight.h) -----------------------------------

@@ -10,6 +10,13 @@ sequence's KV lives in the paged pool (``kv_cache.PagedKvPool``): it owns a
 block table, allocates pages as it grows, and releases them on finish, so
 slots vacated mid-flight are refilled by newly admitted requests.
 
+Prefix cache (on by default, as in the reference): a prompt that shares a
+cached prefix retains the cached pages and prefills only from the first
+uncached position (``kv_cache.prefix_resume``); finished sequences are
+admitted for the next chat turn. With the host tier (also on by default),
+pages evicted off the pool's LRU spill to the native host page store and
+fill back on the next match.
+
 Wire protocol (unchanged):
     request   <u32le max_new_tokens> <u32le prompt_len> <prompt_len x u32le>
               [optional <u16 len><utf8> tags: tenant, tier, model]
@@ -20,8 +27,6 @@ The client budget is the RPC deadline (``timeout_ms``): queued requests
 whose budget expires are culled without a model step, and a generation
 that outlives it is cut off with ERPCTIMEDOUT.
 
-In this package the prefix cache and the host KV tier are not ported yet:
-``prefix_cache`` and ``kv_host_tier`` default to off and raise when set.
 All device work runs on the engine's loop thread.
 """
 
@@ -162,9 +167,8 @@ class ServingEngine(DrainMixin):
     paged block pool. ``step()`` runs one admit + prefill + decode
     iteration; with ``autostart`` a daemon thread loops it. ``device``
     defaults to ``cuda`` (raises without a card); the tests pass
-    ``device="cpu"``. The constructor is the reference's, less the options
-    that only tune the prefix cache and its host tier: of ``prefix_cache``
-    and ``kv_host_tier`` only the off setting exists in this package so far.
+    ``device="cpu"``. The other options are the reference's, with its
+    defaults.
     """
 
     service = SERVICE
@@ -178,16 +182,15 @@ class ServingEngine(DrainMixin):
                  eos_token: Optional[int] = None,
                  kv_page_tokens: int = 16,
                  kv_blocks: Optional[int] = None,
-                 prefix_cache: bool = False,
-                 kv_host_tier: bool = False,
+                 prefix_cache: bool = True,
+                 kv_host_tier: bool = True,
+                 kv_host_budget_bytes: int = 0,
+                 prefix_ttl_s: Optional[float] = 600.0,
+                 prefix_gc_interval_s: float = 30.0,
+                 admit_finished: bool = True,
                  limiter: str = "",
                  port: int = 0, autostart: bool = True,
                  device=None):
-        if prefix_cache or kv_host_tier:
-            raise NotImplementedError(
-                "prefix_cache / kv_host_tier: the prefix-resume path (suffix "
-                "prefill over cached pages) comes with the next slice of the "
-                "port; run with prefix_cache=False, kv_host_tier=False")
         self.device = resolve_device(device)
         self.params = params
         self.cfg = cfg
@@ -205,6 +208,22 @@ class ServingEngine(DrainMixin):
                    else self.slots * max_blocks + 1)
         self.pool = kv_cache.PagedKvPool(cfg, nblocks, kv_page_tokens,
                                          device=self.device)
+        # Cross-request prefix cache over the pool; with the host tier,
+        # pages evicted off the LRU spill to the host store.
+        self.prefix = (kv_cache.PrefixIndex(
+            self.pool, kv_page_tokens,
+            token_bytes=kv_cache.kv_token_bytes(cfg),
+            host_tier=kv_host_tier,
+            host_budget_bytes=kv_host_budget_bytes)
+            if prefix_cache else None)
+        # Multi-turn seam: a finished sequence's pages (prompt + reply) are
+        # admitted at vacate time, so the next turn resumes off them.
+        self.admit_finished = admit_finished
+        # TTL gc beyond the pool's LRU: ages out cold index entries and
+        # their host pages on a periodic sweep.
+        self.prefix_ttl_s = prefix_ttl_s
+        self.prefix_gc_interval_s = prefix_gc_interval_s
+        self._last_gc = time.monotonic()
         self._decode = kv_cache.paged_decode_fn(cfg, kv_page_tokens)
         # slot i's block table row; unused entries point at garbage block 0
         self._tables = np.zeros((self.slots, max_blocks), np.int32)
@@ -214,7 +233,9 @@ class ServingEngine(DrainMixin):
         self.model_steps = 0      # decode invocations
         self.decode_seconds = 0.0  # wall time of those steps (synchronised)
         self.prefill_seconds = 0.0  # wall time of the prefills (synchronised)
-        self.prefills = 0
+        self.prefills = 0         # cold prefills (K2)
+        self.resume_seconds = 0.0  # wall time of the resumes (synchronised)
+        self.resumes = 0          # suffix prefills off a prefix hit (K4)
         self.tokens_out = 0
         self.reclaimed_slots = 0  # vacated because the client went away
         self.draining = False
@@ -258,7 +279,8 @@ class ServingEngine(DrainMixin):
             self._running = False
             self.batcher.stop()
 
-    def _activate_seq(self, slot: int, seq: dict, blocks: list) -> bool:
+    def _activate_seq(self, slot: int, seq: dict, blocks: list,
+                      emit_first: bool = True) -> bool:
         """Emit the prefill's token and seat the sequence in ``slot``;
         False when it already finished (or its client left)."""
         row = self._tables[slot]
@@ -266,7 +288,7 @@ class ServingEngine(DrainMixin):
         row[:len(blocks)] = blocks
         seq["blocks"] = blocks
         tok = seq["last"]
-        if not self._emit_token(seq, tok):
+        if emit_first and not self._emit_token(seq, tok):
             self.pool.release(blocks)
             row[:] = 0
             return False
@@ -279,11 +301,17 @@ class ServingEngine(DrainMixin):
         self._seq[slot] = seq
         return True
 
-    def _vacate(self, slot: int) -> None:
+    def _vacate(self, slot: int, admit: bool = True) -> None:
         """Free ``slot``'s pages and table row (the sequence already got
-        its terminal frame)."""
+        its terminal frame). With ``admit`` (and admit_finished) the pages,
+        prompt and generated tokens, are admitted to the prefix index first,
+        so the next chat turn can resume off them."""
         seq = self._seq[slot]
         if seq is not None and seq.get("blocks"):
+            if (admit and self.admit_finished and self.prefix is not None
+                    and len(seq.get("tokens", ())) == seq["pos"]):
+                self.prefix.admit(seq["tokens"], seq["blocks"])
+                self.prefix.sync_native()
             self.pool.release(seq["blocks"])
         if seq is not None and self.draining:
             self.drained_generations += 1
@@ -298,6 +326,21 @@ class ServingEngine(DrainMixin):
         except ValueError as e:
             self.batcher.finish(req_id, runtime.EREQUEST, str(e))
             return False
+        return self._admit_prompt(req_id, prompt, max_new, remaining_us,
+                                  slot)
+
+    def _admit_prompt(self, req_id: int, prompt, max_new: int,
+                      remaining_us: int, slot: int, *,
+                      min_hit_tokens: int = -1,
+                      emit_first: bool = True) -> bool:
+        """Admit one prompt into ``slot``, reusing cached prefix pages.
+
+        A prefix hit retains the cached pages into this sequence's block
+        table and prefills only from the first uncached position (K4 over
+        the table); a mid-page hit copies the shared tail page when another
+        holder still references it. ``min_hit_tokens >= 0`` demands a hit
+        of at least that many tokens and rejects with EREJECT otherwise
+        (the disaggregated splice path)."""
         if len(prompt) == 0 or len(prompt) > self.max_prompt:
             self.batcher.finish(req_id, runtime.EREQUEST,
                                 f"prompt length {len(prompt)} not in "
@@ -310,23 +353,57 @@ class ServingEngine(DrainMixin):
         max_new = min(max_new, self.cfg.max_seq - len(prompt))
         P = len(prompt)
         runtime.flight_stamp(req_id, runtime.FLIGHT_PREFILL_START)
-        blocks = self.pool.alloc(kv_cache.pages_for(P, self.page_tokens))
-        if blocks is None:
-            self.batcher.finish(req_id, runtime.ELIMIT,
-                                "kv block pool exhausted")
+        shared, use = [], 0
+        host_fill = False
+        if self.prefix is not None:
+            # The last prompt token is always recomputed: its logits are
+            # the first output token.
+            hh0 = self.prefix.host_hits
+            shared, use = self.prefix.match(prompt, P - 1)
+            host_fill = self.prefix.host_hits > hh0
+            if use and not kv_cache.can_resume(self.cfg, use, P):
+                self.pool.release(shared)
+                shared, use = [], 0
+        if min_hit_tokens >= 0 and use < min_hit_tokens:
+            if shared:
+                self.pool.release(shared)
+            self.splice_rejects = getattr(self, "splice_rejects", 0) + 1
+            self.batcher.finish(req_id, runtime.EREJECT,
+                                f"prefix miss: {use}/{P} tokens cached")
             return False
         t_prefill = time.monotonic()
-        padded = np.zeros(prompt_bucket(P, self.max_prompt), np.int32)
-        padded[:P] = prompt
-        logits, k, v = transformer.prefill(
-            self.params, torch.from_numpy(padded).to(self.device), P,
-            self.cfg)
-        self.prefills += 1
-        k_pages, v_pages = kv_cache.prefill_cache_pages(k, v, P,
-                                                        self.page_tokens)
-        self.pool.write_blocks(blocks, k_pages, v_pages)
-        tok = int(logits.argmax())  # synchronises: the prefill is done
-        self.prefill_seconds += time.monotonic() - t_prefill
+        if use:
+            runtime.flight_route(
+                req_id, runtime.ROUTE_HOST_FILL if host_fill
+                else runtime.ROUTE_HBM_HIT)
+            out = kv_cache.prefix_resume(
+                self.pool, self.params, self.cfg, self.page_tokens, prompt,
+                shared, use, index=self.prefix)
+            if out is None:
+                self.batcher.finish(req_id, runtime.ELIMIT,
+                                    "kv block pool exhausted")
+                return False
+            logits, blocks = out
+            tok = int(logits.argmax())  # synchronises: the resume is done
+            self.resumes += 1
+            self.resume_seconds += time.monotonic() - t_prefill
+        else:
+            blocks = self.pool.alloc(kv_cache.pages_for(P, self.page_tokens))
+            if blocks is None:
+                self.batcher.finish(req_id, runtime.ELIMIT,
+                                    "kv block pool exhausted")
+                return False
+            padded = np.zeros(prompt_bucket(P, self.max_prompt), np.int32)
+            padded[:P] = prompt
+            logits, k, v = transformer.prefill(
+                self.params, torch.from_numpy(padded).to(self.device), P,
+                self.cfg)
+            k_pages, v_pages = kv_cache.prefill_cache_pages(
+                k, v, P, self.page_tokens)
+            self.pool.write_blocks(blocks, k_pages, v_pages)
+            tok = int(logits.argmax())  # synchronises: the prefill is done
+            self.prefills += 1
+            self.prefill_seconds += time.monotonic() - t_prefill
         runtime.flight_stamp(req_id, runtime.FLIGHT_PREFILL_DONE)
         deadline = (time.monotonic() + remaining_us / 1e6
                     if remaining_us >= 0 else None)
@@ -336,9 +413,17 @@ class ServingEngine(DrainMixin):
             "last": tok,
             "left": max_new,
             "deadline": deadline,
+            # Every token whose KV the pages hold (grows as decode feeds
+            # tokens): the admission key of the finished sequence.
             "tokens": [int(t) for t in prompt],
         }
-        return self._activate_seq(slot, seq, blocks)
+        if self.prefix is not None:
+            # Admit before activation: admit reads the pages (host export)
+            # while our references are held, and activation may release
+            # them (client gone, immediate finish).
+            self.prefix.admit(prompt, blocks)
+            self.prefix.sync_native()
+        return self._activate_seq(slot, seq, blocks, emit_first=emit_first)
 
     def _emit_token(self, seq: dict, tok: int) -> bool:
         """Emit one token; False = the client is gone (slot reclaimable)."""
@@ -358,6 +443,11 @@ class ServingEngine(DrainMixin):
         Blocks up to ``wait_us`` for admissions only when fully idle; with
         sequences in flight the admission poll is non-blocking, so decode
         cadence never waits on the queue."""
+        if self.prefix is not None and self.prefix_ttl_s is not None:
+            now = time.monotonic()
+            if now - self._last_gc >= self.prefix_gc_interval_s:
+                self._last_gc = now
+                self.prefix.gc(self.prefix_ttl_s)
         active = [i for i, s in enumerate(self._seq) if s is not None]
         free = [i for i, s in enumerate(self._seq) if s is None]
         if self.draining:
@@ -491,6 +581,8 @@ class ServingEngine(DrainMixin):
             decode_seconds=self.decode_seconds,
             prefill_seconds=self.prefill_seconds,
             prefills=self.prefills,
+            resume_seconds=self.resume_seconds,
+            resumes=self.resumes,
             tokens_out=self.tokens_out,
             reclaimed_slots=self.reclaimed_slots,
             active_slots=sum(x is not None for x in self._seq),
@@ -503,6 +595,11 @@ class ServingEngine(DrainMixin):
         )
         for k, v in self.pool.stats().items():
             s[f"kv_{k}"] = v
+        if self.prefix is not None:
+            for k, v in self.prefix.counters().items():
+                s[f"kv_prefix_{k}"] = v
+            if self.prefix.host_tier:
+                s.update(runtime.kv_tier_stats())
         return s
 
     def close(self) -> None:
@@ -516,7 +613,7 @@ class ServingEngine(DrainMixin):
             if seq is not None:
                 self.batcher.finish(seq["id"], runtime.ECANCELED,
                                     "engine shut down")
-                self._vacate(i)
+                self._vacate(i, admit=False)
         self.batcher.close()     # queued leftovers get ECANCELED terminals
         self.server.close()
 

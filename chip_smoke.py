@@ -1,9 +1,12 @@
 """On-card smoke of brpc_tpu_torch: builds the native runtime and the CUDA
 kernels from this checkout, holds each kernel against its plain PyTorch
 version at the serving path's shapes, checks that the f32 serving engine
-streams exactly the plain forward's greedy tokens, and serves Llama-3-8B
-at full width and depth (random seeded weights) through the native
-batcher and the kernels.
+streams exactly the plain forward's greedy tokens (cold prompts, then
+prefix-cache resumes over two chat turns), and serves Llama-3-8B at full
+width and depth (random seeded weights) through the native batcher and the
+kernels: first a prefix-cache phase (shared system prompt, two chat turns,
+a wave that pushes the cached pages out to the host tier, and re-sent
+conversations that fill back from it), then the main path's cold swarm.
 
     python3 chip_smoke.py            # all phases, one card
     python3 chip_smoke.py --profile  # + a profiled swarm after phase 5
@@ -47,12 +50,15 @@ TOL = {torch.bfloat16: (2e-2, 1e-2), torch.float32: (1e-4, 1e-4)}
 REPLACES = {
     "paged_decode_attention": "brpc_tpu/kv_cache.py:312",
     "prefill_attention": "brpc_tpu/models/transformer.py:242",
+    "paged_prefill_attention": "brpc_tpu/kv_cache.py:1151",
     "rms_norm": "brpc_tpu/models/transformer.py:102",
 }
 SOURCES = {
     "paged_decode_attention":
         "brpc_tpu_torch/csrc/paged_decode_attention.cu",
     "prefill_attention": "brpc_tpu_torch/csrc/prefill_attention.cu",
+    "paged_prefill_attention":
+        "brpc_tpu_torch/csrc/paged_prefill_attention.cu",
     "rms_norm": "brpc_tpu_torch/csrc/rms_norm.cu",
 }
 
@@ -105,6 +111,9 @@ def compare(name: str, got: torch.Tensor, want: torch.Tensor, dtype) -> float:
 
 
 # ---- phase 3: each kernel against its plain version -------------------------
+
+# Phase 3's K4 cases: (start, queries).
+K4_CASES = ((1008, 40), (517, 300), (4000, 1))
 
 # Phase 5's prompt lengths; its last decode step attends length + 31 keys.
 MAIN_LENGTHS = [16, 1024, 100, 517, 64, 300, 800, 33]
@@ -203,6 +212,58 @@ def check_prefill(dtype, gen, P: int, length: int) -> dict:
             "bound_by": by, "library_ms": lib_ms}
 
 
+def check_paged_prefill(dtype, gen, start: int, n: int) -> dict:
+    from brpc_tpu_torch.ops import attention
+
+    dev = torch.device("cuda")
+    H, KV, Dh, page, L = 32, 8, 128, 16, 32
+    layer = L - 1  # the last layer: exercises the pool's layer stride
+    pages = -(-(start + n) // page)
+    nb = pages + 5
+    k_pool = torch.randn((nb, L, page, KV, Dh), generator=gen, device=dev
+                         ).to(dtype)
+    v_pool = torch.randn_like(k_pool)
+    table = (torch.randperm(nb - 1, generator=gen, device=dev)[:pages]
+             + 1).int()
+    q = torch.randn((n, H, Dh), generator=gen, device=dev).to(dtype)
+
+    def kern():
+        return attention.paged_prefill_attention(q, k_pool, v_pool, table,
+                                                 start, layer)
+
+    def plain():
+        return attention.paged_prefill_attention_plain(q, k_pool, v_pool,
+                                                       table, start, layer)
+
+    err = compare(f"paged_prefill_attention start={start} n={n}", kern(),
+                  plain(), dtype)
+    # Library yardstick: SDPA with an explicit mask over the already
+    # gathered dense K/V (the gather itself is not timed).
+    T = pages * page
+    idx = table.long()
+    kd = k_pool[:, layer][idx].reshape(T, KV, Dh).repeat_interleave(
+        H // KV, dim=1).transpose(0, 1)[None].contiguous()
+    vd = v_pool[:, layer][idx].reshape(T, KV, Dh).repeat_interleave(
+        H // KV, dim=1).transpose(0, 1)[None].contiguous()
+    qpos = start + torch.arange(n, device=dev)
+    mask = (torch.arange(T, device=dev)[None, :] <= qpos[:, None]
+            )[None, None]
+    q4 = q.transpose(0, 1)[None]
+    F = torch.nn.functional
+    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        q4, kd, vd, attn_mask=mask), iters=5)
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    nbytes = (2 * (start + n) * KV * Dh + 2 * n * H * Dh) * itemsize \
+        + pages * 4
+    flops = 4.0 * H * Dh * (n * start + n * (n + 1) / 2)
+    b, by = bound_ms(nbytes, flops, dtype)
+    return {"shape": f"q[{n},{H},{Dh}] start={start} pool[{nb},{L},{page},"
+                     f"{KV},{Dh}]",
+            "max_abs_err": err, "ms": time_ms(kern, iters=5),
+            "plain_ms": time_ms(plain, iters=5), "bound_ms": b,
+            "bound_by": by, "library_ms": lib_ms}
+
+
 def check_rms_norm(dtype, gen, rows: int) -> dict:
     from brpc_tpu_torch.ops import norm
 
@@ -234,7 +295,7 @@ def check_rms_norm(dtype, gen, rows: int) -> dict:
 def phase_kernels() -> dict:
     gen = torch.Generator(device="cuda").manual_seed(0)
     cases = {"paged_decode_attention": [], "prefill_attention": [],
-             "rms_norm": []}
+             "paged_prefill_attention": [], "rms_norm": []}
     for dtype in (torch.bfloat16, torch.float32):
         tag = str(dtype).replace("torch.", "")
         runs = [("paged_decode_attention", check_paged_decode(
@@ -245,6 +306,11 @@ def phase_kernels() -> dict:
         for P, length in ((8, 5), (512, 300), (1024, 1024), (4096, 3000)):
             runs.append(("prefill_attention",
                          check_prefill(dtype, gen, P, length)))
+        # page-aligned start (a turn-2 resume's shape), mid-page start with
+        # a long suffix, one query deep in the cache
+        for start, n in K4_CASES:
+            runs.append(("paged_prefill_attention",
+                         check_paged_prefill(dtype, gen, start, n)))
         for rows in (8, 1000):
             runs.append(("rms_norm", check_rms_norm(dtype, gen, rows)))
         for name, r in runs:
@@ -297,14 +363,12 @@ def run_swarm(engine, prompts, max_new: int) -> dict:
     return {"tokens": results, "ttft_s": ttft, "wall_s": wall}
 
 
-def phase_exactness() -> dict:
-    from brpc_tpu_torch import serving
+def phase_exactness(cfg) -> dict:
+    from brpc_tpu_torch import ops, serving
     from brpc_tpu_torch.models import transformer
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = dataclasses.replace(transformer.TransformerConfig.llama3_8b(),
-                              n_layers=2, dtype=torch.float32)
     gen = torch.Generator(device="cuda").manual_seed(1)
     params = transformer.init_params(cfg, gen, device="cuda")
     rng = np.random.default_rng(1)
@@ -315,6 +379,27 @@ def phase_exactness() -> dict:
                                 max_prompt=128, kv_blocks=64)
     try:
         out = run_swarm(eng, prompts, 8)
+        # Two chat turns over a shared 40-token prefix (a mid-page start):
+        # p0 is the prefix itself and keeps decoding while a and b extend
+        # it, so their resumes copy p0's shared tail page; then each
+        # conversation's follow-up resumes off its finished first turn.
+        p0 = rng.integers(0, cfg.vocab, 40).tolist()
+        a = p0 + rng.integers(0, cfg.vocab, 10).tolist()
+        b = p0 + rng.integers(0, cfg.vocab, 23).tolist()
+        ops.reset_launch_counts()
+        s0 = eng.stats()
+        with serving.ServingClient(f"127.0.0.1:{eng.port}",
+                                   timeout_ms=600_000) as c:
+            it = c.generate(p0, 40)
+            first = next(it)
+            ab = run_swarm(eng, [a, b], 8)["tokens"]
+            r0 = [first] + list(it)
+        turn1 = [(p0, r0), (a, ab[0]), (b, ab[1])]
+        turn2 = [p + r + rng.integers(0, cfg.vocab, 3 + i).tolist()
+                 for i, (p, r) in enumerate(turn1)]
+        t2 = run_swarm(eng, turn2, 8)["tokens"]
+        launches = ops.launch_counts()
+        s1 = eng.stats()
     finally:
         eng.close()
     log("[exact] streams done; rolling out the plain forward")
@@ -323,12 +408,219 @@ def phase_exactness() -> dict:
         if out["tokens"][i] != ref:
             raise AssertionError(f"f32 stream {i} (prompt {len(p)}): "
                                  f"{out['tokens'][i]} != plain {ref}")
-    log(f"[exact] f32 Llama-3-8B width, 2 layers: 4 concurrent streams "
+    chats = turn1 + [(p, t2[i]) for i, p in enumerate(turn2)]
+    for i, (p, toks) in enumerate(chats):
+        ref = transformer.greedy_reference(params, cfg, p, len(toks))
+        if toks != ref:
+            raise AssertionError(f"f32 chat stream {i} (prompt {len(p)}): "
+                                 f"{toks} != plain {ref}")
+    resumes = s1["resumes"] - s0["resumes"]
+    cows = s1["kv_prefix_cow_copies"] - s0["kv_prefix_cow_copies"]
+    if resumes < 5 or cows < 1:
+        raise AssertionError(f"chat script resumed {resumes} times with "
+                             f"{cows} copy-on-writes; want >= 5 and >= 1")
+    if launches["paged_prefill_attention"] != cfg.n_layers * resumes:
+        raise AssertionError(f"K4 launched "
+                             f"{launches['paged_prefill_attention']} times "
+                             f"over {resumes} resumes")
+    log(f"[exact] f32 Llama-3-8B width, {cfg.n_layers} layers: 4 "
+        f"concurrent streams "
         f"(prompts 5/16/17/100, 8 tokens) identical to the plain forward's "
-        f"greedy rollout")
+        f"greedy rollout; two chat turns over a 40-token shared prefix: "
+        f"{resumes} resumes ({cows} copy-on-write), all 6 streams identical "
+        f"to the plain rollout of the full prompt")
     del params
     torch.cuda.empty_cache()
-    return {"streams": [out["tokens"][i] for i in range(len(prompts))]}
+    return {"streams": [out["tokens"][i] for i in range(len(prompts))],
+            "chat_streams": [t for _, t in chats], "resumes": resumes,
+            "cow_copies": cows}
+
+
+def flight_ttfts(n: int) -> tuple:
+    """TTFT (ms) of the newest ``n`` finished requests, split into prefix
+    hits (routed HBM_HIT or HOST_FILL) and misses, and how many carry
+    HOST_FILL."""
+    from brpc_tpu_torch import runtime
+
+    hit_bits = runtime.ROUTE_HBM_HIT | runtime.ROUTE_HOST_FILL
+    hits, misses, host = [], [], 0
+    for r in runtime.flight_records(max_items=n, oldest_first=False):
+        route = int(r.get("route", 0))
+        (hits if route & hit_bits else misses).append(
+            int(r.get("ttft_us", 0)) / 1e3)
+        host += bool(route & runtime.ROUTE_HOST_FILL)
+    return sorted(hits), sorted(misses), host
+
+
+def p50(xs):
+    return xs[len(xs) // 2] if xs else None
+
+
+# TTFT segments from the flight records' phase stamps: queued in the
+# batcher, waiting behind the earlier admissions of the same engine step,
+# the prefill or resume itself, and the rest up to the first token (the
+# prefix index's admission with its host-tier export, then the emit).
+TTFT_SEGMENTS = (("queue", "admit_us", "batch_formed_us"),
+                 ("wait", "batch_formed_us", "prefill_start_us"),
+                 ("prefill", "prefill_start_us", "prefill_done_us"),
+                 ("admit_emit", "prefill_done_us", "first_emit_us"))
+
+
+def ttft_breakdown(n: int) -> dict:
+    """Mean ms of each TTFT segment over the newest ``n`` finished
+    requests."""
+    from brpc_tpu_torch import runtime
+
+    recs = runtime.flight_records(max_items=n, oldest_first=False)
+    out = {}
+    for name, a, b in TTFT_SEGMENTS:
+        spans = [(r[b] - r[a]) / 1e3 for r in recs if a in r and b in r]
+        out[name] = sum(spans) / len(spans) if spans else None
+    return out
+
+
+# Prefix phase: a 1000-token system prompt (62 full pages + 8 tokens) and
+# eight user suffixes; the second conversation extends the first's
+# mid-page prompt (1060 tokens) while that one is still decoding.
+SYSTEM_TOKENS = 1000
+USER_TOKENS = (60, 100, 24, 300, 150, 77, 211, 33)
+PREFIX_NEW = 32
+TURN2_TOKENS = 40
+WAVE3 = (8, 800, 8)  # prompts, tokens each, new tokens
+# The host tier's budget: 2 GiB at Llama-3-8B width. The store evicts in
+# export order and the phase exports about 610 pages (both chat turns, then
+# the third wave), so at 512 pages the system prompt's pages, exported
+# first, would be gone before the re-send.
+HOST_PAGES = 1024
+
+
+def phase_prefix(params, cfg, card: str) -> dict:
+    """The prefix-cache serving path at full width: turn 1 of eight
+    conversations over one system prompt, turn 2 off the finished turn 1,
+    a third wave of unrelated prompts that evicts the cached pages into
+    the host tier, and two turn-1 conversations re-sent, which fill back
+    from it."""
+    from brpc_tpu_torch import kv_cache, ops, runtime, serving
+
+    rng = np.random.default_rng(2)
+    vocab = cfg.vocab
+    system = rng.integers(0, vocab, SYSTEM_TOKENS).tolist()
+    users = [rng.integers(0, vocab, USER_TOKENS[0]).tolist()]
+    users.append(users[0] + rng.integers(
+        0, vocab, USER_TOKENS[1] - USER_TOKENS[0]).tolist())
+    users += [rng.integers(0, vocab, n).tolist() for n in USER_TOKENS[2:]]
+    turn1 = [system + u for u in users]
+    n3, len3, new3 = WAVE3
+    wave3 = [rng.integers(0, vocab, len3).tolist() for _ in range(n3)]
+    # The pool holds the whole third wave live and little else, so the
+    # wave pushes the two chat turns' pages off the LRU.
+    blocks = n3 * kv_cache.pages_for(len3 + new3, 16) + 16
+    eng = serving.ServingEngine(params, cfg, max_batch_size=8, slots=8,
+                                max_prompt=2048, kv_blocks=blocks,
+                                kv_host_budget_bytes=HOST_PAGES *
+                                kv_cache.host_page_bytes(cfg, 16))
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        t0 = time.monotonic()
+        # The first conversation goes first and keeps decoding while the
+        # other seven arrive: the second extends its mid-page prompt.
+        with serving.ServingClient(f"127.0.0.1:{eng.port}",
+                                   timeout_ms=600_000) as c:
+            it = c.generate(turn1[0], PREFIX_NEW)
+            first = next(it)
+            rest = run_swarm(eng, turn1[1:], PREFIX_NEW)["tokens"]
+            r1 = {0: [first] + list(it)}
+        r1.update({i + 1: t for i, t in rest.items()})
+        turn2 = [p + r1[i] + rng.integers(0, vocab, TURN2_TOKENS).tolist()
+                 for i, p in enumerate(turn1)]
+        r2 = run_swarm(eng, turn2, PREFIX_NEW)["tokens"]
+        s_chat = eng.stats()
+        r3 = run_swarm(eng, wave3, new3)["tokens"]
+        s_wave = eng.stats()
+        again = [turn1[2], turn1[3]]
+        r4 = run_swarm(eng, again, 8)["tokens"]
+        wall = time.monotonic() - t0
+        launches = ops.launch_counts()
+        stats = eng.stats()
+    finally:
+        eng.close()
+    n_req = len(turn1) + len(turn2) + len(wave3) + len(again)
+    hits, misses, host_routed = flight_ttfts(n_req)
+    segments = ttft_breakdown(n_req)
+    L = cfg.n_layers
+    if launches["paged_prefill_attention"] != L * stats["resumes"] \
+            or stats["resumes"] == 0:
+        raise AssertionError(f"K4 launched "
+                             f"{launches['paged_prefill_attention']} times "
+                             f"over {stats['resumes']} resumes")
+    if launches["prefill_attention"] != L * stats["prefills"]:
+        raise AssertionError(f"K2 launched {launches['prefill_attention']} "
+                             f"times over {stats['prefills']} prefills")
+    steps = stats["model_steps"]
+    if launches["paged_decode_attention"] != L * steps or steps == 0:
+        raise AssertionError(f"K1 launched "
+                             f"{launches['paged_decode_attention']} times "
+                             f"over {steps} decode steps")
+    if launches["rms_norm"] != (2 * L + 1) * (
+            steps + stats["prefills"] + stats["resumes"]):
+        raise AssertionError(f"K3 launched {launches['rms_norm']} times")
+    if stats["kv_prefix_hits"] < 15:
+        raise AssertionError(f"{stats['kv_prefix_hits']} prefix hits, "
+                             f"want >= 15")
+    if stats["kv_prefix_cow_copies"] < 1:
+        raise AssertionError("no copy-on-write of a shared tail page")
+    host_fills = stats["kv_prefix_host_hits"] - s_wave["kv_prefix_host_hits"]
+    if host_fills < 1 or host_routed < 1 or stats["kv_tier_spills"] < 1:
+        raise AssertionError(
+            f"re-sent conversations did not fill from the host tier: "
+            f"host hits {host_fills}, HOST_FILL routes {host_routed}, "
+            f"spills {stats['kv_tier_spills']}")
+    for toks in (*r1.values(), *r2.values(), *r3.values(), *r4.values()):
+        if not all(0 <= t < vocab for t in toks):
+            raise AssertionError("token id out of vocabulary")
+    res = {
+        "card": card, "requests": n_req, "wall_s": wall,
+        "system_tokens": SYSTEM_TOKENS, "user_tokens": list(USER_TOKENS),
+        "prefills": stats["prefills"], "resumes": stats["resumes"],
+        "prefill_ms_mean": 1e3 * stats["prefill_seconds"]
+        / max(1, stats["prefills"]),
+        "resume_ms_mean": 1e3 * stats["resume_seconds"]
+        / max(1, stats["resumes"]),
+        "ttft_p50_hit_ms": p50(hits), "ttft_p50_miss_ms": p50(misses),
+        "hit_requests": len(hits), "miss_requests": len(misses),
+        "host_fill_requests": host_routed,
+        "kv_prefix_hits": stats["kv_prefix_hits"],
+        "kv_prefix_misses": stats["kv_prefix_misses"],
+        "kv_prefix_cow_copies": stats["kv_prefix_cow_copies"],
+        "kv_prefix_host_hits": stats["kv_prefix_host_hits"],
+        "kv_prefix_evictions": stats["kv_prefix_evictions"],
+        "kv_tier_spills": stats["kv_tier_spills"],
+        "kv_tier_fills": stats["kv_tier_fills"],
+        "kv_tier_evictions": stats["kv_tier_evictions"],
+        "kv_evictions_wave3": s_wave["kv_evictions"] - s_chat["kv_evictions"],
+        "kv_blocks": blocks, "ttft_segments_ms": segments,
+        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "launches": launches,
+    }
+    log(f"[prefix] Llama-3-8B bf16 {L} layers, {card}: {n_req} requests "
+        f"in {wall:.3f} s; {res['prefills']} cold prefills "
+        f"{res['prefill_ms_mean']:.2f} ms mean, {res['resumes']} resumes "
+        f"{res['resume_ms_mean']:.2f} ms mean; TTFT p50 hits "
+        f"{res['ttft_p50_hit_ms']} ms ({len(hits)}) misses "
+        f"{res['ttft_p50_miss_ms']} ms ({len(misses)}); prefix hits "
+        f"{res['kv_prefix_hits']}, copy-on-write "
+        f"{res['kv_prefix_cow_copies']}, host fills {host_fills} "
+        f"({host_routed} HOST_FILL routes), tier spills "
+        f"{res['kv_tier_spills']} evictions {res['kv_tier_evictions']}; "
+        f"peak memory {res['peak_mem_gib']:.2f} GiB; TTFT segments mean ms "
+        f"{fmt_segments(segments)}; launches {launches}")
+    return res
+
+
+def fmt_segments(segments: dict) -> str:
+    return " ".join(f"{k} {v:.2f}" if v is not None else f"{k} n/a"
+                    for k, v in segments.items())
 
 
 def profile_swarm(engine, prompts, max_new: int, report_dir: str) -> dict:
@@ -376,22 +668,16 @@ def profile_swarm(engine, prompts, max_new: int, report_dir: str) -> dict:
             "idle_share": 1.0 - busy / (1e3 * wall), "by_group_ms": groups}
 
 
-def phase_main(card: str, profile_it: bool, report_dir: str) -> dict:
+def phase_main(params, cfg, init_s: float, card: str, profile_it: bool,
+               report_dir: str) -> dict:
     from brpc_tpu_torch import kv_cache, ops, serving
-    from brpc_tpu_torch.models import transformer
 
-    cfg = transformer.TransformerConfig.llama3_8b()
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    t0 = time.monotonic()
-    params = transformer.init_params(cfg, gen, device="cuda")
-    torch.cuda.synchronize()
-    init_s = time.monotonic() - t0
     rng = np.random.default_rng(0)
     lengths = MAIN_LENGTHS
     prompts = [rng.integers(0, cfg.vocab, n).tolist() for n in lengths]
     max_new = MAIN_NEW_TOKENS
     blocks = len(prompts) * kv_cache.pages_for(max(lengths) + max_new, 16) + 1
-    log(f"[main] weights ready in {init_s:.1f} s; starting the engine")
+    log("[main] starting the engine")
     eng = serving.ServingEngine(params, cfg, max_batch_size=8, slots=8,
                                 max_prompt=1024, kv_blocks=blocks)
     try:
@@ -400,11 +686,13 @@ def phase_main(card: str, profile_it: bool, report_dir: str) -> dict:
         out = run_swarm(eng, prompts, max_new)
         launches = ops.launch_counts()
         stats = eng.stats()
+        segments = ttft_breakdown(len(prompts))
         prof = (profile_swarm(eng, prompts, 8, report_dir) if profile_it
                 else None)
     finally:
         eng.close()
     steps, prefills = stats["model_steps"], stats["prefills"]
+    resumes = stats["resumes"]  # random prompts: no shared prefix, none
     L = cfg.n_layers
     if launches["paged_decode_attention"] != L * steps:
         raise AssertionError(f"K1 launched {launches['paged_decode_attention']}"
@@ -412,7 +700,11 @@ def phase_main(card: str, profile_it: bool, report_dir: str) -> dict:
     if launches["prefill_attention"] != L * prefills or prefills == 0:
         raise AssertionError(f"K2 launched {launches['prefill_attention']} "
                              f"times over {prefills} prefills")
-    if launches["rms_norm"] != (2 * L + 1) * (steps + prefills):
+    if launches["paged_prefill_attention"] != L * resumes:
+        raise AssertionError(f"K4 launched "
+                             f"{launches['paged_prefill_attention']} times "
+                             f"over {resumes} resumes")
+    if launches["rms_norm"] != (2 * L + 1) * (steps + prefills + resumes):
         raise AssertionError(f"K3 launched {launches['rms_norm']} times")
     for toks in out["tokens"].values():
         if not all(0 <= t < cfg.vocab for t in toks):
@@ -423,6 +715,7 @@ def phase_main(card: str, profile_it: bool, report_dir: str) -> dict:
         "card": card,
         "requests": len(prompts), "prompt_lengths": lengths,
         "new_tokens": max_new, "model_steps": steps, "prefills": prefills,
+        "resumes": resumes,
         "tokens_per_s": n_tok / out["wall_s"],
         "ttft_p50_ms": 1e3 * ttft[len(ttft) // 2],
         "ttft_p99_ms": 1e3 * ttft[min(len(ttft) - 1,
@@ -430,7 +723,7 @@ def phase_main(card: str, profile_it: bool, report_dir: str) -> dict:
         "decode_step_ms": 1e3 * stats["decode_seconds"] / steps,
         "prefill_ms_mean": 1e3 * stats["prefill_seconds"] / prefills,
         "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
-        "weights_init_s": init_s,
+        "weights_init_s": init_s, "ttft_segments_ms": segments,
         "mean_batch_occupancy": stats["mean_batch_occupancy"],
         "launches": launches,
         "profile": prof,
@@ -441,20 +734,22 @@ def phase_main(card: str, profile_it: bool, report_dir: str) -> dict:
         f"{res['ttft_p50_ms']:.1f} ms p99 {res['ttft_p99_ms']:.1f} ms; "
         f"decode step {res['decode_step_ms']:.2f} ms mean over {steps} "
         f"steps; prefill {res['prefill_ms_mean']:.2f} ms mean over "
-        f"{prefills}; peak memory {res['peak_mem_gib']:.2f} GiB; launches "
-        f"{launches}")
+        f"{prefills}; peak memory {res['peak_mem_gib']:.2f} GiB; TTFT "
+        f"segments mean ms {fmt_segments(segments)}; launches {launches}")
     if prof is not None:
         log(f"[profile] 8 more requests x 8 tokens, {card}: wall "
             f"{prof['wall_ms']:.1f} ms, device busy ms "
             f"{prof['device_busy_ms']}, idle share {prof['idle_share']}; "
             f"by group ms {json.dumps(prof['by_group_ms'])}")
-    del params
-    torch.cuda.empty_cache()
     return res
 
 
 def main() -> int:
     faulthandler.enable()
+    # The host tier keeps its pages on the heap: in the registered send
+    # arena (256 MiB unless TRPC_DEVICE_ARENA_MB says otherwise) its budget
+    # would be capped at half the arena, 64 pages at Llama-3-8B width.
+    os.environ.setdefault("TRPC_KV_HOST_ARENA", "0")
     ap = argparse.ArgumentParser()
     ap.add_argument("--profile", action="store_true",
                     help="after phase 5, profile a second, shorter swarm")
@@ -488,26 +783,42 @@ def main() -> int:
                 log("[ptxas] " + line.rstrip())
     report["build_s"] = {"native": t_native, "kernels": t_kernels}
     cases = phase_kernels()
-    report["exact"] = phase_exactness()
+    from brpc_tpu_torch.models import transformer
+
+    cfg = transformer.TransformerConfig.llama3_8b()
+    report["exact"] = phase_exactness(
+        dataclasses.replace(cfg, n_layers=2, dtype=torch.float32))
     os.makedirs(args.report_dir, exist_ok=True)
-    main_res = phase_main(card, args.profile, args.report_dir)
+    t0 = time.monotonic()
+    params = transformer.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.monotonic() - t0
+    log(f"[weights] Llama-3-8B bf16 random weights in {init_s:.1f} s")
+    report["prefix"] = phase_prefix(params, cfg, card)
+    main_res = phase_main(params, cfg, init_s, card, args.profile,
+                          args.report_dir)
     report["main"] = main_res
     report["kernel_cases"] = cases
     with open(os.path.join(args.report_dir, "chip_smoke_report.json"),
               "w") as f:
         json.dump(report, f, indent=1)
-    # One row per kernel: the bf16 case at a shape the main path gives it
-    # (its 8 lanes at their last decode step; a 1024-token bucket; 8 decode
-    # rows), with the launches of the main path's run.
+    # One row per kernel: the bf16 case at a shape its path gives it (the
+    # main path's 8 lanes at their last decode step; a 1024-token bucket;
+    # a turn-2 resume's 40 rows after 1008 cached tokens; 8 decode rows),
+    # with the launches of its path's run: K4's from the prefix phase, the
+    # others from the main path's.
     pick = {"paged_decode_attention": 1, "prefill_attention": 2,
-            "rms_norm": 0}
+            "paged_prefill_attention": 0, "rms_norm": 0}
+    runs = {name: main_res for name in pick}
+    runs["paged_prefill_attention"] = report["prefix"]
     rows = []
     for name, i in pick.items():
         r = cases[name][i]
         rows.append({
             "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name],
-            "launches": main_res["launches"][name],
+            "launches": runs[name]["launches"][name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],

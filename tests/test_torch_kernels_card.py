@@ -58,29 +58,98 @@ def _decode_inputs(H, KV, Dh, dev, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_kernels_match_plain_on_card(cuda_device, dtype):
+@pytest.mark.parametrize("H,KV,Dh", HEADS)
+def test_kernels_match_plain_on_card(cuda_device, dtype, H, KV, Dh):
     atol, rtol = CARD_TOL[dtype]
     dev = cuda_device
-    for H, KV, Dh in HEADS:
-        args = _decode_inputs(H, KV, Dh, dev, dtype)
-        n = attention.paged_decode_attention.launches
-        got = attention.paged_decode_attention(*args, 2)
-        assert attention.paged_decode_attention.launches == n + 1
-        want = attention.paged_decode_attention_plain(*args, 2)
-        torch.testing.assert_close(got.float(), want.float(), atol=atol,
-                                   rtol=rtol, msg=f"decode {H, KV, Dh}")
-        x = torch.randn((70, H, Dh), device=dev).to(dtype)
-        kv = torch.randn((70, KV, Dh), device=dev).to(dtype)
-        torch.testing.assert_close(
-            attention.prefill_attention(x, kv, kv * 0.5, 41).float(),
-            attention.prefill_attention_plain(x, kv, kv * 0.5, 41).float(),
-            atol=atol, rtol=rtol, msg=f"prefill {H, KV, Dh}")
-        g = torch.rand(H * Dh, device=dev) + 0.5
-        rows = x.reshape(70, H * Dh)
-        torch.testing.assert_close(
-            norm.rms_norm(rows, g, 1e-5).float(),
-            norm.rms_norm_plain(rows, g, 1e-5).float(),
-            atol=atol, rtol=rtol, msg=f"rms_norm {H, KV, Dh}")
+    args = _decode_inputs(H, KV, Dh, dev, dtype)
+    n = attention.paged_decode_attention.launches
+    got = attention.paged_decode_attention(*args, 2)
+    assert attention.paged_decode_attention.launches == n + 1
+    want = attention.paged_decode_attention_plain(*args, 2)
+    torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                               rtol=rtol)
+    x = torch.randn((70, H, Dh), device=dev).to(dtype)
+    kv = torch.randn((70, KV, Dh), device=dev).to(dtype)
+    torch.testing.assert_close(
+        attention.prefill_attention(x, kv, kv * 0.5, 41).float(),
+        attention.prefill_attention_plain(x, kv, kv * 0.5, 41).float(),
+        atol=atol, rtol=rtol)
+    g = torch.rand(H * Dh, device=dev) + 0.5
+    rows = x.reshape(70, H * Dh)
+    torch.testing.assert_close(norm.rms_norm(rows, g, 1e-5).float(),
+                               norm.rms_norm_plain(rows, g, 1e-5).float(),
+                               atol=atol, rtol=rtol)
+
+
+# (start, n): page-aligned, mid-page start ending mid-page, one query deep
+RESUME_CASES = [(1008, 40), (517, 300), (4000, 1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("start,n", RESUME_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H,KV,Dh", HEADS)
+def test_paged_prefill_attention_matches_plain_on_card(cuda_device, H, KV,
+                                                       Dh, dtype, start, n):
+    """K4 against its plain version on a shuffled table over the last
+    layer of a strided pool."""
+    atol, rtol = CARD_TOL[dtype]
+    L, page = 2, 16
+    gen = torch.Generator(device=cuda_device).manual_seed(start + n)
+    pages = -(-(start + n) // page)
+    nb = pages + 4
+    k_pool = torch.randn((nb, L, page, KV, Dh), generator=gen,
+                         device=cuda_device).to(dtype)
+    v_pool = torch.randn_like(k_pool)
+    table = (torch.randperm(nb - 1, generator=gen, device=cuda_device)[:pages]
+             + 1).int()
+    q = torch.randn((n, H, Dh), generator=gen, device=cuda_device).to(dtype)
+    before = attention.paged_prefill_attention.launches
+    got = attention.paged_prefill_attention(q, k_pool, v_pool, table, start,
+                                            L - 1)
+    assert attention.paged_prefill_attention.launches == before + 1
+    want = attention.paged_prefill_attention_plain(q, k_pool, v_pool, table,
+                                                   start, L - 1)
+    torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                               rtol=rtol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_kv_heads", [4, 2], ids=["mha", "gqa"])
+def test_engine_on_card_prefix_hits_stream_plain_greedy(cuda_device,
+                                                        n_kv_heads):
+    """The f32 engine on the card with the prefix cache: a mid-page prefix
+    hit while the shared tail is live (a copy-on-write), then the next
+    turn off the finished sequence, each streaming exactly the plain
+    forward's greedy tokens, with K4 launched once per layer per resume."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(transformer.TransformerConfig.tiny(),
+                              dtype=torch.float32, n_kv_heads=n_kv_heads)
+    params = transformer.init_params(
+        cfg, torch.Generator(device=cuda_device).manual_seed(2),
+        device=cuda_device)
+    base = list(range(1, 19))
+    ops.reset_launch_counts()
+    with serving.ServingEngine(params, cfg, max_batch_size=4, slots=4,
+                               max_prompt=48) as eng:
+        addr = f"127.0.0.1:{eng.port}"
+        with serving.ServingClient(addr, timeout_ms=60_000) as c:
+            it = c.generate(base, 12)
+            first = next(it)
+            mid = serving.generate(addr, base + [90, 91, 92], 6)
+            got_base = [first] + list(it)
+        turn2 = base + got_base + [7, 8]
+        got2 = serving.generate(addr, turn2, 6)
+        s = eng.stats()
+    assert s["resumes"] == 2 and s["kv_prefix_cow_copies"] >= 1
+    assert ops.launch_counts()["paged_prefill_attention"] == \
+        cfg.n_layers * s["resumes"]
+    for prompt, toks, n in ((base, got_base, 12),
+                            (base + [90, 91, 92], mid, 6), (turn2, got2, 6)):
+        assert toks == transformer.greedy_reference(params, cfg, prompt, n,
+                                                    device=cuda_device)
+
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("n_kv_heads", [4, 2], ids=["mha", "gqa"])

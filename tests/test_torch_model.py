@@ -157,24 +157,28 @@ def test_decode_step_matches_jax(models):
         pos = [p + 1 for p in pos]
 
 
-def test_entry_points_raise_without_cuda():
+@pytest.mark.parametrize("entry", ["init_params", "params_from_numpy",
+                                   "greedy_reference", "pool", "engine"])
+def test_entry_points_raise_without_cuda(entry):
     """No card and no explicit device="cpu": every entry point raises; none
     falls back to the CPU."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is visible: the default device is valid")
-    jcfg, tcfg = _configs(4)
-    entries = {
-        "init_params": lambda: tt.init_params(
-            tcfg, torch.Generator().manual_seed(0)),
-        "params_from_numpy": lambda: tt.params_from_numpy(jax.tree.map(
-            np.asarray, jt.init_params(jcfg, jax.random.PRNGKey(0))), tcfg),
-        "greedy_reference": lambda: tt.greedy_reference({}, tcfg, [1], 1),
-        "pool": lambda: tkv.PagedKvPool(tcfg, 9, 16),
-        "engine": lambda: ts.ServingEngine({}, tcfg, autostart=False),
-    }
-    for entry, call in entries.items():
-        with pytest.raises(RuntimeError, match="CUDA"):
-            call()
+    _, tcfg = _configs(4)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        if entry == "init_params":
+            tt.init_params(tcfg, torch.Generator().manual_seed(0))
+        elif entry == "params_from_numpy":
+            jcfg, _ = _configs(4)
+            tt.params_from_numpy(jax.tree.map(
+                np.asarray, jt.init_params(jcfg, jax.random.PRNGKey(0))),
+                tcfg)
+        elif entry == "greedy_reference":
+            tt.greedy_reference({}, tcfg, [1], 1)
+        elif entry == "pool":
+            tkv.PagedKvPool(tcfg, 9, 16)
+        else:
+            ts.ServingEngine({}, tcfg, autostart=False)
 
 
 def _port_sources():

@@ -66,6 +66,33 @@ def _jax_prefill_attention(q, k, v, length):
                       preferred_element_type=jnp.float32).astype(q.dtype)
 
 
+def _jax_resume_attention(q, k_pool, v_pool, table, start, layer, view):
+    """The attention of a prefix-cache resume: gather the table's pages
+    into the dense prefix view (brpc_tpu/kv_cache.py:1170-1174), then the
+    masked f32 softmax attention of transformer.py:398-411 over it, query
+    i at position start + i."""
+    n, H, Dh = q.shape
+    _, L, page, KV, _ = k_pool.shape
+
+    def dense(pool):
+        g = pool[table].transpose(1, 0, 2, 3, 4)
+        return g.reshape(L, view * page, KV, Dh)[layer]
+
+    kr, vr = dense(k_pool), dense(v_pool)
+    if KV != H:
+        kr = jnp.repeat(kr, H // KV, axis=1)
+        vr = jnp.repeat(vr, H // KV, axis=1)
+    idx = start + jnp.arange(n)
+    mask = jnp.arange(view * page)[None, :] <= idx[:, None]
+    scale = 1.0 / jnp.sqrt(jnp.float32(Dh))
+    logits = jnp.einsum("qhd,shd->hqs", q, kr,
+                        preferred_element_type=jnp.float32) * scale
+    logits = jnp.where(mask[None, :, :], logits, jnp.float32(-1e30))
+    probs = jax.nn.softmax(logits, axis=-1).astype(q.dtype)
+    return jnp.einsum("hqs,shd->qhd", probs, vr,
+                      preferred_element_type=jnp.float32).astype(q.dtype)
+
+
 def _decode_inputs(H, KV, Dh, seed=0):
     rng = np.random.default_rng(seed)
     S, L, page, nb = 5, 3, 16, 8  # max_seq 128
@@ -85,42 +112,94 @@ def _decode_inputs(H, KV, Dh, seed=0):
 
 
 @pytest.mark.parametrize("H,KV,Dh", HEADS)
-def test_paged_decode_attention_plain_matches_jax(H, KV, Dh):
+@pytest.mark.parametrize("layer", [0, 2])
+def test_paged_decode_attention_plain_matches_jax(H, KV, Dh, layer):
     q, k_pool, v_pool, tables, pos = _decode_inputs(H, KV, Dh)
-    for layer in (0, 2):
-        want = _jax_paged_decode_attention(*map(jnp.asarray, (
-            q, k_pool, v_pool, tables, pos)), layer)
-        got = attention.paged_decode_attention(*map(torch.from_numpy, (
-            q, k_pool, v_pool, tables, pos)), layer)
-        np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL,
-                                   err_msg=f"layer {layer}")
+    want = _jax_paged_decode_attention(*map(jnp.asarray, (
+        q, k_pool, v_pool, tables, pos)), layer)
+    got = attention.paged_decode_attention(*map(torch.from_numpy, (
+        q, k_pool, v_pool, tables, pos)), layer)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
 @pytest.mark.parametrize("H,KV,Dh", HEADS)
-def test_prefill_attention_plain_matches_jax(H, KV, Dh):
-    for P, length in [(8, 5), (16, 16), (64, 37)]:
-        rng = np.random.default_rng(P)
-        q = rng.standard_normal((P, H, Dh), np.float32)
-        k = rng.standard_normal((P, KV, Dh), np.float32)
-        v = rng.standard_normal((P, KV, Dh), np.float32)
-        want = _jax_prefill_attention(jnp.asarray(q), jnp.asarray(k),
-                                      jnp.asarray(v), length)
-        got = attention.prefill_attention(torch.from_numpy(q),
-                                          torch.from_numpy(k),
-                                          torch.from_numpy(v), length)
-        np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL,
-                                   err_msg=f"P={P} length={length}")
+@pytest.mark.parametrize("P,length", [(8, 5), (16, 16), (64, 37)])
+def test_prefill_attention_plain_matches_jax(H, KV, Dh, P, length):
+    rng = np.random.default_rng(P)
+    q = rng.standard_normal((P, H, Dh), np.float32)
+    k = rng.standard_normal((P, KV, Dh), np.float32)
+    v = rng.standard_normal((P, KV, Dh), np.float32)
+    want = _jax_prefill_attention(jnp.asarray(q), jnp.asarray(k),
+                                  jnp.asarray(v), length)
+    got = attention.prefill_attention(torch.from_numpy(q),
+                                      torch.from_numpy(k),
+                                      torch.from_numpy(v), length)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
-def test_rms_norm_plain_matches_jax():
+# (start, n): page-aligned, mid-page start ending mid-page, one query deep,
+# no cached prefix, one query mid-page, a full 64-query tile, two tiles
+RESUME_CASES = [(32, 9), (21, 30), (77, 1), (0, 20), (15, 1), (47, 64),
+                (100, 70)]
+
+
+@pytest.mark.parametrize("start,n", RESUME_CASES)
+@pytest.mark.parametrize("H,KV,Dh", HEADS)
+def test_paged_prefill_attention_plain_matches_jax(H, KV, Dh, start, n):
+    """K4's plain version against the attention of the reference's
+    ``prefill_resume`` over its gathered prefix view, on a shuffled table
+    and the last layer of a strided pool."""
+    rng = np.random.default_rng(start + n)
+    L, page = 3, 16
+    pages = -(-(start + n) // page)
+    n_blocks = pages + 3
+    k_pool = rng.standard_normal((n_blocks, L, page, KV, Dh), np.float32)
+    v_pool = rng.standard_normal((n_blocks, L, page, KV, Dh), np.float32)
+    table = rng.permutation(np.arange(1, n_blocks))[:pages].astype(np.int32)
+    q = rng.standard_normal((n, H, Dh), np.float32)
+    want = _jax_resume_attention(*map(jnp.asarray, (q, k_pool, v_pool,
+                                                    table)), start, L - 1,
+                                 pages)
+    got = attention.paged_prefill_attention(
+        *map(torch.from_numpy, (q, k_pool, v_pool, table)), start, L - 1)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+@pytest.mark.parametrize("start,n", RESUME_CASES)
+def test_paged_prefill_attention_plain_bf16_matches_jax(start, n):
+    """bf16 pools and queries, f32 logits and softmax inside, the
+    probabilities rounded to bf16 before P.V: the reference's rounding
+    points; one bf16 rounding step of difference at most."""
+    H, KV, Dh = 8, 2, 64
+    rng = np.random.default_rng(start + n + 1)
+    L, page = 2, 16
+    pages = -(-(start + n) // page)
+    n_blocks = pages + 2
+    k_pool = rng.standard_normal((n_blocks, L, page, KV, Dh), np.float32)
+    v_pool = rng.standard_normal((n_blocks, L, page, KV, Dh), np.float32)
+    table = rng.permutation(np.arange(1, n_blocks))[:pages].astype(np.int32)
+    q = rng.standard_normal((n, H, Dh), np.float32)
+    want = _jax_resume_attention(
+        *(jnp.asarray(a, jnp.bfloat16) for a in (q, k_pool, v_pool)),
+        jnp.asarray(table), start, 0, pages)
+    got = attention.paged_prefill_attention(
+        *(torch.from_numpy(a).to(torch.bfloat16) for a in (q, k_pool,
+                                                           v_pool)),
+        torch.from_numpy(table), start, 0)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want.astype(jnp.float32)),
+                               rtol=1e-2, atol=2e-2)
+
+
+@pytest.mark.parametrize("shape", [(8, 128), (3, 5, 96)])
+def test_rms_norm_plain_matches_jax(shape):
     rng = np.random.default_rng(3)
-    for shape in [(8, 128), (3, 5, 96)]:
-        x = rng.standard_normal(shape, np.float32)
-        g = (1.0 + 0.1 * rng.standard_normal(shape[-1])).astype(np.float32)
-        want = jt._rms_norm(jnp.asarray(x), jnp.asarray(g), 1e-5)
-        got = norm.rms_norm(torch.from_numpy(x), torch.from_numpy(g), 1e-5)
-        np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL,
-                                   err_msg=f"shape {shape}")
+    x = rng.standard_normal(shape, np.float32)
+    g = (1.0 + 0.1 * rng.standard_normal(shape[-1])).astype(np.float32)
+    want = jt._rms_norm(jnp.asarray(x), jnp.asarray(g), 1e-5)
+    got = norm.rms_norm(torch.from_numpy(x), torch.from_numpy(g), 1e-5)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
 def test_rms_norm_plain_bf16_matches_jax():
@@ -146,6 +225,7 @@ def test_cpu_tensors_take_plain_versions_and_count_no_launch():
     attention.paged_decode_attention(q, k_pool, v_pool, tables, pos, 0)
     x = torch.randn(8, 4, 32)
     attention.prefill_attention(x, x[:, :2], x[:, :2], 5)
+    attention.paged_prefill_attention(x, k_pool, v_pool, tables[3], 3, 0)
     norm.rms_norm(x, torch.ones(32), 1e-5)
     assert ops.launch_counts() == before
 
@@ -162,3 +242,8 @@ def test_other_devices_raise():
             torch.empty((2, 1, 16, 2, 32), device="meta"),
             torch.empty((8, 1), dtype=torch.int32, device="meta"),
             torch.empty((8,), dtype=torch.int32, device="meta"), 0)
+    with pytest.raises(ValueError):
+        attention.paged_prefill_attention(
+            x, torch.empty((2, 1, 16, 2, 32), device="meta"),
+            torch.empty((2, 1, 16, 2, 32), device="meta"),
+            torch.empty((1,), dtype=torch.int32, device="meta"), 4, 0)

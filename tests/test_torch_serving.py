@@ -213,14 +213,6 @@ def test_bad_request_rejected(models):
         eng.close()
 
 
-@pytest.mark.parametrize("option", ["prefix_cache", "kv_host_tier"])
-def test_prefix_cache_options_name_the_next_slice(models, option):
-    _, _, tcfg, tp = models
-    with pytest.raises(NotImplementedError, match="next slice"):
-        serving.ServingEngine(tp, tcfg, autostart=False, device="cpu",
-                              **{option: True})
-
-
 @pytest.mark.parametrize("args", [
     ([1, 2, 3], 4, "", "", ""), ([], 1, "acme", "", ""),
     ([7] * 9, 2, "", "batch", ""), ([65535, 0], 3, "t", "standard", "m8b")])
