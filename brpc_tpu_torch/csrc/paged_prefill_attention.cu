@@ -12,205 +12,187 @@
 // q.K^T in f32 times 1/sqrt(Dh), -1e30 on keys past the query's position,
 // f32 softmax, probabilities cast to the model dtype, .V with f32
 // accumulation. Query head h reads KV head h / (H / KV).
-// Bound on the card: operations for long suffixes (4 x H x Dh x n_q x
-// (start + n_q / 2) flops against the H100 SXM's 989 TFLOP/s in bf16),
-// bytes for short ones (the (start + n_q) cached K and V rows of every KV
-// head read once, q read and o written once, against its 3.35 TB/s; data
-// sheet, 700 W power limit). This first version runs on the CUDA cores in
-// f32, far from the tensor-core bound; wgmma and TMA come later.
-// Design: K2's tiling (csrc/prefill_attention.cu) with K1's table walk
-// (csrc/paged_decode_attention.cu). One block per (tile of 64 queries,
-// head), 8 warps of 8 query rows each. The block walks key tiles of 32 up
-// to its causal edge start + min(q_end, n_q); the loader maps key j to
-// block table[j / page], row j % page, through the pool's explicit strides
-// (one layer of [block, L, page, KV, Dh] is strided), and stages the tile
-// once in shared memory (f32) for all 64 queries. Lane j forms the logit of
-// key j for the warp's 8 rows, the rows fold each tile into an online
-// softmax (running max and sum in f32), and P.V has each lane own Dh/32
-// output columns with the probabilities broadcast by shuffles. Key 0 is
-// visible to every query, so no row is fully masked and skipping masked
-// keys equals the reference's -1e30. Probabilities are rounded to T before
-// P.V, as in the reference; the division by the sum happens once at the end.
-#include "common.cuh"
+// Bound on the card: bytes for short suffixes (the start + n_q cached K and
+// V rows of every KV head read once, q read and o written once, against
+// the H100 SXM's 3.35 TB/s), operations for long ones (4 x H x Dh flops
+// per visible (query, key) pair against its 989 TFLOP/s in bf16; data
+// sheet, 700 W power limit).
+// Design: the paged loader of the shared tile core (csrc/attention_tile.cuh:
+// bf16 on the tensor cores with mma.sync, f32 exact on the CUDA cores).
+// - Paged loads: key j is row j % page of block table[j / page] in the
+//   strided layer slice (element strides s_blk, s_t, s_kvh), so a start or
+//   an end inside a page is no special case.
+// - GQA packing: one block serves one KV head, and its 64 rows are the
+//   (query, head) pairs of the H / KV query heads that share it, query
+//   major. Each page is read once per KV head, not H / KV times, and the
+//   causal edge is per row: start + the row's query index.
+// - Split-K: a short suffix gives few (query tile, KV head) blocks, so the
+//   key range [0, start + n_q) is cut at 64-key tile boundaries into
+//   n_splits ranges of tiles_per_split tiles (the wrapper derives both from
+//   the shape and the SM count) and the grid is (query tile, KV head,
+//   split). Each split writes an unnormalised f32 partial O with its row
+//   max and sum; `paged_prefill_merge_kernel`, launched by the same entry
+//   point, rescales the partials to the largest max, divides once by the
+//   combined sum and rounds to T. A split may hold no key a row can see
+//   (m = -inf, l = 0): the merge skips it,
+//   and since key 0 is in split 0 and visible to every row, no row is
+//   masked in every split. With one split the block writes its rows
+//   straight out and there is no merge. The merge rescales P.V sums whose
+//   probabilities were rounded to T within their split; the result stays
+//   inside the bf16 tolerance (atol 2e-2 + rtol 1e-2) that the online
+//   softmax already relies on, as each split is itself an online softmax
+//   over its tiles.
+#include "attention_tile.cuh"
 
 namespace brpc_tpu_torch {
 namespace {
 
-constexpr int kBlockQ = 64;
-constexpr int kBlockK = 32;
-constexpr int kWarps = 8;
-constexpr int kRows = kBlockQ / kWarps;  // query rows per warp
+using attn::kTileKeys;
+using attn::kTileRows;
 
-template <int DH>
-constexpr size_t paged_prefill_smem_bytes() {
-  return (static_cast<size_t>(kBlockQ) * DH +
-          static_cast<size_t>(kBlockK) * (DH + 4) +
-          static_cast<size_t>(kBlockK) * DH) * sizeof(float);
-}
+template <typename T>
+struct PagedProblem {
+  const T* k;
+  const T* v;
+  const int* table;
+  int n_q, start, n_heads, group, page, kvh, r0;
+  long long s_blk, s_t, s_kvh;
+  int key_begin, key_end;
+
+  __device__ PagedProblem(const T* k_, const T* v_, const int* table_,
+                          int n_q_, int start_, int n_heads_, int n_kv_heads,
+                          int page_, long long s_blk_, long long s_t_,
+                          long long s_kvh_, int tiles_per_split)
+      : k(k_), v(v_), table(table_), n_q(n_q_), start(start_),
+        n_heads(n_heads_), group(n_heads_ / n_kv_heads), page(page_),
+        s_blk(s_blk_), s_t(s_t_), s_kvh(s_kvh_) {
+    r0 = (gridDim.x - 1 - blockIdx.x) * kTileRows;  // heaviest first
+    kvh = blockIdx.y;
+    const int last_q = min((r0 + kTileRows - 1) / group, n_q - 1);
+    key_begin = blockIdx.z * tiles_per_split * kTileKeys;
+    key_end = min(key_begin + tiles_per_split * kTileKeys,
+                  start + last_q + 1);
+  }
+  // Packed row r0 + r is (query (r0 + r) / group, head kvh * group +
+  // (r0 + r) % group).
+  __device__ int row_id(int r) const {
+    const int pr = r0 + r;
+    const int qi = pr / group;
+    return qi < n_q ? qi * n_heads + kvh * group + (pr - qi * group) : -1;
+  }
+  __device__ int edge(int r) const { return start + (r0 + r) / group; }
+  __device__ long long kv_offset(int j) const {
+    const int blk_row = j / page;
+    return static_cast<long long>(table[blk_row]) * s_blk +
+           static_cast<long long>(j - blk_row * page) * s_t + kvh * s_kvh;
+  }
+};
 
 template <typename T, int DH>
-__global__ void __launch_bounds__(kWarps * 32)
+__global__ void __launch_bounds__(attn::Core<T>::kThreads,
+                                  attn::Core<T>::kMinBlocks)
     paged_prefill_kernel(const T* __restrict__ q,
                          const T* __restrict__ k_pool,
                          const T* __restrict__ v_pool,
                          const int* __restrict__ table, T* __restrict__ out,
-                         int n_q, int start, int n_heads, int n_kv_heads,
-                         int page, long long s_blk, long long s_t,
-                         long long s_kvh, float scale) {
-  constexpr int kVpt = DH / 32;
-  constexpr int kStrideK = DH + 4;  // keeps float4 rows 16-byte aligned
-  extern __shared__ float4 smem_f4[];
-  float* qs = reinterpret_cast<float*>(smem_f4);  // [kBlockQ][DH]
-  float* ks = qs + kBlockQ * DH;                   // [kBlockK][kStrideK]
-  float* vs = ks + kBlockK * kStrideK;             // [kBlockK][DH]
-
-  const int q0 = blockIdx.x * kBlockQ;
-  const int head = blockIdx.y;
-  const int kvh = head / (n_heads / n_kv_heads);
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int nthreads = kWarps * 32;
-
-  for (int i = threadIdx.x; i < kBlockQ * DH; i += nthreads) {
-    const int r = i / DH;
-    const int d = i - r * DH;
-    const int row = q0 + r;
-    qs[i] = row < n_q
-                ? to_f32<T>(q[(static_cast<long long>(row) * n_heads + head) *
-                                  DH + d])
-                : 0.f;
-  }
-
-  float acc[kRows][kVpt];
-  float m[kRows];
-  float l[kRows];
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    m[r] = -INFINITY;
-    l[r] = 0.f;
-#pragma unroll
-    for (int j = 0; j < kVpt; ++j) acc[r][j] = 0.f;
-  }
-  const int row0 = q0 + warp * kRows;  // first query row of this warp
-  // Keys past the last real query's position are never read.
-  const int key_end = start + min(q0 + kBlockQ, n_q);
-
-  for (int k0 = 0; k0 < key_end; k0 += kBlockK) {
-    __syncthreads();  // previous tile consumed (and qs written, first pass)
-    for (int i = threadIdx.x; i < kBlockK * DH; i += nthreads) {
-      const int t = i / DH;
-      const int d = i - t * DH;
-      const int key = k0 + t;
-      float kv_k = 0.f, kv_v = 0.f;
-      if (key < key_end) {
-        const long long blk = table[key / page];
-        const long long off =
-            blk * s_blk + (key % page) * s_t + kvh * s_kvh + d;
-        kv_k = to_f32<T>(k_pool[off]);
-        kv_v = to_f32<T>(v_pool[off]);
-      }
-      ks[t * kStrideK + d] = kv_k;
-      vs[t * DH + d] = kv_v;
-    }
-    __syncthreads();
-
-    // Logits: lane j <-> key k0 + j, for the warp's kRows query rows.
-    float s[kRows];
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) s[r] = 0.f;
-    const float4* krow = reinterpret_cast<const float4*>(ks + lane * kStrideK);
-#pragma unroll 4
-    for (int d4 = 0; d4 < DH / 4; ++d4) {
-      const float4 kk = krow[d4];
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        const float4 qq = reinterpret_cast<const float4*>(
-            qs + (warp * kRows + r) * DH)[d4];
-        s[r] += qq.x * kk.x + qq.y * kk.y + qq.z * kk.z + qq.w * kk.w;
-      }
-    }
-    const int key = k0 + lane;
-    float pr[kRows];
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      const bool valid = key <= start + row0 + r && key < key_end;
-      const float sv = valid ? s[r] * scale : -INFINITY;
-      const float m_new = fmaxf(m[r], warp_max(sv));
-      const float alpha = m[r] == -INFINITY ? 0.f : expf(m[r] - m_new);
-      const float e = valid ? expf(sv - m_new) : 0.f;
-      l[r] = l[r] * alpha + warp_sum(e);
-      m[r] = m_new;
-#pragma unroll
-      for (int j = 0; j < kVpt; ++j) acc[r][j] *= alpha;
-      pr[r] = round_to<T>(e);
-    }
-    // P.V: lane owns output columns lane + 32 * j.
-    const int n_keys = min(kBlockK, key_end - k0);
-    for (int t = 0; t < n_keys; ++t) {
-      float vv[kVpt];
-#pragma unroll
-      for (int j = 0; j < kVpt; ++j) vv[j] = vs[t * DH + lane + 32 * j];
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        const float pt = __shfl_sync(0xffffffffu, pr[r], t);
-#pragma unroll
-        for (int j = 0; j < kVpt; ++j) acc[r][j] += pt * vv[j];
-      }
-    }
-  }
-
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    const int row = row0 + r;
-    if (row >= n_q) continue;
-    const float inv = 1.0f / l[r];
-    T* orow = out + (static_cast<long long>(row) * n_heads + head) * DH;
-#pragma unroll
-    for (int j = 0; j < kVpt; ++j)
-      orow[lane + 32 * j] = from_f32<T>(acc[r][j] * inv);
-  }
+                         float* __restrict__ o_part,
+                         float* __restrict__ ml_part, int n_q, int start,
+                         int n_heads, int n_kv_heads, int page,
+                         long long s_blk, long long s_t, long long s_kvh,
+                         float scale, int tiles_per_split) {
+  const PagedProblem<T> p(k_pool, v_pool, table, n_q, start, n_heads,
+                          n_kv_heads, page, s_blk, s_t, s_kvh,
+                          tiles_per_split);
+  const attn::Sink<T> sink{out, o_part, ml_part, n_q * n_heads,
+                           static_cast<int>(blockIdx.z), gridDim.z > 1};
+  attn::Core<T>::template run<DH>(p, q, scale, sink);
 }
 
+constexpr int kMergeWarps = 4;
+
+// One warp per (query, head) row: weight each split's partial by
+// exp(m_s - max), skip splits the row saw no key of, divide once.
 template <typename T, int DH>
-int launch(const void* q, const void* k_pool, const void* v_pool,
-           const int* table, void* out, int n_q, int start, int n_heads,
-           int n_kv_heads, int page, long long s_blk, long long s_t,
-           long long s_kvh, float scale, cudaStream_t stream) {
-  constexpr size_t smem = paged_prefill_smem_bytes<DH>();
-  auto kernel = paged_prefill_kernel<T, DH>;
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
+__global__ void __launch_bounds__(kMergeWarps * 32)
+    paged_prefill_merge_kernel(const float* __restrict__ o_part,
+                               const float* __restrict__ ml_part,
+                               T* __restrict__ out, int n_rows,
+                               int n_splits) {
+  constexpr int kVpt = DH / 32;
+  const int row = blockIdx.x * kMergeWarps + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (row >= n_rows) return;
+  float mx = -INFINITY;
+  for (int s = 0; s < n_splits; ++s)
+    mx = fmaxf(mx, ml_part[(static_cast<long long>(s) * n_rows + row) * 2]);
+  float acc[kVpt];
+#pragma unroll
+  for (int j = 0; j < kVpt; ++j) acc[j] = 0.f;
+  float sum = 0.f;
+  for (int s = 0; s < n_splits; ++s) {
+    const long long prow = static_cast<long long>(s) * n_rows + row;
+    const float m = ml_part[prow * 2];
+    if (m == -INFINITY) continue;  // no visible key: weight 0, O unwritten
+    const float w = expf(m - mx);
+    sum += w * ml_part[prow * 2 + 1];
+    const float* orow = o_part + prow * DH;
+#pragma unroll
+    for (int j = 0; j < kVpt; ++j) acc[j] += w * orow[lane + 32 * j];
   }
-  const dim3 grid((n_q + kBlockQ - 1) / kBlockQ, n_heads);
-  kernel<<<grid, kWarps * 32, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k_pool),
-      static_cast<const T*>(v_pool), table, static_cast<T*>(out), n_q, start,
-      n_heads, n_kv_heads, page, s_blk, s_t, s_kvh, scale);
+  const float inv = 1.0f / sum;
+  T* orow = out + static_cast<long long>(row) * DH;
+#pragma unroll
+  for (int j = 0; j < kVpt; ++j)
+    orow[lane + 32 * j] = from_f32<T>(acc[j] * inv);
+}
+
+struct Args {
+  const void* q;
+  const void* k_pool;
+  const void* v_pool;
+  const int* table;
+  void* out;
+  float* o_part;
+  float* ml_part;
+  int n_q, start, n_heads, n_kv_heads, page;
+  long long s_blk, s_t, s_kvh;
+  float scale;
+  int tiles_per_split, n_splits;
+};
+
+template <typename T, int DH>
+int launch(const Args& a, cudaStream_t stream) {
+  constexpr size_t smem = attn::Core<T>::template smem<DH>();
+  auto kernel = paged_prefill_kernel<T, DH>;
+  static std::atomic<unsigned long long> smem_set{0};
+  if (int e = attn::allow_smem(kernel, smem, smem_set)) return e;
+  const int rows = a.n_q * (a.n_heads / a.n_kv_heads);
+  const dim3 grid((rows + kTileRows - 1) / kTileRows, a.n_kv_heads,
+                  a.n_splits);
+  kernel<<<grid, attn::Core<T>::kThreads, smem, stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k_pool),
+      static_cast<const T*>(a.v_pool), a.table, static_cast<T*>(a.out),
+      a.o_part, a.ml_part, a.n_q, a.start, a.n_heads, a.n_kv_heads, a.page,
+      a.s_blk, a.s_t, a.s_kvh, a.scale, a.tiles_per_split);
+  if (cudaError_t e = cudaGetLastError()) return static_cast<int>(e);
+  if (a.n_splits == 1) return 0;
+  const int n_rows = a.n_q * a.n_heads;
+  paged_prefill_merge_kernel<T, DH>
+      <<<(n_rows + kMergeWarps - 1) / kMergeWarps, kMergeWarps * 32, 0,
+         stream>>>(a.o_part, a.ml_part, static_cast<T*>(a.out), n_rows,
+                   a.n_splits);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
-int dispatch_dh(int dh, const void* q, const void* k_pool,
-                const void* v_pool, const int* table, void* out, int n_q,
-                int start, int n_heads, int n_kv_heads, int page,
-                long long s_blk, long long s_t, long long s_kvh, float scale,
-                cudaStream_t stream) {
+int dispatch_dh(int dh, const Args& a, cudaStream_t stream) {
   switch (dh) {
     case 32:
-      return launch<T, 32>(q, k_pool, v_pool, table, out, n_q, start,
-                           n_heads, n_kv_heads, page, s_blk, s_t, s_kvh,
-                           scale, stream);
+      return launch<T, 32>(a, stream);
     case 64:
-      return launch<T, 64>(q, k_pool, v_pool, table, out, n_q, start,
-                           n_heads, n_kv_heads, page, s_blk, s_t, s_kvh,
-                           scale, stream);
+      return launch<T, 64>(a, stream);
     case 128:
-      return launch<T, 128>(q, k_pool, v_pool, table, out, n_q, start,
-                            n_heads, n_kv_heads, page, s_blk, s_t, s_kvh,
-                            scale, stream);
+      return launch<T, 128>(a, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -219,28 +201,39 @@ int dispatch_dh(int dh, const void* q, const void* k_pool,
 }  // namespace
 }  // namespace brpc_tpu_torch
 
-// q, out: [n_q, n_heads, dh], contiguous; k_pool/v_pool point at layer l's
-// slice of the [block, L, page, KV, dh] pool (element strides s_blk, s_t,
-// s_kvh; dh contiguous); table: int32 block ids covering positions
-// [0, start + n_q). start >= 0, n_q >= 1.
+// The split pass and, with n_splits > 1, the merge pass; returns the first
+// launch error. q, out: [n_q, n_heads, dh], contiguous; k_pool/v_pool
+// point at layer l's slice of the [block, L, page, KV, dh] pool (element
+// strides s_blk, s_t, s_kvh; dh contiguous); table: int32 block ids
+// covering positions [0, start + n_q). With n_splits == 1 the split pass
+// writes out; otherwise it writes o_part [n_splits, n_q * n_heads, dh] and
+// ml_part [n_splits, n_q * n_heads, 2] (f32 scratch), and the merge
+// (out[row] = sum_s w_s o_part[s, row] / sum_s w_s l_s, w_s =
+// exp(m_s - max_s m_s), splits with m_s = -inf skipped) writes out. Every
+// split of tiles_per_split 64-key tiles must start below start + n_q.
+// Pointers 16-byte aligned; start >= 0, n_q >= 1.
 extern "C" int brpc_paged_prefill_attention(
     int dtype, const void* q, const void* k_pool, const void* v_pool,
-    const int* table, void* out, int n_q, int start, int n_heads,
-    int n_kv_heads, int dh, int page, long long s_blk, long long s_t,
-    long long s_kvh, float scale, void* stream) {
+    const int* table, void* out, float* o_part, float* ml_part, int n_q,
+    int start, int n_heads, int n_kv_heads, int dh, int page,
+    long long s_blk, long long s_t, long long s_kvh, float scale,
+    int tiles_per_split, int n_splits, void* stream) {
   using namespace brpc_tpu_torch;
   if (n_q <= 0) return 0;
   if (start < 0 || n_kv_heads <= 0 || n_heads % n_kv_heads != 0 ||
-      page <= 0)
+      page <= 0 || tiles_per_split <= 0 || n_splits <= 0 ||
+      static_cast<long long>(n_splits - 1) * tiles_per_split *
+              attn::kTileKeys >=
+          start + n_q ||
+      (n_splits > 1 && (o_part == nullptr || ml_part == nullptr)) ||
+      !attn::aligned16(q) || !attn::aligned16(k_pool) ||
+      !attn::aligned16(v_pool) || !attn::aligned16(out))
     return cudaErrorInvalidValue;
+  const Args a{q, k_pool, v_pool, table, out, o_part, ml_part, n_q, start,
+               n_heads, n_kv_heads, page, s_blk, s_t, s_kvh, scale,
+               tiles_per_split, n_splits};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == kDtypeFloat32)
-    return dispatch_dh<float>(dh, q, k_pool, v_pool, table, out, n_q, start,
-                              n_heads, n_kv_heads, page, s_blk, s_t, s_kvh,
-                              scale, s);
-  if (dtype == kDtypeBFloat16)
-    return dispatch_dh<__nv_bfloat16>(dh, q, k_pool, v_pool, table, out, n_q,
-                                      start, n_heads, n_kv_heads, page, s_blk,
-                                      s_t, s_kvh, scale, s);
+  if (dtype == kDtypeFloat32) return dispatch_dh<float>(dh, a, s);
+  if (dtype == kDtypeBFloat16) return dispatch_dh<__nv_bfloat16>(dh, a, s);
   return cudaErrorInvalidValue;
 }

@@ -6,172 +6,76 @@
 // q.K^T in f32 times 1/sqrt(Dh), -1e30 on masked keys, f32 softmax,
 // probabilities cast to the model dtype, .V with f32 accumulation. Query
 // head h reads KV head h / (H / KV), the reference's jnp.repeat.
-// Bound on the card: operations for long prompts (4 x P^2/2 x Dh x H
-// flops against the H100 SXM's 989 TFLOP/s in bf16), bytes for short ones
-// (q, k, v read once and o written once against its 3.35 TB/s; data sheet,
-// 700 W power limit). This first version runs on
-// the CUDA cores in f32, far from the tensor-core bound; wgmma and TMA come
-// later.
-// Design: one block per (tile of 64 queries, head), 8 warps of 8 query rows
-// each. The block walks key tiles of 32 up to its causal edge
-// min(q_end, length); each tile of K and V is staged once in shared memory
-// (f32) for all 64 queries. Lane j of a warp forms the logit of key j for
-// the warp's 8 rows at once (K row in float4 loads from a padded, bank-
-// conflict-free stride, query rows broadcast), the rows fold the tile into
-// an online softmax (running max and sum in f32), and P.V has each lane own
-// Dh/32 output columns with the probabilities broadcast by shuffles.
-// Probabilities are rounded to T before P.V, as in the reference.
-#include "common.cuh"
+// Bound on the card: operations for long prompts (4 x H x Dh flops per
+// visible (query, key) pair against the H100 SXM's 989 TFLOP/s in bf16),
+// bytes for short ones (q, k, v read once and o written once against its
+// 3.35 TB/s; data sheet, 700 W power limit).
+// Design: the dense loader of the shared tile core (csrc/attention_tile.cuh:
+// bf16 on the tensor cores with mma.sync, f32 exact on the CUDA cores). One
+// block per (head, tile of 64 queries); key j of KV head h / (H / KV) is
+// row j of k and v. A block walks 64-key tiles up to its causal edge
+// min(q_end, n_tok, length): tiles wholly above the diagonal or at or past
+// `length` are never read, and the mask runs in registers. The causal
+// triangle makes late query tiles the heaviest, so the grid is laid out
+// heads fastest and query tiles last-first: the long rows start in the
+// first wave and the short ones fill in behind them.
+#include "attention_tile.cuh"
 
 namespace brpc_tpu_torch {
 namespace {
 
-constexpr int kBlockQ = 64;
-constexpr int kBlockK = 32;
-constexpr int kWarps = 8;
-constexpr int kRows = kBlockQ / kWarps;  // query rows per warp
+using attn::kTileRows;
 
-template <int DH>
-constexpr size_t prefill_smem_bytes() {
-  return (static_cast<size_t>(kBlockQ) * DH +
-          static_cast<size_t>(kBlockK) * (DH + 4) +
-          static_cast<size_t>(kBlockK) * DH) * sizeof(float);
-}
+template <typename T>
+struct DenseProblem {
+  const T* k;
+  const T* v;
+  int n_tok, n_heads, n_kv_heads, dh, q0, head, kvh;
+  int key_begin, key_end;
+
+  __device__ DenseProblem(const T* k_, const T* v_, int n_tok_, int length,
+                          int n_heads_, int n_kv_heads_, int dh_)
+      : k(k_), v(v_), n_tok(n_tok_), n_heads(n_heads_),
+        n_kv_heads(n_kv_heads_), dh(dh_) {
+    q0 = (gridDim.y - 1 - blockIdx.y) * kTileRows;  // heaviest first
+    head = blockIdx.x;
+    kvh = head / (n_heads / n_kv_heads);
+    key_begin = 0;
+    key_end = min(min(q0 + kTileRows, n_tok), length);
+  }
+  __device__ int row_id(int r) const {
+    const int qi = q0 + r;
+    return qi < n_tok ? qi * n_heads + head : -1;
+  }
+  __device__ int edge(int r) const { return q0 + r; }
+  __device__ long long kv_offset(int j) const {
+    return (static_cast<long long>(j) * n_kv_heads + kvh) * dh;
+  }
+};
 
 template <typename T, int DH>
-__global__ void __launch_bounds__(kWarps * 32)
+__global__ void __launch_bounds__(attn::Core<T>::kThreads,
+                                  attn::Core<T>::kMinBlocks)
     prefill_attention_kernel(const T* __restrict__ q,
                              const T* __restrict__ k,
                              const T* __restrict__ v, T* __restrict__ out,
                              int n_tok, int length, int n_heads,
                              int n_kv_heads, float scale) {
-  constexpr int kVpt = DH / 32;
-  constexpr int kStrideK = DH + 4;  // keeps float4 rows 16-byte aligned
-  extern __shared__ float4 smem_f4[];
-  float* qs = reinterpret_cast<float*>(smem_f4);  // [kBlockQ][DH]
-  float* ks = qs + kBlockQ * DH;                   // [kBlockK][kStrideK]
-  float* vs = ks + kBlockK * kStrideK;             // [kBlockK][DH]
-
-  const int q0 = blockIdx.x * kBlockQ;
-  const int head = blockIdx.y;
-  const int kvh = head / (n_heads / n_kv_heads);
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int nthreads = kWarps * 32;
-
-  for (int i = threadIdx.x; i < kBlockQ * DH; i += nthreads) {
-    const int r = i / DH;
-    const int d = i - r * DH;
-    const int row = q0 + r;
-    qs[i] = row < n_tok
-                ? to_f32<T>(q[(static_cast<long long>(row) * n_heads + head) *
-                                  DH + d])
-                : 0.f;
-  }
-
-  float acc[kRows][kVpt];
-  float m[kRows];
-  float l[kRows];
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    m[r] = -INFINITY;
-    l[r] = 0.f;
-#pragma unroll
-    for (int j = 0; j < kVpt; ++j) acc[r][j] = 0.f;
-  }
-  const int row0 = q0 + warp * kRows;  // first query row of this warp
-  const int key_end = min(q0 + kBlockQ, length);
-
-  for (int k0 = 0; k0 < key_end; k0 += kBlockK) {
-    __syncthreads();  // previous tile consumed (and qs written, first pass)
-    for (int i = threadIdx.x; i < kBlockK * DH; i += nthreads) {
-      const int t = i / DH;
-      const int d = i - t * DH;
-      const int key = k0 + t;
-      float kv_k = 0.f, kv_v = 0.f;
-      if (key < n_tok) {
-        const long long off =
-            (static_cast<long long>(key) * n_kv_heads + kvh) * DH + d;
-        kv_k = to_f32<T>(k[off]);
-        kv_v = to_f32<T>(v[off]);
-      }
-      ks[t * kStrideK + d] = kv_k;
-      vs[t * DH + d] = kv_v;
-    }
-    __syncthreads();
-
-    // Logits: lane j <-> key k0 + j, for the warp's kRows query rows.
-    float s[kRows];
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) s[r] = 0.f;
-    const float4* krow = reinterpret_cast<const float4*>(ks + lane * kStrideK);
-#pragma unroll 4
-    for (int d4 = 0; d4 < DH / 4; ++d4) {
-      const float4 kk = krow[d4];
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        const float4 qq = reinterpret_cast<const float4*>(
-            qs + (warp * kRows + r) * DH)[d4];
-        s[r] += qq.x * kk.x + qq.y * kk.y + qq.z * kk.z + qq.w * kk.w;
-      }
-    }
-    const int key = k0 + lane;
-    float pr[kRows];
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      const int row = row0 + r;
-      const bool valid = key <= row && key < length;
-      const float sv = valid ? s[r] * scale : -INFINITY;
-      const float m_new = fmaxf(m[r], warp_max(sv));
-      const float alpha = m[r] == -INFINITY ? 0.f : expf(m[r] - m_new);
-      const float e = valid ? expf(sv - m_new) : 0.f;
-      l[r] = l[r] * alpha + warp_sum(e);
-      m[r] = m_new;
-#pragma unroll
-      for (int j = 0; j < kVpt; ++j) acc[r][j] *= alpha;
-      pr[r] = round_to<T>(e);
-    }
-    // P.V: lane owns output columns lane + 32 * j.
-    const int n_keys = min(kBlockK, key_end - k0);
-    for (int t = 0; t < n_keys; ++t) {
-      float vv[kVpt];
-#pragma unroll
-      for (int j = 0; j < kVpt; ++j) vv[j] = vs[t * DH + lane + 32 * j];
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        const float pt = __shfl_sync(0xffffffffu, pr[r], t);
-#pragma unroll
-        for (int j = 0; j < kVpt; ++j) acc[r][j] += pt * vv[j];
-      }
-    }
-  }
-
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    const int row = row0 + r;
-    if (row >= n_tok) continue;
-    const float inv = 1.0f / l[r];
-    T* orow = out + (static_cast<long long>(row) * n_heads + head) * DH;
-#pragma unroll
-    for (int j = 0; j < kVpt; ++j)
-      orow[lane + 32 * j] = from_f32<T>(acc[r][j] * inv);
-  }
+  const DenseProblem<T> p(k, v, n_tok, length, n_heads, n_kv_heads, DH);
+  const attn::Sink<T> sink{out, nullptr, nullptr, n_tok * n_heads, 0, false};
+  attn::Core<T>::template run<DH>(p, q, scale, sink);
 }
 
 template <typename T, int DH>
 int launch(const void* q, const void* k, const void* v, void* out, int n_tok,
            int length, int n_heads, int n_kv_heads, float scale,
            cudaStream_t stream) {
-  constexpr size_t smem = prefill_smem_bytes<DH>();
+  constexpr size_t smem = attn::Core<T>::template smem<DH>();
   auto kernel = prefill_attention_kernel<T, DH>;
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  const dim3 grid((n_tok + kBlockQ - 1) / kBlockQ, n_heads);
-  kernel<<<grid, kWarps * 32, smem, stream>>>(
+  static std::atomic<unsigned long long> smem_set{0};
+  if (int e = attn::allow_smem(kernel, smem, smem_set)) return e;
+  const dim3 grid(n_heads, (n_tok + kTileRows - 1) / kTileRows);
+  kernel<<<grid, attn::Core<T>::kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(out), n_tok, length, n_heads,
       n_kv_heads, scale);
@@ -200,8 +104,8 @@ int dispatch_dh(int dh, const void* q, const void* k, const void* v,
 }  // namespace
 }  // namespace brpc_tpu_torch
 
-// q, out: [n_tok, n_heads, dh]; k, v: [n_tok, n_kv_heads, dh], contiguous.
-// 1 <= length <= n_tok.
+// q, out: [n_tok, n_heads, dh]; k, v: [n_tok, n_kv_heads, dh], contiguous
+// and 16-byte aligned. 1 <= length <= n_tok.
 extern "C" int brpc_prefill_attention(int dtype, const void* q,
                                       const void* k, const void* v,
                                       void* out, int n_tok, int length,
@@ -210,7 +114,8 @@ extern "C" int brpc_prefill_attention(int dtype, const void* q,
   using namespace brpc_tpu_torch;
   if (n_tok <= 0) return 0;
   if (length < 1 || length > n_tok || n_kv_heads <= 0 ||
-      n_heads % n_kv_heads != 0)
+      n_heads % n_kv_heads != 0 || !attn::aligned16(q) ||
+      !attn::aligned16(k) || !attn::aligned16(v) || !attn::aligned16(out))
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == kDtypeFloat32)

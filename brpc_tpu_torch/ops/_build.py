@@ -16,8 +16,11 @@ import ctypes
 import fcntl
 import hashlib
 import os
+import re
 import shutil
 import subprocess
+
+import torch
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _SRC_DIR = os.path.join(_PKG, "csrc")
@@ -56,6 +59,15 @@ def _source_hash() -> str:
         with open(os.path.join(_SRC_DIR, name), "rb") as f:
             h.update(f.read())
     return h.hexdigest()
+
+
+def header_constants(header: str) -> dict:
+    """The ``constexpr int kName = value;`` constants of ``csrc/<header>``,
+    so that Python code sizing a launch reads them from the source the
+    kernels are compiled from."""
+    with open(os.path.join(_SRC_DIR, header)) as f:
+        return {name: int(value) for name, value in re.findall(
+            r"^constexpr int (k\w+) = (\d+);", f.read(), re.M)}
 
 
 def build() -> str:
@@ -113,14 +125,21 @@ def lib() -> ctypes.CDLL:
     handle.brpc_prefill_attention.argtypes = [
         i32, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, f32, ptr]
     handle.brpc_paged_prefill_attention.argtypes = [
-        i32, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, i64,
-        i64, i64, f32, ptr]
+        i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32,
+        i64, i64, i64, f32, i32, i32, ptr]
     for fn in (handle.brpc_rms_norm, handle.brpc_paged_decode_attention,
                handle.brpc_prefill_attention,
                handle.brpc_paged_prefill_attention):
         fn.restype = ctypes.c_int
     _lib = handle
     return _lib
+
+
+def stream(t: torch.Tensor) -> int:
+    """The raw handle of the current CUDA stream on ``t``'s device, what
+    ``torch.cuda.current_stream(t.device).cuda_stream`` gives, without
+    building a Stream object on every launch."""
+    return torch._C._cuda_getCurrentRawStream(t.device.index)
 
 
 def check(rc: int, name: str) -> None:

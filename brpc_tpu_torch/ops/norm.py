@@ -38,7 +38,7 @@ def rms_norm(x: torch.Tensor, gain: torch.Tensor, eps: float) -> torch.Tensor:
         _build.DTYPE_FLOAT32 if x.dtype == torch.float32
         else _build.DTYPE_BFLOAT16, xc.data_ptr(), g.data_ptr(),
         out.data_ptr(), rows, d, float(eps),
-        torch.cuda.current_stream(x.device).cuda_stream)
+        _build.stream(x))
     _build.check(rc, "rms_norm")
     rms_norm.launches += 1
     return out

@@ -9,12 +9,13 @@ a wave that pushes the cached pages out to the host tier, and re-sent
 conversations that fill back from it), then the main path's cold swarm.
 
     python3 chip_smoke.py            # all phases, one card
-    python3 chip_smoke.py --profile  # + a profiled swarm after phase 5
+    python3 chip_smoke.py --profile  # + two short profiled swarms
 
 Needs a CUDA card and exits nonzero without one. The last line of stdout
 is {"ok": true, "device": {...}}; the line before the card's name and power
 limit, and before that the per-kernel JSON. A fuller report
-(chip_smoke_report.json, and profile.txt with --profile) is written to
+(chip_smoke_report.json, and with --profile the per-kernel tables
+profile_prefix.txt and profile.txt) is written to
 --report-dir (default build/chip_smoke).
 """
 
@@ -25,6 +26,7 @@ import dataclasses
 import faulthandler
 import json
 import os
+import re
 import subprocess
 import sys
 import threading
@@ -46,6 +48,14 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 # softmax sum where the plain version rounds after it; f32 differs only in
 # summation order.
 TOL = {torch.bfloat16: (2e-2, 1e-2), torch.float32: (1e-4, 1e-4)}
+# Attention kernels also hold every output row (one (query, head) vector)
+# to |kernel - plain| <= ROW_TOL |plain| in the 2-norm. Over a few thousand
+# keys the outputs are about as small as TOL's atol, so TOL alone would let
+# a kernel drop a whole 64-key tile, which ROW_TOL catches
+# (tests/test_torch_attention_split.py). bf16 rounding of the probabilities
+# and the output keeps each row of K1, K2 and K4 within 5.4e-3 (this
+# script's row_rel_err, NVIDIA H100 80GB HBM3, 700 W).
+ROW_TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-4}
 
 REPLACES = {
     "paged_decode_attention": "brpc_tpu/kv_cache.py:312",
@@ -76,7 +86,9 @@ def card_line() -> str:
 
 
 def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Mean device time of fn() over ``iters`` back-to-back calls."""
+    """Time per call between CUDA events around ``iters`` back-to-back
+    calls: the device time, or the host's launch time where a call is
+    shorter than its launch."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -90,13 +102,40 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_ms(fn, iters: int = 20):
+    """Device time of fn() per call: the CUDA kernels it launched, summed
+    by torch.profiler over ``iters`` calls, without the host's launch time
+    (which ``time_ms`` includes once a call is shorter than its launch).
+    None when the profiler sees no device activity."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0.0))
+             for e in prof.key_averages()
+             if getattr(e, "device_type", None)
+             == torch.autograd.DeviceType.CUDA)
+    return us / 1e3 / iters if us else None
+
+
 def bound_ms(nbytes: float, flops: float, dtype) -> tuple:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def compare(name: str, got: torch.Tensor, want: torch.Tensor, dtype) -> float:
+def compare(name: str, got: torch.Tensor, want: torch.Tensor, dtype,
+            rows: bool = False) -> tuple:
+    """-> (max abs err, max row relative err or None). Raises outside TOL
+    and, with ``rows`` (an attention output), outside ROW_TOL."""
+    from brpc_tpu_torch.ops import attention
+
     atol, rtol = TOL[dtype]
     g, w = got.float(), want.float()
     if not torch.isfinite(g).all():
@@ -107,13 +146,68 @@ def compare(name: str, got: torch.Tensor, want: torch.Tensor, dtype) -> float:
         raise AssertionError(
             f"{name}: {int(bad.sum())} elements outside atol {atol} rtol "
             f"{rtol}; max abs err {float(err.max()):.3e}")
-    return float(err.max())
+    row_err = attention.max_row_rel_err(g, w) if rows else None
+    if rows and not row_err <= ROW_TOL[dtype]:
+        raise AssertionError(
+            f"{name}: a row's relative error {row_err:.3e} is above "
+            f"{ROW_TOL[dtype]}")
+    return float(err.max()), row_err
+
+
+def ptxas_summary(path: str) -> list:
+    """One line per compiled kernel from nvcc's -Xptxas -v log: its
+    template instance, registers, and stack and spill bytes."""
+    out, name, spill = [], None, ""
+    with open(path) as f:
+        for line in f:
+            if "Compiling entry function" in line:
+                m = re.search(r"\d([a-z_]+_kernel)I(13__nv_bfloat16|f)"
+                              r"(?:Li(\d+)E)?", line)
+                name = (f"{m.group(1)}<{'bf16' if m.group(2) != 'f' else 'f32'}"
+                        f"{', ' + m.group(3) if m.group(3) else ''}>"
+                        if m else line.split("'")[1])
+            elif name and "spill" in line:
+                spill = line.strip()
+            elif name and "Used" in line:
+                out.append(f"{name}: {line.split(':', 1)[1].strip()}; "
+                           f"{spill}")
+                name = None
+    return out
+
+
+def sass_mma_counts(build) -> dict:
+    """Tensor-core instructions (HMMA/HGMMA) per compiled attention kernel
+    of the built library, from cuobjdump -sass; fails if a bf16 K2 or K4
+    kernel has none."""
+    tool = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", build.LIB_PATH],
+                          capture_output=True, text=True, check=True).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :", 1)[1].strip()
+            counts[name] = 0
+        elif name is not None and ("HMMA" in line or "HGMMA" in line):
+            counts[name] += 1
+    for name, n in counts.items():
+        if "prefill" in name and "bfloat16" in name:
+            log(f"[sass] {name}: {n} HMMA/HGMMA")
+            if "merge" not in name and n == 0:
+                raise AssertionError(f"{name} has no tensor-core instruction")
+    if not any("prefill" in k and "bfloat16" in k for k in counts):
+        raise AssertionError("no bf16 prefill kernel in the SASS")
+    return counts
 
 
 # ---- phase 3: each kernel against its plain version -------------------------
 
-# Phase 3's K4 cases: (start, queries).
-K4_CASES = ((1008, 40), (517, 300), (4000, 1))
+# Phase 3's K4 cases: (start, queries). The last one's split plan leaves
+# its first rows no key in the later splits (fully masked (row, split)
+# pairs, which the merge must weigh 0).
+K4_CASES = ((1008, 40), (517, 300), (4000, 1), (100, 200))
+# Phase 3's K2 cases: (bucket P, length); the last is the prefix phase's
+# 1060-token prompt in its 2048 bucket.
+K2_CASES = ((8, 5), (512, 300), (1024, 1024), (4096, 3000), (2048, 1060))
 
 # Phase 5's prompt lengths; its last decode step attends length + 31 keys.
 MAIN_LENGTHS = [16, 1024, 100, 517, 64, 300, 800, 33]
@@ -148,7 +242,8 @@ def check_paged_decode(dtype, gen, pos_list) -> dict:
         return attention.paged_decode_attention_plain(q, k_pool, v_pool,
                                                       tables, pos, layer)
 
-    err = compare("paged_decode_attention", kern(), plain(), dtype)
+    err, row_err = compare("paged_decode_attention", kern(), plain(), dtype,
+                           rows=True)
     # Library yardstick: SDPA with an explicit mask over the already
     # gathered dense K/V (the gather itself is not timed).
     T = max(need) * page
@@ -171,7 +266,8 @@ def check_paged_decode(dtype, gen, pos_list) -> dict:
     b, by = bound_ms(nbytes, flops, dtype)
     return {"shape": f"q[{S},{H},{Dh}] pool[{nb},{L},{page},{KV},{Dh}] "
                      f"pos={pos_list}",
-            "max_abs_err": err, "ms": time_ms(kern), "plain_ms":
+            "max_abs_err": err, "row_rel_err": row_err,
+            "ms": time_ms(kern), "plain_ms":
             time_ms(plain), "bound_ms": b, "bound_by": by,
             "library_ms": lib_ms}
 
@@ -191,7 +287,8 @@ def check_prefill(dtype, gen, P: int, length: int) -> dict:
     def plain():
         return attention.prefill_attention_plain(q, k, v, length)
 
-    err = compare(f"prefill_attention P={P}", kern(), plain(), dtype)
+    err, row_err = compare(f"prefill_attention P={P}", kern(), plain(),
+                           dtype, rows=True)
     span = torch.arange(P, device=dev)
     mask = ((span[:, None] >= span[None, :])
             & (span[None, :] < length))[None, None]
@@ -199,17 +296,22 @@ def check_prefill(dtype, gen, P: int, length: int) -> dict:
     k4 = k.repeat_interleave(H // KV, dim=1).transpose(0, 1)[None]
     v4 = v.repeat_interleave(H // KV, dim=1).transpose(0, 1)[None]
     F = torch.nn.functional
-    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
-        q4, k4, v4, attn_mask=mask), iters=5)
+
+    def lib():
+        return F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask)
+
+    lib_ms = time_ms(lib)
     itemsize = torch.empty((), dtype=dtype).element_size()
     pairs = sum(min(i + 1, length) for i in range(P))
     nbytes = (2 * P * H * Dh + 2 * P * KV * Dh) * itemsize
     flops = 4.0 * pairs * H * Dh
     b, by = bound_ms(nbytes, flops, dtype)
     return {"shape": f"q[{P},{H},{Dh}] kv[{P},{KV},{Dh}] length={length}",
-            "max_abs_err": err, "ms": time_ms(kern, iters=5),
-            "plain_ms": time_ms(plain, iters=5), "bound_ms": b,
-            "bound_by": by, "library_ms": lib_ms}
+            "max_abs_err": err, "row_rel_err": row_err,
+            "ms": time_ms(kern), "plain_ms": time_ms(plain, iters=5),
+            "bound_ms": b,
+            "bound_by": by, "library_ms": lib_ms,
+            "device_ms": device_ms(kern), "library_device_ms": device_ms(lib)}
 
 
 def check_paged_prefill(dtype, gen, start: int, n: int) -> dict:
@@ -235,8 +337,16 @@ def check_paged_prefill(dtype, gen, start: int, n: int) -> dict:
         return attention.paged_prefill_attention_plain(q, k_pool, v_pool,
                                                        table, start, layer)
 
-    err = compare(f"paged_prefill_attention start={start} n={n}", kern(),
-                  plain(), dtype)
+    err, row_err = compare(f"paged_prefill_attention start={start} n={n}",
+                           kern(), plain(), dtype, rows=True)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    per, splits = attention.plan_splits(n, H, KV, start, sms)
+    q_tiles = -(-(n * H // KV) // attention.TILE_ROWS)
+    # rows (query, head) that see no key of some split, which the merge
+    # must weigh 0
+    masked_pairs = H * sum(
+        min(n, max(0, lo - start))
+        for lo, _ in attention.split_ranges(start, n, per, splits))
     # Library yardstick: SDPA with an explicit mask over the already
     # gathered dense K/V (the gather itself is not timed).
     T = pages * page
@@ -250,8 +360,11 @@ def check_paged_prefill(dtype, gen, start: int, n: int) -> dict:
             )[None, None]
     q4 = q.transpose(0, 1)[None]
     F = torch.nn.functional
-    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
-        q4, kd, vd, attn_mask=mask), iters=5)
+
+    def lib():
+        return F.scaled_dot_product_attention(q4, kd, vd, attn_mask=mask)
+
+    lib_ms = time_ms(lib)
     itemsize = torch.empty((), dtype=dtype).element_size()
     nbytes = (2 * (start + n) * KV * Dh + 2 * n * H * Dh) * itemsize \
         + pages * 4
@@ -259,9 +372,14 @@ def check_paged_prefill(dtype, gen, start: int, n: int) -> dict:
     b, by = bound_ms(nbytes, flops, dtype)
     return {"shape": f"q[{n},{H},{Dh}] start={start} pool[{nb},{L},{page},"
                      f"{KV},{Dh}]",
-            "max_abs_err": err, "ms": time_ms(kern, iters=5),
-            "plain_ms": time_ms(plain, iters=5), "bound_ms": b,
-            "bound_by": by, "library_ms": lib_ms}
+            "splits": splits, "tiles_per_split": per,
+            "grid_blocks": q_tiles * KV * splits,
+            "masked_row_splits": masked_pairs,
+            "max_abs_err": err, "row_rel_err": row_err,
+            "ms": time_ms(kern), "plain_ms": time_ms(plain, iters=5),
+            "bound_ms": b,
+            "bound_by": by, "library_ms": lib_ms,
+            "device_ms": device_ms(kern), "library_device_ms": device_ms(lib)}
 
 
 def check_rms_norm(dtype, gen, rows: int) -> dict:
@@ -278,7 +396,7 @@ def check_rms_norm(dtype, gen, rows: int) -> dict:
     def plain():
         return norm.rms_norm_plain(x, g, eps)
 
-    err = compare(f"rms_norm rows={rows}", kern(), plain(), dtype)
+    err, _ = compare(f"rms_norm rows={rows}", kern(), plain(), dtype)
     F = torch.nn.functional
     lib_ms = None
     if hasattr(F, "rms_norm"):
@@ -292,6 +410,10 @@ def check_rms_norm(dtype, gen, rows: int) -> dict:
             "bound_ms": b, "bound_by": by, "library_ms": lib_ms}
 
 
+def fmt_ms(x) -> str:
+    return "not measured" if x is None else f"{x:.4f}"
+
+
 def phase_kernels() -> dict:
     gen = torch.Generator(device="cuda").manual_seed(0)
     cases = {"paged_decode_attention": [], "prefill_attention": [],
@@ -303,7 +425,7 @@ def phase_kernels() -> dict:
         if dtype == torch.bfloat16:  # phase 5's last decode step
             runs.append(("paged_decode_attention", check_paged_decode(
                 dtype, gen, [n + MAIN_NEW_TOKENS - 1 for n in MAIN_LENGTHS])))
-        for P, length in ((8, 5), (512, 300), (1024, 1024), (4096, 3000)):
+        for P, length in K2_CASES:
             runs.append(("prefill_attention",
                          check_prefill(dtype, gen, P, length)))
         # page-aligned start (a turn-2 resume's shape), mid-page start with
@@ -318,10 +440,19 @@ def phase_kernels() -> dict:
             cases[name].append(r)
             lib = ("n/a" if r["library_ms"] is None
                    else f"{r['library_ms']:.4f}")
-            log(f"[kernel] {name} {tag} {r['shape']}: max_abs_err "
-                f"{r['max_abs_err']:.3e} ms {r['ms']:.4f} plain_ms "
+            plan = (f" splits {r['splits']} x {r['tiles_per_split']} tiles, "
+                    f"{r['grid_blocks']} blocks, {r['masked_row_splits']} "
+                    f"fully masked (row, split) pairs;" if "splits" in r
+                    else "")
+            dev = ("" if "device_ms" not in r else
+                   f" device_ms {fmt_ms(r['device_ms'])} library_device_ms "
+                   f"{fmt_ms(r['library_device_ms'])}")
+            row = ("" if r.get("row_rel_err") is None else
+                   f" row_rel_err {r['row_rel_err']:.3e}")
+            log(f"[kernel] {name} {tag} {r['shape']}:{plan} max_abs_err "
+                f"{r['max_abs_err']:.3e}{row} ms {r['ms']:.4f} plain_ms "
                 f"{r['plain_ms']:.4f} bound_ms {r['bound_ms']:.5f} "
-                f"({r['bound_by']}) library_ms {lib}")
+                f"({r['bound_by']}) library_ms {lib}{dev}")
     return cases
 
 
@@ -494,12 +625,14 @@ WAVE3 = (8, 800, 8)  # prompts, tokens each, new tokens
 HOST_PAGES = 1024
 
 
-def phase_prefix(params, cfg, card: str) -> dict:
+def phase_prefix(params, cfg, card: str, profile_it: bool,
+                 report_dir: str) -> dict:
     """The prefix-cache serving path at full width: turn 1 of eight
     conversations over one system prompt, turn 2 off the finished turn 1,
     a third wave of unrelated prompts that evicts the cached pages into
     the host tier, and two turn-1 conversations re-sent, which fill back
-    from it."""
+    from it. With ``profile_it``, two more turn-1 conversations re-sent
+    under the profiler afterwards (prefix hits: resumes)."""
     from brpc_tpu_torch import kv_cache, ops, runtime, serving
 
     rng = np.random.default_rng(2)
@@ -543,11 +676,13 @@ def phase_prefix(params, cfg, card: str) -> dict:
         wall = time.monotonic() - t0
         launches = ops.launch_counts()
         stats = eng.stats()
+        n_req = len(turn1) + len(turn2) + len(wave3) + len(again)
+        hits, misses, host_routed = flight_ttfts(n_req)
+        segments = ttft_breakdown(n_req)
+        prof = (profile_swarm(eng, [turn1[4], turn1[5]], 8, report_dir,
+                              "profile_prefix.txt") if profile_it else None)
     finally:
         eng.close()
-    n_req = len(turn1) + len(turn2) + len(wave3) + len(again)
-    hits, misses, host_routed = flight_ttfts(n_req)
-    segments = ttft_breakdown(n_req)
     L = cfg.n_layers
     if launches["paged_prefill_attention"] != L * stats["resumes"] \
             or stats["resumes"] == 0:
@@ -601,7 +736,7 @@ def phase_prefix(params, cfg, card: str) -> dict:
         "kv_evictions_wave3": s_wave["kv_evictions"] - s_chat["kv_evictions"],
         "kv_blocks": blocks, "ttft_segments_ms": segments,
         "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
-        "launches": launches,
+        "launches": launches, "profile": prof,
     }
     log(f"[prefix] Llama-3-8B bf16 {L} layers, {card}: {n_req} requests "
         f"in {wall:.3f} s; {res['prefills']} cold prefills "
@@ -615,6 +750,11 @@ def phase_prefix(params, cfg, card: str) -> dict:
         f"{res['kv_tier_spills']} evictions {res['kv_tier_evictions']}; "
         f"peak memory {res['peak_mem_gib']:.2f} GiB; TTFT segments mean ms "
         f"{fmt_segments(segments)}; launches {launches}")
+    if prof is not None:
+        log(f"[profile] prefix hits, 2 requests x 8 tokens, {card}: wall "
+            f"{prof['wall_ms']:.1f} ms, device busy ms "
+            f"{prof['device_busy_ms']}, idle share {prof['idle_share']}; "
+            f"by group ms {json.dumps(prof['by_group_ms'])}")
     return res
 
 
@@ -623,9 +763,11 @@ def fmt_segments(segments: dict) -> str:
                     for k, v in segments.items())
 
 
-def profile_swarm(engine, prompts, max_new: int, report_dir: str) -> dict:
+def profile_swarm(engine, prompts, max_new: int, report_dir: str,
+                  table_name: str = "profile.txt") -> dict:
     """A second, shorter swarm under torch.profiler: device time by kernel
-    group over the wall time (the measured swarm runs unprofiled)."""
+    group over the wall time (the measured swarm runs unprofiled); the
+    per-kernel table goes to ``table_name`` in ``report_dir``."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -635,7 +777,8 @@ def profile_swarm(engine, prompts, max_new: int, report_dir: str) -> dict:
         torch.cuda.synchronize()
         wall = time.monotonic() - t0
     groups = {"K1 paged_decode_attention": 0.0, "K2 prefill_attention": 0.0,
-              "K3 rms_norm": 0.0, "matmul (cuBLAS)": 0.0, "other": 0.0}
+              "K3 rms_norm": 0.0, "K4 paged_prefill_attention": 0.0,
+              "matmul (cuBLAS)": 0.0, "other": 0.0}
     table = []
     for e in prof.key_averages():
         if getattr(e, "device_type", None) != torch.autograd.DeviceType.CUDA:
@@ -646,6 +789,8 @@ def profile_swarm(engine, prompts, max_new: int, report_dir: str) -> dict:
         name = e.key.lower()
         if "paged_decode" in name:
             g = "K1 paged_decode_attention"
+        elif "paged_prefill" in name:  # K4's split pass and its merge
+            g = "K4 paged_prefill_attention"
         elif "prefill_attention" in name:
             g = "K2 prefill_attention"
         elif "rms_norm" in name:
@@ -657,7 +802,7 @@ def profile_swarm(engine, prompts, max_new: int, report_dir: str) -> dict:
             g = "other"
         groups[g] += us / 1e3
     table.sort(reverse=True)
-    with open(os.path.join(report_dir, "profile.txt"), "w") as f:
+    with open(os.path.join(report_dir, table_name), "w") as f:
         for us, n, key in table:
             f.write(f"{us / 1e3:10.3f} ms {n:7d}x {key}\n")
     busy = sum(groups.values())
@@ -752,7 +897,9 @@ def main() -> int:
     os.environ.setdefault("TRPC_KV_HOST_ARENA", "0")
     ap = argparse.ArgumentParser()
     ap.add_argument("--profile", action="store_true",
-                    help="after phase 5, profile a second, shorter swarm")
+                    help="profile a short swarm after the prefix phase "
+                    "and after phase 5 (both re-send prompts the cache "
+                    "holds: resumes and decode)")
     ap.add_argument("--report-dir",
                     default=os.path.join(HERE, "build", "chip_smoke"),
                     help="where the JSON report and the profile table go")
@@ -777,11 +924,13 @@ def main() -> int:
     t_kernels = time.monotonic() - t0
     log(f"[build] native runtime {t_native:.1f} s, CUDA kernels "
         f"{t_kernels:.1f} s")
-    with open(_build.PTXAS_LOG) as f:
-        for line in f:
-            if "registers" in line or "spill" in line or "==" in line:
-                log("[ptxas] " + line.rstrip())
+    for line in ptxas_summary(_build.PTXAS_LOG):
+        log("[ptxas] " + line)
+        if ("prefill" in line and "<bf16, 128>" in line
+                and " 0 bytes spill stores" not in line):
+            raise AssertionError(f"the Llama-width tile spills: {line}")
     report["build_s"] = {"native": t_native, "kernels": t_kernels}
+    report["sass_mma"] = sass_mma_counts(_build)
     cases = phase_kernels()
     from brpc_tpu_torch.models import transformer
 
@@ -795,7 +944,8 @@ def main() -> int:
     torch.cuda.synchronize()
     init_s = time.monotonic() - t0
     log(f"[weights] Llama-3-8B bf16 random weights in {init_s:.1f} s")
-    report["prefix"] = phase_prefix(params, cfg, card)
+    report["prefix"] = phase_prefix(params, cfg, card, args.profile,
+                                    args.report_dir)
     main_res = phase_main(params, cfg, init_s, card, args.profile,
                           args.report_dir)
     report["main"] = main_res

@@ -23,6 +23,19 @@ HEADS = [(4, 4, 32), (4, 2, 32), (8, 2, 64), (32, 8, 128)]  # (H, KV, Dh)
 # before the division by the softmax sum, where the plain versions round
 # after it.
 CARD_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2e-2, 1e-2)}
+# Attention outputs are also held row by row: |kernel - plain| <=
+# ROW_TOL |plain| in the 2-norm of each (query, head) vector. Over
+# thousands of keys the outputs are about as small as CARD_TOL's atol, so
+# CARD_TOL alone would pass a kernel that drops a 64-key tile, which
+# ROW_TOL catches (tests/test_torch_attention_split.py); bf16 rounding keeps
+# each row within 5.4e-3 (chip_smoke.py's row_rel_err on an H100).
+ROW_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+
+
+def _assert_rows_close(got, want, dtype):
+    err = attention.max_row_rel_err(got, want)
+    assert err <= ROW_TOL[dtype], (
+        f"a row's relative error {err:.3e} is above {ROW_TOL[dtype]}")
 
 
 @pytest.fixture
@@ -69,12 +82,14 @@ def test_kernels_match_plain_on_card(cuda_device, dtype, H, KV, Dh):
     want = attention.paged_decode_attention_plain(*args, 2)
     torch.testing.assert_close(got.float(), want.float(), atol=atol,
                                rtol=rtol)
+    _assert_rows_close(got, want, dtype)
     x = torch.randn((70, H, Dh), device=dev).to(dtype)
     kv = torch.randn((70, KV, Dh), device=dev).to(dtype)
-    torch.testing.assert_close(
-        attention.prefill_attention(x, kv, kv * 0.5, 41).float(),
-        attention.prefill_attention_plain(x, kv, kv * 0.5, 41).float(),
-        atol=atol, rtol=rtol)
+    got = attention.prefill_attention(x, kv, kv * 0.5, 41)
+    want = attention.prefill_attention_plain(x, kv, kv * 0.5, 41)
+    torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                               rtol=rtol)
+    _assert_rows_close(got, want, dtype)
     g = torch.rand(H * Dh, device=dev) + 0.5
     rows = x.reshape(70, H * Dh)
     torch.testing.assert_close(norm.rms_norm(rows, g, 1e-5).float(),
@@ -82,8 +97,33 @@ def test_kernels_match_plain_on_card(cuda_device, dtype, H, KV, Dh):
                                atol=atol, rtol=rtol)
 
 
-# (start, n): page-aligned, mid-page start ending mid-page, one query deep
-RESUME_CASES = [(1008, 40), (517, 300), (4000, 1)]
+@pytest.mark.cuda
+@pytest.mark.parametrize("P,length", [(2048, 1060), (130, 77)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H,KV,Dh", HEADS)
+def test_prefill_attention_matches_plain_on_card(cuda_device, H, KV, Dh,
+                                                 dtype, P, length):
+    """K2 against its plain version: a 1060-token prompt in its 2048
+    bucket (key tiles past the length skipped, pad rows still computed)
+    and a ragged short one."""
+    atol, rtol = CARD_TOL[dtype]
+    gen = torch.Generator(device=cuda_device).manual_seed(P + length)
+    q = torch.randn((P, H, Dh), generator=gen, device=cuda_device).to(dtype)
+    k = torch.randn((P, KV, Dh), generator=gen, device=cuda_device).to(dtype)
+    v = torch.randn((P, KV, Dh), generator=gen, device=cuda_device).to(dtype)
+    before = attention.prefill_attention.launches
+    got = attention.prefill_attention(q, k, v, length)
+    assert attention.prefill_attention.launches == before + 1
+    want = attention.prefill_attention_plain(q, k, v, length)
+    torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                               rtol=rtol)
+    _assert_rows_close(got, want, dtype)
+
+
+# (start, n): page-aligned, mid-page start ending mid-page, one query deep,
+# and a long suffix whose split plan leaves its first rows no key in the
+# later splits
+RESUME_CASES = [(1008, 40), (517, 300), (4000, 1), (100, 200)]
 
 
 @pytest.mark.cuda
@@ -113,6 +153,7 @@ def test_paged_prefill_attention_matches_plain_on_card(cuda_device, H, KV,
                                                    start, L - 1)
     torch.testing.assert_close(got.float(), want.float(), atol=atol,
                                rtol=rtol)
+    _assert_rows_close(got, want, dtype)
 
 
 @pytest.mark.cuda
