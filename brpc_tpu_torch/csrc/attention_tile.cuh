@@ -1,9 +1,11 @@
-// The attention core shared by K2 (csrc/prefill_attention.cu) and K4
-// (csrc/paged_prefill_attention.cu): one block folds a tile of 64 query
-// rows over a range of keys with an online softmax. The kernels differ
-// only in their "problem", a small struct that says which global row each
-// of the 64 rows is, the last key each row may see, where key j lives, and
-// which key range the block covers. Two cores, chosen by dtype:
+// The attention core shared by K1 (csrc/paged_decode_attention.cu), K2
+// (csrc/prefill_attention.cu) and K4 (csrc/paged_prefill_attention.cu): one
+// block folds a tile of 64 query rows over a range of keys with an online
+// softmax. The kernels differ only in their "problem", a small struct that
+// says which global row each of the 64 rows is, the last key each row may
+// see, where key j lives, and which key range the block covers. Rows are
+// numbered valid first (row_id -1 past the end), so a warp whose first row
+// is invalid skips the arithmetic. Two cores, chosen by dtype:
 //
 // bf16 (`mma_tile`): tensor cores. 4 warps of 16 rows each. The Q tile is
 // copied into shared memory and held in registers as the A operand of
@@ -34,8 +36,9 @@
 //
 // A block writes either its final rows (one split: O / l rounded to T) or,
 // when the key range is cut into splits, an unnormalised f32 partial O with
-// its row max m and sum l, which a merge pass combines. A row that sees no
-// key of its split keeps m = -inf and l = 0, and the merge gives it weight 0.
+// its row max m and sum l, which a merge pass (`merge_row`, below) combines.
+// A row that sees no key of its split keeps m = -inf and l = 0, and the
+// merge gives it weight 0.
 #pragma once
 
 #include <stdint.h>
@@ -402,6 +405,8 @@ __device__ void f32_tile(const Problem& p, const float* __restrict__ q,
 
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
+  // As in mma_tile: a warp whose first row is past the end only loads.
+  const bool active = p.row_id(warp * kRows) >= 0;
 
   for (int i = threadIdx.x; i < kTileRows * DH; i += kF32Threads) {
     const int r = i / DH;
@@ -438,6 +443,7 @@ __device__ void f32_tile(const Problem& p, const float* __restrict__ q,
       vs[t * DH + d] = kv_v;
     }
     __syncthreads();
+    if (!active) continue;
 
     // Logits: lane j <-> key k0 + j, for the warp's kRows query rows.
     float s[kRows];
@@ -484,6 +490,7 @@ __device__ void f32_tile(const Problem& p, const float* __restrict__ q,
     }
   }
 
+  if (!active) return;
 #pragma unroll
   for (int r = 0; r < kRows; ++r) {
     const int rid = p.row_id(warp * kRows + r);
@@ -505,6 +512,52 @@ __device__ void f32_tile(const Problem& p, const float* __restrict__ q,
       }
     }
   }
+}
+
+// ---- merge of the split partials --------------------------------------------
+
+constexpr int kMergeWarps = 4;  // rows (warps) of one merge block
+
+// Row `row` of the merge: out[row] = sum_s w_s o_part[s, row] /
+// sum_s w_s l_s with w_s = exp(m_s - max_s m_s), skipping splits the row
+// saw no key of (m_s = -inf: weight 0, O never written), rounded to T once.
+// One warp per row, lane + 32 j owns column j. Each kernel that splits
+// wraps this in a __global__ of its own name (kMergeWarps warps a block).
+template <typename T, int DH>
+__device__ __forceinline__ void merge_row(const float* __restrict__ o_part,
+                                          const float* __restrict__ ml_part,
+                                          T* __restrict__ out, int n_rows,
+                                          int n_splits) {
+  constexpr int kVpt = DH / 32;
+  const int row = blockIdx.x * kMergeWarps + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (row >= n_rows) return;
+  float mx = -INFINITY;
+  for (int s = 0; s < n_splits; ++s)
+    mx = fmaxf(mx, ml_part[(static_cast<long long>(s) * n_rows + row) * 2]);
+  float acc[kVpt];
+#pragma unroll
+  for (int j = 0; j < kVpt; ++j) acc[j] = 0.f;
+  float sum = 0.f;
+  for (int s = 0; s < n_splits; ++s) {
+    const long long prow = static_cast<long long>(s) * n_rows + row;
+    const float m = ml_part[prow * 2];
+    if (m == -INFINITY) continue;  // no visible key: weight 0, O unwritten
+    const float w = expf(m - mx);
+    sum += w * ml_part[prow * 2 + 1];
+    const float* orow = o_part + prow * DH;
+#pragma unroll
+    for (int j = 0; j < kVpt; ++j) acc[j] += w * orow[lane + 32 * j];
+  }
+  const float inv = 1.0f / sum;
+  T* orow = out + static_cast<long long>(row) * DH;
+#pragma unroll
+  for (int j = 0; j < kVpt; ++j)
+    orow[lane + 32 * j] = from_f32<T>(acc[j] * inv);
+}
+
+__host__ __forceinline__ unsigned merge_blocks(int n_rows) {
+  return static_cast<unsigned>((n_rows + kMergeWarps - 1) / kMergeWarps);
 }
 
 // ---- dispatch ----------------------------------------------------------------
@@ -553,10 +606,6 @@ int allow_smem(Kernel kernel, size_t smem,
     return static_cast<int>(e);
   done.fetch_or(bit, std::memory_order_relaxed);
   return 0;
-}
-
-__host__ __forceinline__ bool aligned16(const void* p) {
-  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
 }  // namespace attn

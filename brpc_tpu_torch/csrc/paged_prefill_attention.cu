@@ -108,42 +108,14 @@ __global__ void __launch_bounds__(attn::Core<T>::kThreads,
   attn::Core<T>::template run<DH>(p, q, scale, sink);
 }
 
-constexpr int kMergeWarps = 4;
-
-// One warp per (query, head) row: weight each split's partial by
-// exp(m_s - max), skip splits the row saw no key of, divide once.
+// The merge pass: one warp per (query, head) row (attn::merge_row).
 template <typename T, int DH>
-__global__ void __launch_bounds__(kMergeWarps * 32)
+__global__ void __launch_bounds__(attn::kMergeWarps * 32)
     paged_prefill_merge_kernel(const float* __restrict__ o_part,
                                const float* __restrict__ ml_part,
                                T* __restrict__ out, int n_rows,
                                int n_splits) {
-  constexpr int kVpt = DH / 32;
-  const int row = blockIdx.x * kMergeWarps + threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  if (row >= n_rows) return;
-  float mx = -INFINITY;
-  for (int s = 0; s < n_splits; ++s)
-    mx = fmaxf(mx, ml_part[(static_cast<long long>(s) * n_rows + row) * 2]);
-  float acc[kVpt];
-#pragma unroll
-  for (int j = 0; j < kVpt; ++j) acc[j] = 0.f;
-  float sum = 0.f;
-  for (int s = 0; s < n_splits; ++s) {
-    const long long prow = static_cast<long long>(s) * n_rows + row;
-    const float m = ml_part[prow * 2];
-    if (m == -INFINITY) continue;  // no visible key: weight 0, O unwritten
-    const float w = expf(m - mx);
-    sum += w * ml_part[prow * 2 + 1];
-    const float* orow = o_part + prow * DH;
-#pragma unroll
-    for (int j = 0; j < kVpt; ++j) acc[j] += w * orow[lane + 32 * j];
-  }
-  const float inv = 1.0f / sum;
-  T* orow = out + static_cast<long long>(row) * DH;
-#pragma unroll
-  for (int j = 0; j < kVpt; ++j)
-    orow[lane + 32 * j] = from_f32<T>(acc[j] * inv);
+  attn::merge_row<T, DH>(o_part, ml_part, out, n_rows, n_splits);
 }
 
 struct Args {
@@ -178,9 +150,8 @@ int launch(const Args& a, cudaStream_t stream) {
   if (a.n_splits == 1) return 0;
   const int n_rows = a.n_q * a.n_heads;
   paged_prefill_merge_kernel<T, DH>
-      <<<(n_rows + kMergeWarps - 1) / kMergeWarps, kMergeWarps * 32, 0,
-         stream>>>(a.o_part, a.ml_part, static_cast<T*>(a.out), n_rows,
-                   a.n_splits);
+      <<<attn::merge_blocks(n_rows), attn::kMergeWarps * 32, 0, stream>>>(
+          a.o_part, a.ml_part, static_cast<T*>(a.out), n_rows, a.n_splits);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -226,8 +197,8 @@ extern "C" int brpc_paged_prefill_attention(
               attn::kTileKeys >=
           start + n_q ||
       (n_splits > 1 && (o_part == nullptr || ml_part == nullptr)) ||
-      !attn::aligned16(q) || !attn::aligned16(k_pool) ||
-      !attn::aligned16(v_pool) || !attn::aligned16(out))
+      !aligned16(q) || !aligned16(k_pool) ||
+      !aligned16(v_pool) || !aligned16(out))
     return cudaErrorInvalidValue;
   const Args a{q, k_pool, v_pool, table, out, o_part, ml_part, n_q, start,
                n_heads, n_kv_heads, page, s_blk, s_t, s_kvh, scale,

@@ -114,8 +114,8 @@ extern "C" int brpc_prefill_attention(int dtype, const void* q,
   using namespace brpc_tpu_torch;
   if (n_tok <= 0) return 0;
   if (length < 1 || length > n_tok || n_kv_heads <= 0 ||
-      n_heads % n_kv_heads != 0 || !attn::aligned16(q) ||
-      !attn::aligned16(k) || !attn::aligned16(v) || !attn::aligned16(out))
+      n_heads % n_kv_heads != 0 || !aligned16(q) ||
+      !aligned16(k) || !aligned16(v) || !aligned16(out))
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == kDtypeFloat32)

@@ -1,4 +1,5 @@
-// K3: RMSNorm over the last axis, out = T(x32 * rsqrt(mean(x32^2) + eps) * g).
+// K3: RMSNorm over the last axis, out = T(x32 * rsqrt(mean(x32^2) + eps) * g),
+// and its fused form with the residual add before it (`add_rms_norm`).
 //
 // Replaces: brpc_tpu/models/transformer.py:102 `_rms_norm` (XLA-fused in the
 // JAX package; run 2L+1 times per decode step and per prefill).
@@ -12,12 +13,43 @@
 // twice; at D = 4096 the second read hits L1/L2, so device memory sees it
 // once. Math follows the reference: f32 throughout, mean as sum / D, the
 // correctly rounded 1 / sqrtf (no fast-math rsqrt), (x * scale) * g.
+//
+// add_rms_norm: every norm of a forward but the first follows a residual
+// add (x + attention out before ln_mlp, x + MLP out before the next
+// ln_attn or ln_out), which the JAX package leaves to XLA to fuse. Alone,
+// the add is one more launch of a few microseconds on ~64 KB (8 decode rows
+// at D 4096), which is what the step pays: both are launch-bound. The fused
+// kernel reads x and delta once with 16-byte loads, rounds the sum to T as
+// torch's `x + delta` does (f32 add, round to nearest even), writes it out
+// as the new residual stream s, keeps the rounded row in registers (D 4096:
+// 16 values a thread), and writes h = T(s32 * rsqrt(mean(s32^2) + eps) * g)
+// in the same pass. Bound: bytes, 2 reads and 2 writes of the row.
+#include <stdint.h>
+
 #include "common.cuh"
 
 namespace brpc_tpu_torch {
 namespace {
 
 constexpr int kNormThreads = 256;
+
+// The block's sum of `v` over its threads, in every thread.
+__device__ __forceinline__ float block_sum(float v) {
+  __shared__ float warp_part[kNormThreads / 32];
+  __shared__ float total;
+  v = warp_sum(v);
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (lane == 0) warp_part[warp] = v;
+  __syncthreads();
+  if (warp == 0) {
+    float w = lane < kNormThreads / 32 ? warp_part[lane] : 0.f;
+    w = warp_sum(w);
+    if (lane == 0) total = w;
+  }
+  __syncthreads();
+  return total;
+}
 
 template <typename T>
 __global__ void __launch_bounds__(kNormThreads)
@@ -31,23 +63,133 @@ __global__ void __launch_bounds__(kNormThreads)
     const float v = to_f32<T>(xr[i]);
     ss += v * v;
   }
-  ss = warp_sum(ss);
-  __shared__ float warp_part[kNormThreads / 32];
-  __shared__ float row_scale;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  if (lane == 0) warp_part[warp] = ss;
-  __syncthreads();
-  if (warp == 0) {
-    float v = lane < kNormThreads / 32 ? warp_part[lane] : 0.f;
-    v = warp_sum(v);
-    if (lane == 0) row_scale = 1.0f / sqrtf(v / static_cast<float>(d) + eps);
-  }
-  __syncthreads();
-  const float scale = row_scale;
+  const float scale =
+      1.0f / sqrtf(block_sum(ss) / static_cast<float>(d) + eps);
   for (int i = threadIdx.x; i < d; i += kNormThreads) {
     outr[i] = from_f32<T>(to_f32<T>(xr[i]) * scale * g[i]);
   }
+}
+
+// A 16-byte chunk of a row as f32 values: kN elements of T, converted
+// exactly on the way in and rounded to nearest even on the way out.
+template <typename T>
+struct Chunk16;
+template <>
+struct Chunk16<float> {
+  static constexpr int kN = 4;
+  __device__ static void unpack(uint4 r, float (&f)[kN]) {
+    f[0] = __uint_as_float(r.x);
+    f[1] = __uint_as_float(r.y);
+    f[2] = __uint_as_float(r.z);
+    f[3] = __uint_as_float(r.w);
+  }
+  __device__ static uint4 pack(const float (&f)[kN]) {
+    return make_uint4(__float_as_uint(f[0]), __float_as_uint(f[1]),
+                      __float_as_uint(f[2]), __float_as_uint(f[3]));
+  }
+};
+template <>
+struct Chunk16<__nv_bfloat16> {
+  static constexpr int kN = 8;
+  __device__ static void unpack(uint4 r, float (&f)[kN]) {
+    const uint32_t w[4] = {r.x, r.y, r.z, r.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {  // the lower element in the low half
+      f[2 * i] = __uint_as_float(w[i] << 16);
+      f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+    }
+  }
+  __device__ static uint32_t bits(float v) {
+    return __bfloat16_as_ushort(__float2bfloat16(v));
+  }
+  __device__ static uint4 pack(const float (&f)[kN]) {
+    uint32_t w[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) w[i] = bits(f[2 * i]) | bits(f[2 * i + 1]) << 16;
+    return make_uint4(w[0], w[1], w[2], w[3]);
+  }
+};
+
+// One block per row; thread t holds chunks t, t + 256, ... (kChunks of
+// them, 16 bytes each) in registers between the sum and the scaling.
+template <typename T, int kChunks>
+__global__ void __launch_bounds__(kNormThreads)
+    add_rms_norm_kernel(const T* __restrict__ x, const T* __restrict__ delta,
+                        const float* __restrict__ g, T* __restrict__ s_out,
+                        T* __restrict__ h_out, int d, float eps) {
+  using C = Chunk16<T>;
+  constexpr int kN = C::kN;
+  const long long base = static_cast<long long>(blockIdx.x) * d;
+  const int n_chunks = d / kN;
+  const uint4* xr = reinterpret_cast<const uint4*>(x + base);
+  const uint4* dr = reinterpret_cast<const uint4*>(delta + base);
+  uint4* sr = reinterpret_cast<uint4*>(s_out + base);
+  uint4* hr = reinterpret_cast<uint4*>(h_out + base);
+  const float4* g4 = reinterpret_cast<const float4*>(g);
+  float v[kChunks][kN];
+  float ss = 0.f;
+#pragma unroll
+  for (int c = 0; c < kChunks; ++c) {
+    const int ch = threadIdx.x + c * kNormThreads;
+#pragma unroll
+    for (int e = 0; e < kN; ++e) v[c][e] = 0.f;
+    if (ch >= n_chunks) continue;
+    float a[kN], b[kN];
+    C::unpack(xr[ch], a);
+    C::unpack(dr[ch], b);
+#pragma unroll
+    for (int e = 0; e < kN; ++e) {
+      v[c][e] = round_to<T>(a[e] + b[e]);
+      ss += v[c][e] * v[c][e];
+    }
+    sr[ch] = C::pack(v[c]);  // already in T: packed exactly
+  }
+  const float scale =
+      1.0f / sqrtf(block_sum(ss) / static_cast<float>(d) + eps);
+#pragma unroll
+  for (int c = 0; c < kChunks; ++c) {
+    const int ch = threadIdx.x + c * kNormThreads;
+    if (ch >= n_chunks) continue;
+    float h[kN];
+#pragma unroll
+    for (int e4 = 0; e4 < kN / 4; ++e4) {
+      const float4 gg = g4[ch * (kN / 4) + e4];
+      h[4 * e4] = v[c][4 * e4] * scale * gg.x;
+      h[4 * e4 + 1] = v[c][4 * e4 + 1] * scale * gg.y;
+      h[4 * e4 + 2] = v[c][4 * e4 + 2] * scale * gg.z;
+      h[4 * e4 + 3] = v[c][4 * e4 + 3] * scale * gg.w;
+    }
+    hr[ch] = C::pack(h);
+  }
+}
+
+template <typename T>
+int launch_add(const void* x, const void* delta, const float* g, void* s,
+               void* h, long long rows, int d, float eps,
+               cudaStream_t stream) {
+  constexpr int kN = Chunk16<T>::kN;
+  if (d % kN != 0) return cudaErrorInvalidValue;
+  const int per_thread = (d / kN + kNormThreads - 1) / kNormThreads;
+  const dim3 grid(static_cast<unsigned>(rows));
+  const T* xt = static_cast<const T*>(x);
+  const T* dt = static_cast<const T*>(delta);
+  T* st = static_cast<T*>(s);
+  T* ht = static_cast<T*>(h);
+  if (per_thread <= 1)
+    add_rms_norm_kernel<T, 1><<<grid, kNormThreads, 0, stream>>>(
+        xt, dt, g, st, ht, d, eps);
+  else if (per_thread <= 2)
+    add_rms_norm_kernel<T, 2><<<grid, kNormThreads, 0, stream>>>(
+        xt, dt, g, st, ht, d, eps);
+  else if (per_thread <= 4)
+    add_rms_norm_kernel<T, 4><<<grid, kNormThreads, 0, stream>>>(
+        xt, dt, g, st, ht, d, eps);
+  else if (per_thread <= 8)
+    add_rms_norm_kernel<T, 8><<<grid, kNormThreads, 0, stream>>>(
+        xt, dt, g, st, ht, d, eps);
+  else
+    return cudaErrorInvalidValue;
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -73,4 +215,25 @@ extern "C" int brpc_rms_norm(int dtype, const void* x, const float* g,
     return cudaErrorInvalidValue;
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// s = T(x + delta) and h = rms_norm(s) in one pass. x, delta, s, h: [rows, d]
+// contiguous in `dtype`; g: [d] float32; every pointer 16-byte aligned, d a
+// multiple of 16 bytes' worth of elements (8 bf16, 4 f32) and at most
+// 8 x 256 such chunks (d <= 16384 in bf16, 8192 in f32).
+extern "C" int brpc_add_rms_norm(int dtype, const void* x, const void* delta,
+                                 const float* g, void* s, void* h,
+                                 long long rows, int d, float eps,
+                                 void* stream) {
+  using namespace brpc_tpu_torch;
+  if (rows <= 0) return 0;
+  if (d <= 0 || rows > 0x7fffffffLL || !aligned16(x) || !aligned16(delta) ||
+      !aligned16(g) || !aligned16(s) || !aligned16(h))
+    return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == kDtypeFloat32)
+    return launch_add<float>(x, delta, g, s, h, rows, d, eps, st);
+  if (dtype == kDtypeBFloat16)
+    return launch_add<__nv_bfloat16>(x, delta, g, s, h, rows, d, eps, st);
+  return cudaErrorInvalidValue;
 }

@@ -20,7 +20,10 @@ stay f32, as the reference's f32 norm math reads them.
   reference vmaps a per-sequence step over a dense gathered view).
 
 RMSNorm, prefill attention and the two paged attentions go through the
-wrappers in ``brpc_tpu_torch.ops`` (kernels on a CUDA tensor).
+wrappers in ``brpc_tpu_torch.ops`` (kernels on a CUDA tensor). The three
+serving paths share one layer stack (``_decoder``), in which every norm but
+the first takes the residual add before it into the same launch
+(``add_rms_norm``); ``forward`` keeps the reference's unfused order.
 """
 
 from __future__ import annotations
@@ -155,10 +158,6 @@ def _layer(params: Params, l: int) -> dict:
     return {name: w[l] for name, w in params["layers"].items()}
 
 
-def _rms_norm(x: torch.Tensor, gain: torch.Tensor, eps: float):
-    return norm.rms_norm(x, gain, eps)
-
-
 def _rope(x: torch.Tensor, theta: float) -> torch.Tensor:
     """Rotary embedding over the last dim, positions 0..S-1; x: [B, S, H,
     Dh]. Half-split rotation (first half, second half)."""
@@ -208,11 +207,39 @@ def _rope_apply(x: torch.Tensor, cos: torch.Tensor,
     return out.to(x.dtype)
 
 
-def _mlp(x: torch.Tensor, lp: dict, cfg: TransformerConfig, rms) -> torch.Tensor:
-    h = rms(x, lp["ln_mlp"], cfg.norm_eps)
-    gate = F.silu(h @ lp["w_gate"])
-    up = h @ lp["w_up"]
-    return x + (gate * up) @ lp["w_down"]
+def _ffn(h: torch.Tensor, lp: dict) -> torch.Tensor:
+    """The SwiGLU MLP of the normed stream h: the delta the residual adds."""
+    return (F.silu(h @ lp["w_gate"]) * (h @ lp["w_up"])) @ lp["w_down"]
+
+
+def _qkv(h: torch.Tensor, lp: dict, cfg: TransformerConfig, cos, sin):
+    """q [n, H, Dh] and k [n, KV, Dh] rotated by the per-row tables, v
+    [n, KV, Dh], from the normed stream h [n, D]."""
+    n, H, KV, Dh = h.shape[0], cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    q = _rope_apply((h @ lp["wq"]).reshape(n, H, Dh), cos, sin)
+    k = _rope_apply((h @ lp["wk"]).reshape(n, KV, Dh), cos, sin)
+    return q, k, (h @ lp["wv"]).reshape(n, KV, Dh)
+
+
+def _decoder(params: Params, x: torch.Tensor, cfg: TransformerConfig,
+             attend) -> tuple:
+    """The layer stack of the serving paths over the embedded rows x [n,
+    D]. ``attend(l, lp, h)`` is layer l's attention of the normed stream h,
+    projected by wo: [n, D]. Each norm but the first takes the residual add
+    before it into one launch (``norm.add_rms_norm``): x + attention out
+    with ln_mlp, x + MLP out with the next layer's ln_attn. Returns (x,
+    delta): the stream before the last MLP's residual add and that add's
+    delta, which the caller folds into its final norm."""
+    eps = cfg.norm_eps
+    h = norm.rms_norm(x, params["layers"]["ln_attn"][0], eps)
+    delta = None
+    for l in range(cfg.n_layers):
+        lp = _layer(params, l)
+        if delta is not None:
+            x, h = norm.add_rms_norm(x, delta, lp["ln_attn"], eps)
+        x, h = norm.add_rms_norm(x, attend(l, lp, h), lp["ln_mlp"], eps)
+        delta = _ffn(h, lp)
+    return x, delta
 
 
 # ---- full recompute (the oracle) --------------------------------------------
@@ -252,7 +279,7 @@ def forward(params: Params, tokens: torch.Tensor,
         v = (h @ lp["wv"]).reshape(B, S, KV, Dh)
         o = _attention_plain(q, k, v).reshape(B, S, H * Dh)
         x = x + o @ lp["wo"]
-        x = _mlp(x, lp, cfg, rms)
+        x = x + _ffn(rms(x, lp["ln_mlp"], cfg.norm_eps), lp)
     x = rms(x, params["ln_out"], cfg.norm_eps)
     return (x @ params["w_out"]).float()
 
@@ -272,24 +299,22 @@ def prefill(params: Params, tokens: torch.Tensor, length: int,
     cos_t, sin_t = _rope_tables(cfg, dev)
     cos = cos_t[:P][:, None, :]  # [P, 1, half] broadcast over heads
     sin = sin_t[:P][:, None, :]
-    x = params["embed"][tokens.long()]  # [P, D]
     k_all = torch.empty((cfg.n_layers, P, KV, Dh), dtype=cfg.dtype,
                         device=dev)
     v_all = torch.empty_like(k_all)
-    for l in range(cfg.n_layers):
-        lp = _layer(params, l)
-        h = _rms_norm(x, lp["ln_attn"], cfg.norm_eps)
-        q = _rope_apply((h @ lp["wq"]).reshape(P, H, Dh), cos, sin)
-        k = _rope_apply((h @ lp["wk"]).reshape(P, KV, Dh), cos, sin)
-        v = (h @ lp["wv"]).reshape(P, KV, Dh)
+
+    def attend(l, lp, h):
+        q, k, v = _qkv(h, lp, cfg, cos, sin)
         k_all[l] = k
         v_all[l] = v
         o = attention.prefill_attention(q, k, v, length)
-        x = x + o.reshape(P, H * Dh) @ lp["wo"]
-        x = _mlp(x, lp, cfg, _rms_norm)
+        return o.reshape(P, H * Dh) @ lp["wo"]
+
+    x, delta = _decoder(params, params["embed"][tokens.long()], cfg, attend)
     # The norm is row-wise: normalising the one row read equals the
     # reference's norm-all-then-take.
-    last = _rms_norm(x[length - 1:length], params["ln_out"], cfg.norm_eps)
+    r = slice(length - 1, length)
+    last = norm.rms_norm(x[r] + delta[r], params["ln_out"], cfg.norm_eps)
     logits = last[0] @ params["w_out"]
     return logits.float(), k_all, v_all
 
@@ -311,7 +336,7 @@ def prefill_resume(params: Params, tokens: torch.Tensor, start: int,
     ``length`` on before any query attends them. Returns logits [vocab] f32
     at position length-1; the pools are updated in place."""
     n = length - start
-    H, KV, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    H, Dh = cfg.n_heads, cfg.d_head
     page = k_pool.shape[2]
     dev = tokens.device
     cos_t, sin_t = _rope_tables(cfg, dev)
@@ -320,20 +345,19 @@ def prefill_resume(params: Params, tokens: torch.Tensor, start: int,
     sin = sin_t[pos][:, None, :]
     blk = table.long()[pos // page]
     off = pos % page
-    x = params["embed"][tokens[:n].long()]  # [n, D]
-    for l in range(cfg.n_layers):
-        lp = _layer(params, l)
-        h = _rms_norm(x, lp["ln_attn"], cfg.norm_eps)
-        q = _rope_apply((h @ lp["wq"]).reshape(n, H, Dh), cos, sin)
-        k = _rope_apply((h @ lp["wk"]).reshape(n, KV, Dh), cos, sin)
-        v = (h @ lp["wv"]).reshape(n, KV, Dh)
+
+    def attend(l, lp, h):
+        q, k, v = _qkv(h, lp, cfg, cos, sin)
         k_pool[:, l][blk, off] = k
         v_pool[:, l][blk, off] = v
         o = attention.paged_prefill_attention(q, k_pool, v_pool, table,
                                               start, l)
-        x = x + o.reshape(n, H * Dh) @ lp["wo"]
-        x = _mlp(x, lp, cfg, _rms_norm)
-    last = _rms_norm(x[n - 1:n], params["ln_out"], cfg.norm_eps)
+        return o.reshape(n, H * Dh) @ lp["wo"]
+
+    x, delta = _decoder(params, params["embed"][tokens[:n].long()], cfg,
+                        attend)
+    r = slice(n - 1, n)
+    last = norm.rms_norm(x[r] + delta[r], params["ln_out"], cfg.norm_eps)
     return (last[0] @ params["w_out"]).float()
 
 
@@ -348,7 +372,7 @@ def decode_step(params: Params, tokens: torch.Tensor, pos: torch.Tensor,
     the pool through the tables (K1 on the card). Returns logits [S,
     vocab] f32; the pools are updated in place."""
     S = tokens.shape[0]
-    H, KV, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    H, Dh = cfg.n_heads, cfg.d_head
     page = k_pool.shape[2]
     cos_t, sin_t = _rope_tables(cfg, tokens.device)
     pos_l = pos.long()
@@ -356,21 +380,18 @@ def decode_step(params: Params, tokens: torch.Tensor, pos: torch.Tensor,
     sin = sin_t[pos_l][:, None, :]
     blk = tables.long().gather(1, (pos_l // page)[:, None])[:, 0]
     off = pos_l % page
-    x = params["embed"][tokens.long()]  # [S, D]
-    for l in range(cfg.n_layers):
-        lp = _layer(params, l)
-        h = _rms_norm(x, lp["ln_attn"], cfg.norm_eps)
-        q = _rope_apply((h @ lp["wq"]).reshape(S, H, Dh), cos, sin)
-        k = _rope_apply((h @ lp["wk"]).reshape(S, KV, Dh), cos, sin)
-        v = (h @ lp["wv"]).reshape(S, KV, Dh)
+
+    def attend(l, lp, h):
+        q, k, v = _qkv(h, lp, cfg, cos, sin)
         k_pool[:, l][blk, off] = k
         v_pool[:, l][blk, off] = v
         o = attention.paged_decode_attention(q, k_pool, v_pool, tables,
                                              pos, l)
-        x = x + o.reshape(S, H * Dh) @ lp["wo"]
-        x = _mlp(x, lp, cfg, _rms_norm)
-    x = _rms_norm(x, params["ln_out"], cfg.norm_eps)
-    return (x @ params["w_out"]).float()
+        return o.reshape(S, H * Dh) @ lp["wo"]
+
+    x, delta = _decoder(params, params["embed"][tokens.long()], cfg, attend)
+    _, h = norm.add_rms_norm(x, delta, params["ln_out"], cfg.norm_eps)
+    return (h @ params["w_out"]).float()
 
 
 def greedy_reference(params: Params, cfg: TransformerConfig, prompt,

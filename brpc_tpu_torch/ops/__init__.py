@@ -10,13 +10,14 @@ from brpc_tpu_torch.ops.attention import (  # noqa: F401
     paged_prefill_attention,
     prefill_attention,
 )
-from brpc_tpu_torch.ops.norm import rms_norm  # noqa: F401
+from brpc_tpu_torch.ops.norm import add_rms_norm, rms_norm  # noqa: F401
 
 KERNELS = {
     "paged_decode_attention": paged_decode_attention,
     "prefill_attention": prefill_attention,
     "paged_prefill_attention": paged_prefill_attention,
     "rms_norm": rms_norm,
+    "add_rms_norm": add_rms_norm,
 }
 
 

@@ -119,15 +119,18 @@ def lib() -> ctypes.CDLL:
     i32, i64, f32, ptr = (ctypes.c_int, ctypes.c_longlong, ctypes.c_float,
                           ctypes.c_void_p)
     handle.brpc_rms_norm.argtypes = [i32, ptr, ptr, ptr, i64, i32, f32, ptr]
+    handle.brpc_add_rms_norm.argtypes = [i32, ptr, ptr, ptr, ptr, ptr, i64,
+                                         i32, f32, ptr]
     handle.brpc_paged_decode_attention.argtypes = [
-        i32, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32,
-        i64, i64, i64, f32, ptr]
+        i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32,
+        i32, i64, i64, i64, f32, i32, i32, ptr]
     handle.brpc_prefill_attention.argtypes = [
         i32, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, f32, ptr]
     handle.brpc_paged_prefill_attention.argtypes = [
         i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32,
         i64, i64, i64, f32, i32, i32, ptr]
-    for fn in (handle.brpc_rms_norm, handle.brpc_paged_decode_attention,
+    for fn in (handle.brpc_rms_norm, handle.brpc_add_rms_norm,
+               handle.brpc_paged_decode_attention,
                handle.brpc_prefill_attention,
                handle.brpc_paged_prefill_attention):
         fn.restype = ctypes.c_int

@@ -1,7 +1,7 @@
 """Attention of the serving path: the K1 (paged decode), K2 (prefill) and
 K4 (paged suffix prefill) kernels' wrappers, each with its plain PyTorch
-version, and K4's split-K planner with a plain model of its split and
-merge passes and a per-row error measure (for the tests).
+version, the split-K planners of K4 and K1 with plain models of their
+split and merge passes, and a per-row error measure (for the tests).
 
 The plain versions repeat the reference's arithmetic
 (brpc_tpu/models/transformer.py): logits in f32 from the model-dtype
@@ -42,6 +42,64 @@ def _repeat_kv(x: torch.Tensor, rep: int, dim: int) -> torch.Tensor:
     return x.repeat_interleave(rep, dim=dim) if rep > 1 else x
 
 
+# ---- split-K plans of the shared tile core (K1 and K4) ---------------------
+
+# From csrc/attention_tile.cuh: a block holds TILE_ROWS (query, head) rows
+# of one KV head, a split covers whole tiles of TILE_KEYS keys, and an SM
+# holds BLOCKS_PER_SM blocks of the bf16 core at once, so the planner aims
+# the grid at that many blocks per SM.
+_TILE = _build.header_constants("attention_tile.cuh")
+TILE_ROWS = _TILE["kTileRows"]
+TILE_KEYS = _TILE["kTileKeys"]
+BLOCKS_PER_SM = _TILE["kMmaMinBlocks"]
+# A split holds at least this many key tiles: fewer would spend more on the
+# partial's write and the merge than the split saves.
+MIN_SPLIT_TILES = 2
+
+
+def _plan(blocks: int, keys: int, sms: int) -> tuple:
+    """Split-K plan of a grid of ``blocks`` blocks per split over the key
+    range [0, keys) -> (tiles_per_split, n_splits): where the blocks leave
+    the card's ``sms`` SMs short of ``BLOCKS_PER_SM`` blocks each, the range
+    is cut at 64-key tile boundaries into that many more splits of equal
+    tile counts, each of at least ``MIN_SPLIT_TILES`` tiles."""
+    tiles = -(-keys // TILE_KEYS)
+    want = -(-(BLOCKS_PER_SM * sms) // blocks)
+    per = max(MIN_SPLIT_TILES, -(-tiles // want))
+    return per, -(-tiles // per)
+
+
+def plan_splits(n_q: int, n_heads: int, n_kv_heads: int, start: int,
+                sms: int) -> tuple:
+    """K4's split-K plan -> (tiles_per_split, n_splits): ceil(n_q * H / KV
+    / 64) query tiles per KV head over the keys [0, start + n_q). Derived
+    from the shape and the SM count only."""
+    q_tiles = -(-(n_q * (n_heads // n_kv_heads)) // TILE_ROWS)
+    return _plan(q_tiles * n_kv_heads, start + n_q, sms)
+
+
+def plan_decode_splits(n_lanes: int, n_kv_heads: int, max_keys: int,
+                       sms: int) -> tuple:
+    """K1's split-K plan -> (tiles_per_split, n_splits): one block per
+    (lane, KV head), whose rows are the lane's H / KV query heads, over
+    the keys [0, max_keys), the bound the block table's width gives (pages
+    x page size). From host integers only: the lanes' positions stay on
+    the device, and a split past a lane's position is empty for it."""
+    return _plan(n_lanes * n_kv_heads, max_keys, sms)
+
+
+def split_ranges(start: int, n_q: int, tiles_per_split: int,
+                 n_splits: int) -> list:
+    """The key ranges [lo, hi) of a plan's splits."""
+    end, w = start + n_q, tiles_per_split * TILE_KEYS
+    return [(s * w, min((s + 1) * w, end)) for s in range(n_splits)]
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 # ---- K1: decode attention over the paged pool ------------------------------
 
 def paged_decode_attention_plain(q, k_pool, v_pool, tables, pos,
@@ -68,11 +126,43 @@ def paged_decode_attention_plain(q, k_pool, v_pool, tables, pos,
                         vr.float()).to(q.dtype)
 
 
+def paged_decode_split_partials(q, k_pool, v_pool, tables, pos,
+                                layer: int, tiles_per_split: int,
+                                n_splits: int) -> tuple:
+    """The plain model of K1's split pass: lane s is K4's split pass
+    (``paged_prefill_split_partials``) with start = pos[s], one query and
+    table tables[s]; a split past pos[s] gives m = -inf, l = 0, o = 0.
+    Returns (o [n_splits, S, H, Dh], m [n_splits, S, H], l [n_splits, S,
+    H]), f32. For the tests: the main path never calls it."""
+    parts = [paged_prefill_split_partials(
+        q[s:s + 1], k_pool, v_pool, tables[s], int(pos[s]), layer,
+        tiles_per_split, n_splits) for s in range(q.shape[0])]
+    return tuple(torch.cat([p[i] for p in parts], dim=1) for i in range(3))
+
+
+def paged_decode_attention_split_plain(q, k_pool, v_pool, tables, pos,
+                                       layer: int, sms: int) -> torch.Tensor:
+    """K1's split-K arithmetic in plain PyTorch: the split pass of the plan
+    ``plan_decode_splits`` makes for the table's width and ``sms`` SMs,
+    then the merge, rounded to q's dtype. For the tests; the main path
+    never calls it."""
+    S, H, _ = q.shape
+    page, KV = k_pool.shape[2], k_pool.shape[3]
+    per, n_splits = plan_decode_splits(S, KV, tables.shape[1] * page, sms)
+    o, m, l = paged_decode_split_partials(q, k_pool, v_pool, tables, pos,
+                                          layer, per, n_splits)
+    return merge_splits_plain(o, m, l).to(q.dtype)
+
+
 def paged_decode_attention(q, k_pool, v_pool, tables, pos,
                            layer: int) -> torch.Tensor:
     """Decode attention of one token per lane at position ``pos[lane]``
-    over layer ``layer`` of the paged pool, read through ``tables``. On a
-    CUDA tensor launches csrc/paged_decode_attention.cu (K1)."""
+    over layer ``layer`` of the paged pool, read through ``tables``
+    ([S, pages] int32; every pos[s] < pages * page). On a CUDA tensor
+    launches csrc/paged_decode_attention.cu (K1): one call runs the split
+    pass of ``plan_decode_splits`` (from the table's width and the card's
+    SM count; pos stays on the device) and, with more than one split, the
+    merge pass, and returns the first launch error."""
     if q.device.type == "cpu":
         return paged_decode_attention_plain(q, k_pool, v_pool, tables, pos,
                                             layer)
@@ -87,20 +177,37 @@ def paged_decode_attention(q, k_pool, v_pool, tables, pos,
         raise ValueError("paged_decode_attention: pools must be contiguous "
                          "[NB, L, page, KV, Dh] in q's dtype")
     if (tables.dtype != torch.int32 or pos.dtype != torch.int32
-            or tables.shape[0] != S or pos.shape != (S,)
-            or tables.device != q.device or pos.device != q.device):
+            or tables.dim() != 2 or tables.shape[0] != S
+            or pos.shape != (S,) or tables.device != q.device
+            or pos.device != q.device):
         raise ValueError("paged_decode_attention: tables [S, pages] and pos "
                          "[S] must be int32 on q's device")
-    if not 0 <= layer < L or H % KV:
+    if not 0 <= layer < L or H % KV or H // KV > TILE_ROWS:
         raise ValueError("paged_decode_attention: bad layer or head counts")
     qc, tc, pc = q.contiguous(), tables.contiguous(), pos.contiguous()
-    out = torch.empty_like(qc)
-    k_l, v_l = k_pool[:, layer], v_pool[:, layer]
+    width = tc.shape[1]
+    per, n_splits = plan_decode_splits(S, KV, width * page,
+                                       _sm_count(q.device))
+    # One allocation: the output, then with splits the f32 scratch, partial
+    # O [n_splits, S * H, Dh] and (m, l) [n_splits, S * H, 2].
+    rows = S * H
+    o_part = ml_part = None
+    if n_splits == 1:
+        out = torch.empty_like(qc)
+    else:
+        out_f32 = rows * Dh * q.element_size() // 4
+        buf = torch.empty(out_f32 + n_splits * rows * (Dh + 2),
+                          dtype=torch.float32, device=q.device)
+        out = buf[:out_f32].view(q.dtype).view(S, H, Dh)
+        o_part = buf.data_ptr() + out_f32 * 4
+        ml_part = o_part + n_splits * rows * Dh * 4
+    layer_off = layer * k_pool.stride(1) * k_pool.element_size()
     rc = _build.lib().brpc_paged_decode_attention(
-        _dtype_code(q), qc.data_ptr(), k_l.data_ptr(), v_l.data_ptr(),
-        tc.data_ptr(), pc.data_ptr(), out.data_ptr(), S, H, KV, Dh, page,
-        tc.shape[1], k_pool.stride(0), k_pool.stride(2), k_pool.stride(3),
-        softmax_scale(Dh), _build.stream(q))
+        _dtype_code(q), qc.data_ptr(), k_pool.data_ptr() + layer_off,
+        v_pool.data_ptr() + layer_off, tc.data_ptr(), pc.data_ptr(),
+        out.data_ptr(), o_part, ml_part, S, H, KV, Dh, page, width,
+        k_pool.stride(0), k_pool.stride(2), k_pool.stride(3),
+        softmax_scale(Dh), per, n_splits, _build.stream(q))
     _build.check(rc, "paged_decode_attention")
     paged_decode_attention.launches += 1
     return out
@@ -158,48 +265,6 @@ prefill_attention.launches = 0
 
 
 # ---- K4: suffix-prefill attention over the paged pool ----------------------
-
-# From csrc/attention_tile.cuh: a block holds TILE_ROWS (query, head) rows
-# of one KV head, a split covers whole tiles of TILE_KEYS keys, and an SM
-# holds BLOCKS_PER_SM blocks of the bf16 core at once, so the planner aims
-# the grid at that many blocks per SM.
-_TILE = _build.header_constants("attention_tile.cuh")
-TILE_ROWS = _TILE["kTileRows"]
-TILE_KEYS = _TILE["kTileKeys"]
-BLOCKS_PER_SM = _TILE["kMmaMinBlocks"]
-# A split holds at least this many key tiles: fewer would spend more on the
-# partial's write and the merge than the split saves.
-MIN_SPLIT_TILES = 2
-
-
-def plan_splits(n_q: int, n_heads: int, n_kv_heads: int, start: int,
-                sms: int) -> tuple:
-    """K4's split-K plan -> (tiles_per_split, n_splits). The grid has
-    ceil(n_q * H / KV / 64) query tiles per KV head; where that leaves the
-    card's ``sms`` SMs short of ``BLOCKS_PER_SM`` blocks each, the key
-    range [0, start + n_q) is cut at 64-key tile boundaries into that many
-    more splits of equal tile counts, each of at least
-    ``MIN_SPLIT_TILES`` tiles. Derived from the shape and the SM count
-    only."""
-    q_tiles = -(-(n_q * (n_heads // n_kv_heads)) // TILE_ROWS)
-    blocks = q_tiles * n_kv_heads
-    tiles = -(-(start + n_q) // TILE_KEYS)
-    want = -(-(BLOCKS_PER_SM * sms) // blocks)
-    per = max(MIN_SPLIT_TILES, -(-tiles // want))
-    return per, -(-tiles // per)
-
-
-def split_ranges(start: int, n_q: int, tiles_per_split: int,
-                 n_splits: int) -> list:
-    """The key ranges [lo, hi) of a plan's splits."""
-    end, w = start + n_q, tiles_per_split * TILE_KEYS
-    return [(s * w, min((s + 1) * w, end)) for s in range(n_splits)]
-
-
-@functools.lru_cache(maxsize=None)
-def _sm_count(device: torch.device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
-
 
 def _gather_pages(pool, table, layer: int, npages: int) -> torch.Tensor:
     page, KV, Dh = pool.shape[2:]

@@ -498,13 +498,16 @@ class ServingEngine(DrainMixin):
         if not active:
             return 0
         # One step over the whole slot pool: free slots decode garbage
-        # through the reserved block 0.
+        # through the reserved block 0. Only the table columns in play go to
+        # the device: K1 plans its split-K over the table's width.
+        width = max(len(self._seq[i]["blocks"]) for i in active)
+        tables = np.ascontiguousarray(self._tables[:, :width])
         t_step = time.monotonic()
         dev = self.device
         logits, self.pool.k, self.pool.v = self._decode(
             self.params, torch.from_numpy(tokens).to(dev),
-            torch.from_numpy(pos).to(dev),
-            torch.from_numpy(self._tables).to(dev), self.pool.k, self.pool.v)
+            torch.from_numpy(pos).to(dev), torch.from_numpy(tables).to(dev),
+            self.pool.k, self.pool.v)
         self.model_steps += 1
         self.batcher.note_occupancy(len(active))
         # argmax on the device; only [slots] ints cross to the host.

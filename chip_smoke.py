@@ -62,6 +62,7 @@ REPLACES = {
     "prefill_attention": "brpc_tpu/models/transformer.py:242",
     "paged_prefill_attention": "brpc_tpu/kv_cache.py:1151",
     "rms_norm": "brpc_tpu/models/transformer.py:102",
+    "add_rms_norm": "brpc_tpu/models/transformer.py:102",
 }
 SOURCES = {
     "paged_decode_attention":
@@ -70,6 +71,7 @@ SOURCES = {
     "paged_prefill_attention":
         "brpc_tpu_torch/csrc/paged_prefill_attention.cu",
     "rms_norm": "brpc_tpu_torch/csrc/rms_norm.cu",
+    "add_rms_norm": "brpc_tpu_torch/csrc/rms_norm.cu",
 }
 
 
@@ -175,10 +177,14 @@ def ptxas_summary(path: str) -> list:
     return out
 
 
+# Kernels on the shared attention tile core (K1, K2, K4, and the merges).
+TILE_KERNEL = re.compile(r"prefill|paged_decode")
+
+
 def sass_mma_counts(build) -> dict:
     """Tensor-core instructions (HMMA/HGMMA) per compiled attention kernel
-    of the built library, from cuobjdump -sass; fails if a bf16 K2 or K4
-    kernel has none."""
+    of the built library, from cuobjdump -sass; fails if a bf16 K1, K2 or
+    K4 kernel has none, or if the decode kernel K1 is missing."""
     tool = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
     sass = subprocess.run([tool, "-sass", build.LIB_PATH],
                           capture_output=True, text=True, check=True).stdout
@@ -190,12 +196,13 @@ def sass_mma_counts(build) -> dict:
         elif name is not None and ("HMMA" in line or "HGMMA" in line):
             counts[name] += 1
     for name, n in counts.items():
-        if "prefill" in name and "bfloat16" in name:
+        if TILE_KERNEL.search(name) and "bfloat16" in name:
             log(f"[sass] {name}: {n} HMMA/HGMMA")
             if "merge" not in name and n == 0:
                 raise AssertionError(f"{name} has no tensor-core instruction")
-    if not any("prefill" in k and "bfloat16" in k for k in counts):
-        raise AssertionError("no bf16 prefill kernel in the SASS")
+    for kind in ("prefill", "paged_decode_kernel"):
+        if not any(kind in k and "bfloat16" in k for k in counts):
+            raise AssertionError(f"no bf16 {kind} kernel in the SASS")
     return counts
 
 
@@ -212,21 +219,34 @@ K2_CASES = ((8, 5), (512, 300), (1024, 1024), (4096, 3000), (2048, 1060))
 # Phase 5's prompt lengths; its last decode step attends length + 31 keys.
 MAIN_LENGTHS = [16, 1024, 100, 517, 64, 300, 800, 33]
 MAIN_NEW_TOKENS = 32
+# Phase 3's K1 cases: (positions of 8 lanes, table columns (None: the pages
+# in play, as the engine sends them), idle lanes). Short and long lanes over
+# the full 512-column table (max_seq / page); phase 5's last decode step;
+# a lane at max_seq - 1 beside short ones; every lane idle but one.
+K1_CASES = (([0, 15, 16, 300, 2047, 1000, 517, 64], 512, ()),
+            ([n + MAIN_NEW_TOKENS - 1 for n in MAIN_LENGTHS], None, ()),
+            ([8191, 0, 15, 16, 100, 64, 33, 7], 512, ()),
+            ([0] * 7 + [1055], None, tuple(range(7))))
 
 
-def check_paged_decode(dtype, gen, pos_list) -> dict:
+def check_paged_decode(dtype, gen, pos_list, width=None, idle=()) -> dict:
+    """K1 over 8 lanes at ``pos_list`` on the last layer of a 32-layer
+    pool, its table ``width`` columns wide (None: the pages in play, as
+    the engine sends it); lanes in ``idle`` decode at pos 0 through
+    garbage block 0, as free slots do."""
     from brpc_tpu_torch.ops import attention
 
     dev = torch.device("cuda")
-    S, H, KV, Dh, page, L, max_pages = 8, 32, 8, 128, 16, 32, 512
+    S, H, KV, Dh, page, L = len(pos_list), 32, 8, 128, 16, 32
     layer = L - 1  # the last layer: exercises the pool's layer stride
-    need = [p // page + 1 for p in pos_list]
+    need = [0 if s in idle else p // page + 1 for s, p in enumerate(pos_list)]
+    width = width or max(need)
     nb = sum(need) + 1
     k_pool = torch.randn((nb, L, page, KV, Dh), generator=gen, device=dev
                          ).to(dtype)
     v_pool = torch.randn_like(k_pool)
     perm = torch.randperm(nb - 1, generator=gen, device=dev).int() + 1
-    tables = torch.zeros((S, max_pages), dtype=torch.int32, device=dev)
+    tables = torch.zeros((S, width), dtype=torch.int32, device=dev)
     used = 0
     for s, n in enumerate(need):
         tables[s, :n] = perm[used:used + n]
@@ -242,12 +262,19 @@ def check_paged_decode(dtype, gen, pos_list) -> dict:
         return attention.paged_decode_attention_plain(q, k_pool, v_pool,
                                                       tables, pos, layer)
 
-    err, row_err = compare("paged_decode_attention", kern(), plain(), dtype,
-                           rows=True)
+    err, row_err = compare(f"paged_decode_attention pos={pos_list}", kern(),
+                           plain(), dtype, rows=True)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    per, splits = attention.plan_decode_splits(S, KV, width * page, sms)
+    # (row, split) pairs wholly past their lane's pos: empty blocks whose
+    # rows the merge must weigh 0
+    masked_pairs = H * sum(lo > p for p in pos_list for lo, _ in
+                           attention.split_ranges(0, width * page, per,
+                                                  splits))
     # Library yardstick: SDPA with an explicit mask over the already
     # gathered dense K/V (the gather itself is not timed).
-    T = max(need) * page
-    idx = tables[:, :max(need)].long()
+    T = max(max(need), 1) * page
+    idx = tables[:, :T // page].long()
     kd = k_pool[:, layer][idx].reshape(S, T, KV, Dh).repeat_interleave(
         H // KV, dim=2).transpose(1, 2).contiguous()
     vd = v_pool[:, layer][idx].reshape(S, T, KV, Dh).repeat_interleave(
@@ -256,8 +283,10 @@ def check_paged_decode(dtype, gen, pos_list) -> dict:
             )[:, None, None, :]
     q4 = q[:, :, None, :]
     F = torch.nn.functional
-    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
-        q4, kd, vd, attn_mask=mask))
+
+    def lib():
+        return F.scaled_dot_product_attention(q4, kd, vd, attn_mask=mask)
+
     itemsize = torch.empty((), dtype=dtype).element_size()
     keys = sum(p + 1 for p in pos_list)
     nbytes = (2 * keys * KV * Dh + 2 * S * H * Dh) * itemsize \
@@ -265,11 +294,15 @@ def check_paged_decode(dtype, gen, pos_list) -> dict:
     flops = 4.0 * keys * H * Dh
     b, by = bound_ms(nbytes, flops, dtype)
     return {"shape": f"q[{S},{H},{Dh}] pool[{nb},{L},{page},{KV},{Dh}] "
-                     f"pos={pos_list}",
+                     f"table[{S},{width}] pos={pos_list}"
+                     + (f" idle={list(idle)}" if idle else ""),
+            "splits": splits, "tiles_per_split": per,
+            "grid_blocks": S * KV * splits,
+            "masked_row_splits": masked_pairs,
             "max_abs_err": err, "row_rel_err": row_err,
-            "ms": time_ms(kern), "plain_ms":
-            time_ms(plain), "bound_ms": b, "bound_by": by,
-            "library_ms": lib_ms}
+            "ms": time_ms(kern), "plain_ms": time_ms(plain, iters=5),
+            "bound_ms": b, "bound_by": by, "library_ms": time_ms(lib),
+            "device_ms": device_ms(kern), "library_device_ms": device_ms(lib)}
 
 
 def check_prefill(dtype, gen, P: int, length: int) -> dict:
@@ -398,16 +431,58 @@ def check_rms_norm(dtype, gen, rows: int) -> dict:
 
     err, _ = compare(f"rms_norm rows={rows}", kern(), plain(), dtype)
     F = torch.nn.functional
-    lib_ms = None
-    if hasattr(F, "rms_norm"):
-        g_dt = g.to(dtype)
-        lib_ms = time_ms(lambda: F.rms_norm(x, (D,), weight=g_dt, eps=eps))
+    g_dt = g.to(dtype)
+
+    def lib():
+        return F.rms_norm(x, (D,), weight=g_dt, eps=eps)
+
     itemsize = torch.empty((), dtype=dtype).element_size()
     nbytes = 2 * rows * D * itemsize + D * 4
     b, by = bound_ms(nbytes, 4.0 * rows * D, dtype)
     return {"shape": f"x[{rows},{D}]", "max_abs_err": err,
             "ms": time_ms(kern), "plain_ms": time_ms(plain),
-            "bound_ms": b, "bound_by": by, "library_ms": lib_ms}
+            "bound_ms": b, "bound_by": by, "library_ms": time_ms(lib),
+            "device_ms": device_ms(kern), "library_device_ms": device_ms(lib)}
+
+
+def check_add_rms_norm(dtype, gen, rows: int) -> dict:
+    """K3's fused entry: the residual add and the norm after it, against
+    its plain version (the sum must be bit-equal to torch's x + delta) and
+    against the two library calls it replaces, x + delta then
+    F.rms_norm."""
+    from brpc_tpu_torch.ops import norm
+
+    dev = torch.device("cuda")
+    D, eps = 4096, 1e-5
+    x = torch.randn((rows, D), generator=gen, device=dev).to(dtype)
+    delta = torch.randn((rows, D), generator=gen, device=dev).to(dtype)
+    g = 1.0 + 0.1 * torch.randn((D,), generator=gen, device=dev)
+
+    def kern():
+        return norm.add_rms_norm(x, delta, g, eps)
+
+    def plain():
+        return norm.add_rms_norm_plain(x, delta, g, eps)
+
+    (s_got, h_got), (s_want, h_want) = kern(), plain()
+    if not torch.equal(s_got, s_want):
+        raise AssertionError(f"add_rms_norm rows={rows}: the sum differs "
+                             f"from x + delta")
+    err, _ = compare(f"add_rms_norm rows={rows}", h_got, h_want, dtype)
+    F = torch.nn.functional
+    g_dt = g.to(dtype)
+
+    def lib():
+        s = x + delta
+        return s, F.rms_norm(s, (D,), weight=g_dt, eps=eps)
+
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    nbytes = 4 * rows * D * itemsize + D * 4
+    b, by = bound_ms(nbytes, 5.0 * rows * D, dtype)
+    return {"shape": f"x[{rows},{D}] + delta", "max_abs_err": err,
+            "ms": time_ms(kern), "plain_ms": time_ms(plain),
+            "bound_ms": b, "bound_by": by, "library_ms": time_ms(lib),
+            "device_ms": device_ms(kern), "library_device_ms": device_ms(lib)}
 
 
 def fmt_ms(x) -> str:
@@ -416,15 +491,11 @@ def fmt_ms(x) -> str:
 
 def phase_kernels() -> dict:
     gen = torch.Generator(device="cuda").manual_seed(0)
-    cases = {"paged_decode_attention": [], "prefill_attention": [],
-             "paged_prefill_attention": [], "rms_norm": []}
+    cases = {name: [] for name in SOURCES}
     for dtype in (torch.bfloat16, torch.float32):
         tag = str(dtype).replace("torch.", "")
         runs = [("paged_decode_attention", check_paged_decode(
-            dtype, gen, [0, 15, 16, 300, 2047, 1000, 517, 64]))]
-        if dtype == torch.bfloat16:  # phase 5's last decode step
-            runs.append(("paged_decode_attention", check_paged_decode(
-                dtype, gen, [n + MAIN_NEW_TOKENS - 1 for n in MAIN_LENGTHS])))
+            dtype, gen, pos, width, idle)) for pos, width, idle in K1_CASES]
         for P, length in K2_CASES:
             runs.append(("prefill_attention",
                          check_prefill(dtype, gen, P, length)))
@@ -435,6 +506,8 @@ def phase_kernels() -> dict:
                          check_paged_prefill(dtype, gen, start, n)))
         for rows in (8, 1000):
             runs.append(("rms_norm", check_rms_norm(dtype, gen, rows)))
+            runs.append(("add_rms_norm", check_add_rms_norm(dtype, gen,
+                                                             rows)))
         for name, r in runs:
             r["dtype"] = tag
             cases[name].append(r)
@@ -697,9 +770,8 @@ def phase_prefix(params, cfg, card: str, profile_it: bool,
         raise AssertionError(f"K1 launched "
                              f"{launches['paged_decode_attention']} times "
                              f"over {steps} decode steps")
-    if launches["rms_norm"] != (2 * L + 1) * (
-            steps + stats["prefills"] + stats["resumes"]):
-        raise AssertionError(f"K3 launched {launches['rms_norm']} times")
+    check_norm_launches(launches, L, steps,
+                        stats["prefills"] + stats["resumes"])
     if stats["kv_prefix_hits"] < 15:
         raise AssertionError(f"{stats['kv_prefix_hits']} prefix hits, "
                              f"want >= 15")
@@ -758,6 +830,21 @@ def phase_prefix(params, cfg, card: str, profile_it: bool,
     return res
 
 
+def check_norm_launches(launches: dict, L: int, steps: int,
+                        passes: int) -> None:
+    """K3 per forward: the first ln_attn alone, every other norm fused with
+    the residual add before it (2L of them in a decode step, whose ln_out
+    is fused too; 2L - 1 in a prefill or resume, whose one-row ln_out is
+    not)."""
+    want = {"rms_norm": steps + 2 * passes,
+            "add_rms_norm": 2 * L * steps + (2 * L - 1) * passes}
+    for name, n in want.items():
+        if launches[name] != n:
+            raise AssertionError(f"K3 {name} launched {launches[name]} times,"
+                                 f" want {n} ({steps} decode steps, {passes}"
+                                 f" prefills and resumes)")
+
+
 def fmt_segments(segments: dict) -> str:
     return " ".join(f"{k} {v:.2f}" if v is not None else f"{k} n/a"
                     for k, v in segments.items())
@@ -777,8 +864,9 @@ def profile_swarm(engine, prompts, max_new: int, report_dir: str,
         torch.cuda.synchronize()
         wall = time.monotonic() - t0
     groups = {"K1 paged_decode_attention": 0.0, "K2 prefill_attention": 0.0,
-              "K3 rms_norm": 0.0, "K4 paged_prefill_attention": 0.0,
-              "matmul (cuBLAS)": 0.0, "other": 0.0}
+              "K3 rms_norm": 0.0, "K3 add_rms_norm": 0.0,
+              "K4 paged_prefill_attention": 0.0, "matmul (cuBLAS)": 0.0,
+              "other": 0.0}
     table = []
     for e in prof.key_averages():
         if getattr(e, "device_type", None) != torch.autograd.DeviceType.CUDA:
@@ -787,12 +875,14 @@ def profile_swarm(engine, prompts, max_new: int, report_dir: str,
                      getattr(e, "self_cuda_time_total", 0.0))
         table.append((us, e.count, e.key))
         name = e.key.lower()
-        if "paged_decode" in name:
+        if "paged_decode" in name:  # K1's split pass and its merge
             g = "K1 paged_decode_attention"
         elif "paged_prefill" in name:  # K4's split pass and its merge
             g = "K4 paged_prefill_attention"
         elif "prefill_attention" in name:
             g = "K2 prefill_attention"
+        elif "add_rms_norm" in name:
+            g = "K3 add_rms_norm"
         elif "rms_norm" in name:
             g = "K3 rms_norm"
         elif any(t in name for t in ("gemm", "gemv", "cutlass", "xmma",
@@ -811,6 +901,54 @@ def profile_swarm(engine, prompts, max_new: int, report_dir: str,
                 "idle_share": None, "by_group_ms": None}
     return {"wall_ms": 1e3 * wall, "device_busy_ms": busy,
             "idle_share": 1.0 - busy / (1e3 * wall), "by_group_ms": groups}
+
+
+def decode_step_split(params, cfg) -> dict:
+    """One bare ``decode_step`` at the main path's last-step positions (8
+    lanes, table cut to the pages in play), outside the engine: host_ms is
+    the time until the call returns, which is the host's enqueue of its
+    launches, step_ms the time until the device has finished (medians of
+    10), device_ms the busy time of its kernels (torch.profiler). When
+    host_ms is close to step_ms and device_ms well below it, the step is
+    bound by the host's launches."""
+    from brpc_tpu_torch.models import transformer
+
+    dev = torch.device("cuda")
+    page = 16
+    pos_list = [n + MAIN_NEW_TOKENS - 1 for n in MAIN_LENGTHS]
+    need = [p // page + 1 for p in pos_list]
+    k_pool = torch.zeros((sum(need) + 1, cfg.n_layers, page, cfg.n_kv_heads,
+                          cfg.d_head), dtype=cfg.dtype, device=dev)
+    v_pool = torch.zeros_like(k_pool)
+    tables = torch.zeros((len(need), max(need)), dtype=torch.int32,
+                         device=dev)
+    used = 1
+    for s, n in enumerate(need):
+        tables[s, :n] = torch.arange(used, used + n, dtype=torch.int32)
+        used += n
+    tokens = torch.arange(len(need), dtype=torch.int32, device=dev)
+    pos = torch.tensor(pos_list, dtype=torch.int32, device=dev)
+
+    def step():
+        return transformer.decode_step(params, tokens, pos, tables, k_pool,
+                                       v_pool, cfg)
+
+    for _ in range(3):
+        step()
+    host, total = [], []
+    for _ in range(10):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step()
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        host.append(t1 - t0)
+        total.append(time.perf_counter() - t0)
+    res = {"host_ms": 1e3 * sorted(host)[5], "step_ms": 1e3 * sorted(total)[5],
+           "device_ms": device_ms(step, iters=5)}
+    del k_pool, v_pool
+    torch.cuda.empty_cache()
+    return res
 
 
 def phase_main(params, cfg, init_s: float, card: str, profile_it: bool,
@@ -836,6 +974,7 @@ def phase_main(params, cfg, init_s: float, card: str, profile_it: bool,
                 else None)
     finally:
         eng.close()
+    bare = decode_step_split(params, cfg)
     steps, prefills = stats["model_steps"], stats["prefills"]
     resumes = stats["resumes"]  # random prompts: no shared prefix, none
     L = cfg.n_layers
@@ -849,8 +988,7 @@ def phase_main(params, cfg, init_s: float, card: str, profile_it: bool,
         raise AssertionError(f"K4 launched "
                              f"{launches['paged_prefill_attention']} times "
                              f"over {resumes} resumes")
-    if launches["rms_norm"] != (2 * L + 1) * (steps + prefills + resumes):
-        raise AssertionError(f"K3 launched {launches['rms_norm']} times")
+    check_norm_launches(launches, L, steps, prefills + resumes)
     for toks in out["tokens"].values():
         if not all(0 <= t < cfg.vocab for t in toks):
             raise AssertionError("token id out of vocabulary")
@@ -870,7 +1008,7 @@ def phase_main(params, cfg, init_s: float, card: str, profile_it: bool,
         "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
         "weights_init_s": init_s, "ttft_segments_ms": segments,
         "mean_batch_occupancy": stats["mean_batch_occupancy"],
-        "launches": launches,
+        "launches": launches, "bare_decode_step": bare,
         "profile": prof,
     }
     log(f"[main] Llama-3-8B bf16 32 layers, {card}: {len(prompts)} "
@@ -881,6 +1019,9 @@ def phase_main(params, cfg, init_s: float, card: str, profile_it: bool,
         f"steps; prefill {res['prefill_ms_mean']:.2f} ms mean over "
         f"{prefills}; peak memory {res['peak_mem_gib']:.2f} GiB; TTFT "
         f"segments mean ms {fmt_segments(segments)}; launches {launches}")
+    log(f"[decode] bare decode_step, 8 lanes at the last step's positions: "
+        f"host enqueue {bare['host_ms']:.2f} ms, step {bare['step_ms']:.2f} "
+        f"ms, device busy {fmt_ms(bare['device_ms'])} ms")
     if prof is not None:
         log(f"[profile] 8 more requests x 8 tokens, {card}: wall "
             f"{prof['wall_ms']:.1f} ms, device busy ms "
@@ -926,9 +1067,9 @@ def main() -> int:
         f"{t_kernels:.1f} s")
     for line in ptxas_summary(_build.PTXAS_LOG):
         log("[ptxas] " + line)
-        if ("prefill" in line and "<bf16, 128>" in line
+        if (TILE_KERNEL.search(line) and "<bf16, 128>" in line
                 and " 0 bytes spill stores" not in line):
-            raise AssertionError(f"the Llama-width tile spills: {line}")
+            raise AssertionError(f"a Llama-width tile spills: {line}")
     report["build_s"] = {"native": t_native, "kernels": t_kernels}
     report["sass_mma"] = sass_mma_counts(_build)
     cases = phase_kernels()
@@ -955,11 +1096,11 @@ def main() -> int:
         json.dump(report, f, indent=1)
     # One row per kernel: the bf16 case at a shape its path gives it (the
     # main path's 8 lanes at their last decode step; a 1024-token bucket;
-    # a turn-2 resume's 40 rows after 1008 cached tokens; 8 decode rows),
-    # with the launches of its path's run: K4's from the prefix phase, the
-    # others from the main path's.
+    # a turn-2 resume's 40 rows after 1008 cached tokens; 8 decode rows,
+    # alone and with the residual add), with the launches of its path's
+    # run: K4's from the prefix phase, the others from the main path's.
     pick = {"paged_decode_attention": 1, "prefill_attention": 2,
-            "paged_prefill_attention": 0, "rms_norm": 0}
+            "paged_prefill_attention": 0, "rms_norm": 0, "add_rms_norm": 0}
     runs = {name: main_res for name in pick}
     runs["paged_prefill_attention"] = report["prefix"]
     rows = []

@@ -95,6 +95,16 @@ def test_kernels_match_plain_on_card(cuda_device, dtype, H, KV, Dh):
     torch.testing.assert_close(norm.rms_norm(rows, g, 1e-5).float(),
                                norm.rms_norm_plain(rows, g, 1e-5).float(),
                                atol=atol, rtol=rtol)
+    # The fused residual add: the sum exactly as torch rounds it, the norm
+    # within the tolerance.
+    delta = torch.randn_like(rows)
+    n = norm.add_rms_norm.launches
+    s, h = norm.add_rms_norm(rows, delta, g, 1e-5)
+    assert norm.add_rms_norm.launches == n + 1
+    s_want, h_want = norm.add_rms_norm_plain(rows, delta, g, 1e-5)
+    assert torch.equal(s, s_want)
+    torch.testing.assert_close(h.float(), h_want.float(), atol=atol,
+                               rtol=rtol)
 
 
 @pytest.mark.cuda
@@ -115,6 +125,57 @@ def test_prefill_attention_matches_plain_on_card(cuda_device, H, KV, Dh,
     got = attention.prefill_attention(q, k, v, length)
     assert attention.prefill_attention.launches == before + 1
     want = attention.prefill_attention_plain(q, k, v, length)
+    torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                               rtol=rtol)
+    _assert_rows_close(got, want, dtype)
+
+
+# K1 at Llama-3-8B heads, 8 lanes: (positions, table columns (None: the
+# pages in play), idle lanes (pos 0, every column garbage block 0)). The
+# main path's last decode step; a lane at max_seq - 1 beside short ones
+# over the full 512-column table; every lane idle but one; short and long
+# lanes over the full table.
+DECODE_CASES = {
+    "main_last_step": ([n + 31 for n in (16, 1024, 100, 517, 64, 300, 800,
+                                         33)], None, ()),
+    "pos_8191": ([8191, 0, 15, 16, 100, 64, 33, 7], 512, ()),
+    "idle_but_one": ([0] * 7 + [1055], None, range(7)),
+    "full_table": ([0, 15, 16, 300, 2047, 1000, 517, 64], 512, ()),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", list(DECODE_CASES))
+def test_paged_decode_attention_matches_plain_on_card(cuda_device, case,
+                                                      dtype):
+    """K1 (split-K over each lane's table, the plan from the table's width)
+    against its plain version on the last layer of a strided pool."""
+    atol, rtol = CARD_TOL[dtype]
+    pos, width, idle = DECODE_CASES[case]
+    H, KV, Dh, L, page = 32, 8, 128, 2, 16
+    dev = cuda_device
+    gen = torch.Generator(device=dev).manual_seed(len(case))
+    need = [0 if s in idle else p // page + 1 for s, p in enumerate(pos)]
+    width = width or max(need)
+    nb = sum(need) + 1
+    k_pool = torch.randn((nb, L, page, KV, Dh), generator=gen,
+                         device=dev).to(dtype)
+    v_pool = torch.randn_like(k_pool)
+    perm = torch.randperm(nb - 1, generator=gen, device=dev).int() + 1
+    tables = torch.zeros((len(pos), width), dtype=torch.int32, device=dev)
+    used = 0
+    for s, n in enumerate(need):
+        tables[s, :n] = perm[used:used + n]
+        used += n
+    pos_t = torch.tensor(pos, dtype=torch.int32, device=dev)
+    q = torch.randn((len(pos), H, Dh), generator=gen, device=dev).to(dtype)
+    before = attention.paged_decode_attention.launches
+    got = attention.paged_decode_attention(q, k_pool, v_pool, tables, pos_t,
+                                           L - 1)
+    assert attention.paged_decode_attention.launches == before + 1
+    want = attention.paged_decode_attention_plain(q, k_pool, v_pool, tables,
+                                                  pos_t, L - 1)
     torch.testing.assert_close(got.float(), want.float(), atol=atol,
                                rtol=rtol)
     _assert_rows_close(got, want, dtype)
@@ -211,8 +272,13 @@ def test_engine_on_card_streams_plain_greedy(cuda_device, n_kv_heads):
                for p in prompts]
         steps, prefills = eng.stats()["model_steps"], eng.stats()["prefills"]
     counts = ops.launch_counts()
-    assert counts["paged_decode_attention"] == cfg.n_layers * steps
-    assert counts["prefill_attention"] == cfg.n_layers * prefills
+    L = cfg.n_layers
+    assert counts["paged_decode_attention"] == L * steps
+    assert counts["prefill_attention"] == L * prefills
+    # Every norm but the first of a pass takes its residual add along; a
+    # prefill's one-row final norm stays unfused.
+    assert counts["rms_norm"] == steps + 2 * prefills
+    assert counts["add_rms_norm"] == 2 * L * steps + (2 * L - 1) * prefills
     for p, toks in zip(prompts, got):
         assert toks == transformer.greedy_reference(params, cfg, p, 6,
                                                     device=cuda_device)

@@ -218,6 +218,28 @@ def test_rms_norm_plain_bf16_matches_jax():
                                rtol=8e-3, atol=8e-3)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_add_rms_norm_plain_matches_jax(dtype):
+    """The fused residual add and norm against the reference's add then
+    ``_rms_norm`` (transformer.py:102): the sum exactly (one rounding to
+    the model dtype on both sides), the norm within f32 summation order or
+    one bf16 rounding step."""
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.standard_normal((6, 128), np.float32)).to(dtype)
+    d = torch.from_numpy(rng.standard_normal((6, 128), np.float32)).to(dtype)
+    g = (1.0 + 0.1 * rng.standard_normal(128)).astype(np.float32)
+    jdt = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
+    js = (jnp.asarray(x.float().numpy()).astype(jdt)
+          + jnp.asarray(d.float().numpy()).astype(jdt))
+    jh = jt._rms_norm(js, jnp.asarray(g), 1e-5)
+    s, h = norm.add_rms_norm(x, d, torch.from_numpy(g), 1e-5)
+    np.testing.assert_array_equal(s.float().numpy(),
+                                  np.asarray(js.astype(jnp.float32)))
+    tol = TOL if dtype == torch.float32 else dict(rtol=8e-3, atol=8e-3)
+    np.testing.assert_allclose(h.float().numpy(),
+                               np.asarray(jh.astype(jnp.float32)), **tol)
+
+
 def test_cpu_tensors_take_plain_versions_and_count_no_launch():
     before = ops.launch_counts()
     q, k_pool, v_pool, tables, pos = map(torch.from_numpy,
@@ -227,6 +249,7 @@ def test_cpu_tensors_take_plain_versions_and_count_no_launch():
     attention.prefill_attention(x, x[:, :2], x[:, :2], 5)
     attention.paged_prefill_attention(x, k_pool, v_pool, tables[3], 3, 0)
     norm.rms_norm(x, torch.ones(32), 1e-5)
+    norm.add_rms_norm(x, x, torch.ones(32), 1e-5)
     assert ops.launch_counts() == before
 
 
@@ -234,6 +257,8 @@ def test_other_devices_raise():
     x = torch.empty((8, 4, 32), device="meta")
     with pytest.raises(ValueError):
         norm.rms_norm(x, torch.empty(32, device="meta"), 1e-5)
+    with pytest.raises(ValueError):
+        norm.add_rms_norm(x, x, torch.empty(32, device="meta"), 1e-5)
     with pytest.raises(ValueError):
         attention.prefill_attention(x, x[:, :2], x[:, :2], 5)
     with pytest.raises(ValueError):
