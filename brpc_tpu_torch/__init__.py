@@ -7,10 +7,10 @@ arrays held as torch tensors on an NVIDIA card and the attention and
 normalisation of the serving path in hand-written CUDA kernels.
 
 - ``brpc_tpu_torch.native`` / ``runtime``: the native builder and the ctypes
-  surface the serving path needs (Server, Channel, NativeBatcher, flight
-  records, the host KV page store, the metrics dump).
-- ``brpc_tpu_torch.models.transformer``: the Llama-style model, its prefill,
-  the paged suffix prefill of a prefix-cache hit and the batched paged
+  surface the serving paths need (Server, Channel, NativeBatcher, flight
+  records, the KV transfer, the host KV page store, the metrics dump).
+- ``brpc_tpu_torch.models.transformer``: the Llama-style model, its prefill
+  (whole or layer-streamed), the paged suffix prefill of a prefix-cache hit and the batched paged
   decode step.
 - ``brpc_tpu_torch.ops``: the CUDA kernels (``csrc/``), their builder and
   their wrappers, each with a plain PyTorch version beside it.
@@ -18,6 +18,8 @@ normalisation of the serving path in hand-written CUDA kernels.
   prefix index with its host tier, and the prefix resume.
 - ``brpc_tpu_torch.serving``: continuous-batching engine (prefix cache and
   host tier on by default) and streaming client over the native batcher.
+- ``brpc_tpu_torch.disagg`` / ``cluster``: disaggregated serving (prefill
+  worker, decode worker, static-list router) on the reference's wire.
 
 Every entry point runs on ``cuda`` unless the caller passes
 ``device="cpu"``; without a card and without that argument it raises.

@@ -1,0 +1,1629 @@
+"""Disaggregated prefill/decode serving on PyTorch: the counterpart of
+brpc_tpu/disagg.py's workers and static-list router, speaking the same
+wire, so torch and JAX routers and workers mix in one fleet.
+
+  client --generate--> DisaggRouter (batcher lanes, deadline cull, ELIMIT)
+      --prefill RPC--> PrefillWorker (layer-wise prefill; each layer's K/V
+                       pages go out over the native KV transfer as soon as
+                       the layer has computed them)
+      --KV handle----> DecodeWorker (claims the transferred pages into its
+                       paged pool and joins the continuous decode batch)
+      <--token stream-- relayed through the router unchanged: the client
+                       is a stock ServingClient.
+
+A failed prefill, transfer or adopt before any relayed token re-prefills
+on another worker with a fresh handle; a decode worker that dies mid
+generation is re-dispatched too, and the router suppresses the tokens the
+client already has (greedy decode re-derives them), so the stream stays
+byte-exact. Prefill workers shed with ELIMIT under their limiter; the
+router bounces that to a sibling.
+
+Prefix caching: a prefill worker reuses its own cached pages to compute
+only a prompt's suffix (K4; the transfer still ships every page); a decode
+worker indexes the pages it adopts by the prompt the adopt carries, skips
+the claim when its own tiers already cover a prompt, and serves SPLICE
+requests off its cache (or answers EREJECT, and the router falls back to
+a prefill worker on the same attempt).
+
+Each worker runs its device work on its own loop thread and, on a card,
+its own CUDA stream, so a decode step never queues behind a whole prefill
+on one stream; a worker's kernel launches are counted apart in its
+``launches``. Only the read-only params are shared between workers.
+
+The router here takes static worker lists; the lease registry
+(``registry=``), the subprocess worker runner and the autoscaler are not
+ported yet.
+
+Wire payloads (little-endian):
+  Prefill.run request:  <u64 handle> <i64 budget_us> <u32 prompt_len>
+                        <u32 max_new> <u16 addr_len> <addr utf8>
+                        <prompt_len x u32>
+  Prefill.run delivery: 'd' <u32 first_token>, then the terminal 'f'
+  Decode.adopt request: <u8 kind=1> <u64 handle> <i64 budget_us>
+                        <u32 length> <u32 last_token> <u32 left>
+                        <length x u32 prompt>
+  Decode.adopt (splice): <u8 kind=2> <i64 budget_us> <u8 n_peers>
+                        n_peers x (<u16 len> <addr utf8>) <serving request>
+  Decode.adopt delivery: the serving 'd'/'f' token contract, relayed 1:1
+"""
+
+from __future__ import annotations
+
+import contextlib
+import secrets
+import struct
+import threading
+import time
+from collections import deque
+from concurrent.futures import ThreadPoolExecutor
+from typing import Dict, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from brpc_tpu_torch import cluster, kv_cache, ops, runtime, serving
+from brpc_tpu_torch.models import transformer
+from brpc_tpu_torch.utils import resolve_device
+
+PREFILL_SERVICE = "Prefill"
+PREFILL_METHOD = "run"          # interactive lane: overtakes queued batch work
+PREFILL_METHOD_BATCH = "run_batch"
+DECODE_SERVICE = "Decode"
+DECODE_METHOD = "adopt"
+
+_PREFILL_HDR = struct.Struct("<QqIIH")
+_ADOPT_HDR = struct.Struct("<QqIII")
+_SPLICE_HDR = struct.Struct("<q")
+
+ADOPT_KIND_PAGES = 1   # adopt transferred pages (prompt rides along)
+ADOPT_KIND_SPLICE = 2  # serve off the local prefix cache, or EREJECT
+
+
+def encode_prefill_request(handle: int, budget_us: int, prompt, max_new: int,
+                           decode_addr: str) -> bytes:
+    addr = decode_addr.encode()
+    toks = np.asarray(prompt, dtype="<u4")
+    return (_PREFILL_HDR.pack(handle, budget_us, len(toks), max_new,
+                              len(addr)) + addr + toks.tobytes())
+
+
+def decode_prefill_request(payload: bytes):
+    if len(payload) < _PREFILL_HDR.size:
+        raise ValueError("prefill request too short")
+    handle, budget_us, n, max_new, alen = _PREFILL_HDR.unpack_from(payload)
+    off = _PREFILL_HDR.size
+    addr = payload[off:off + alen].decode()
+    off += alen
+    body = payload[off:off + 4 * n]
+    if len(body) != 4 * n:
+        raise ValueError("prefill request truncated")
+    prompt = np.frombuffer(body, dtype="<u4").astype(np.int32)
+    return handle, budget_us, prompt, max_new, addr
+
+
+def encode_adopt_request(handle: int, budget_us: int, prompt,
+                         last_token: int, left: int) -> bytes:
+    """kind-1 adopt: the prompt rides along so the decode worker can index
+    the adopted pages by content."""
+    toks = np.asarray(prompt, dtype="<u4")
+    return (bytes([ADOPT_KIND_PAGES])
+            + _ADOPT_HDR.pack(handle, budget_us, len(toks), last_token,
+                              left) + toks.tobytes())
+
+
+def decode_adopt_request(payload: bytes):
+    """payload after the kind byte -> (handle, budget_us, prompt,
+    last_token, left)."""
+    if len(payload) < _ADOPT_HDR.size:
+        raise ValueError("adopt request malformed")
+    handle, budget_us, n, last_token, left = _ADOPT_HDR.unpack_from(payload)
+    if len(payload) != _ADOPT_HDR.size + 4 * n:
+        raise ValueError("adopt request malformed")
+    body = payload[_ADOPT_HDR.size:]
+    prompt = np.frombuffer(body, dtype="<u4").astype(np.int32)
+    return handle, budget_us, prompt, last_token, left
+
+
+def encode_splice_request(budget_us: int, prompt, max_new: int,
+                          peers: Sequence[str] = ()) -> bytes:
+    """Splice request. ``peers`` are decode workers whose page digests
+    advertise this prompt's pages: a worker whose own tiers miss pulls the
+    missing pages from them before its hit-or-EREJECT verdict."""
+    body = bytes([ADOPT_KIND_SPLICE]) + _SPLICE_HDR.pack(budget_us)
+    body += bytes([min(len(peers), 255)])
+    for p in list(peers)[:255]:
+        pe = p.encode()
+        body += struct.pack("<H", len(pe)) + pe
+    return body + serving.encode_request(prompt, max_new)
+
+
+def decode_splice_request(payload: bytes):
+    """payload after the kind byte -> (budget_us, prompt, max_new,
+    peers)."""
+    if len(payload) < _SPLICE_HDR.size + 1:
+        raise ValueError("splice request malformed")
+    (budget_us,) = _SPLICE_HDR.unpack_from(payload)
+    off = _SPLICE_HDR.size
+    n_peers = payload[off]
+    off += 1
+    peers: List[str] = []
+    for _ in range(n_peers):
+        if len(payload) < off + 2:
+            raise ValueError("splice request malformed")
+        (plen,) = struct.unpack_from("<H", payload, off)
+        off += 2
+        raw = payload[off:off + plen]
+        if len(raw) != plen:
+            raise ValueError("splice request malformed")
+        peers.append(raw.decode(errors="replace"))
+        off += plen
+    prompt, max_new = serving.decode_request(payload[off:])
+    return budget_us, prompt, max_new, peers
+
+
+def _mint_handle() -> int:
+    h = 0
+    while h == 0:
+        h = secrets.randbits(64)
+    return h
+
+
+# ---- the workers' device context ----------------------------------------------
+
+def _worker_stream(cfg, device: torch.device) -> Optional[torch.cuda.Stream]:
+    """A worker's own CUDA stream (None on the CPU). The RoPE tables, which
+    every worker of the process reads, are built here on the caller's
+    stream, before any worker stream exists."""
+    transformer._rope_tables(cfg, device)
+    return torch.cuda.Stream(device) if device.type == "cuda" else None
+
+
+@contextlib.contextmanager
+def _worker_scope(stream: Optional[torch.cuda.Stream], launches: dict):
+    """A loop thread's device context: its worker's stream, made to wait
+    first for what the default stream holds (the params' and the pool's
+    initialisation), and its own kernel-launch tally."""
+    with contextlib.ExitStack() as scope:
+        if stream is not None:
+            stream.wait_stream(torch.cuda.default_stream(stream.device))
+            scope.enter_context(torch.cuda.stream(stream))
+        scope.enter_context(ops.thread_launches(launches))
+        yield
+
+
+# ---- prefill worker -----------------------------------------------------------
+
+class PrefillWorker(serving.DrainMixin):
+    """Prefill-role node: admits Prefill.run through a batcher lane (limiter
+    "auto" sheds with ELIMIT under overload), prefills, and streams the
+    prompt's K/V pages to the decode worker named in the request; the
+    delivery stream returns the first token. The router's handle is the
+    rendezvous key on the decode side.
+
+    Three routes: a prefix hit resumes the suffix through the local pool
+    (K4) and streams the pages out of the pool; ``layerwise`` runs
+    ``transformer.prefill_stream`` and sends each layer as it exists; else
+    one ``transformer.prefill`` and then the layers. ``layerwise=None`` is
+    on for a CUDA device. ``device`` defaults to ``cuda`` (raises without
+    a card); the other options are the reference's, with its defaults."""
+
+    def __init__(self, params, cfg, *, max_prompt: Optional[int] = None,
+                 kv_page_tokens: int = 16, kv_chunk_bytes: int = -1,
+                 limiter: str = "auto", max_queue_len: int = 256,
+                 kv_timeout_ms: int = 20_000,
+                 layerwise: Optional[bool] = None,
+                 prefix_cache: bool = True, kv_host_tier: bool = True,
+                 kv_blocks: Optional[int] = None, port: int = 0,
+                 autostart: bool = True, device=None):
+        self.device = resolve_device(device)
+        self.params = params
+        self.cfg = cfg
+        # Layer-wise prefill lets layer l's transfer start while layer l+1
+        # computes, which takes a device's asynchronous launches; on the
+        # CPU the one-shot prefill (same wire bytes) is cheaper.
+        self.layerwise = (layerwise if layerwise is not None
+                          else self.device.type == "cuda")
+        self.page_tokens = kv_page_tokens
+        self.kv_chunk_bytes = kv_chunk_bytes
+        self.kv_timeout_ms = kv_timeout_ms
+        self.max_prompt = (max_prompt if max_prompt is not None
+                           else max(8, cfg.max_seq // 2))
+        self.prefills = 0
+        self.kv_sends_failed = 0
+        self.prefix_hits = 0
+        # Timing of the handled prefills (host wall, synchronised): the
+        # compute route up to the first token, the parts of it spent
+        # waiting for layers' K/V on the host (layer-wise) and handing
+        # layers to the sender, the local cache admission after it, the
+        # transfer from its first layer sent to its commit acknowledged,
+        # and the commit's own wait.
+        self.prefill_seconds = 0.0
+        self.layer_stall_seconds = 0.0
+        self.send_seconds = 0.0
+        self.cache_seconds = 0.0
+        self.layers_streamed = 0
+        self.transfer_seconds = 0.0
+        self.commit_seconds = 0.0
+        self.transfer_bytes = 0
+        self.launches: Dict[str, int] = {}
+        self.draining = False
+        self.drain_reason = ""
+        self.drain_sheds = 0
+        self._inflight_handles = 0
+        self._prefill_ema_s = 0.0
+        # Local prefix store: computed pages stay (evictable) so the next
+        # prompt sharing a prefix prefills only its suffix.
+        self.pool = None
+        self.prefix = None
+        if prefix_cache:
+            max_blocks = cfg.max_seq // kv_page_tokens
+            nblocks = (kv_blocks if kv_blocks is not None
+                       else 8 * max_blocks + 1)
+            self.pool = kv_cache.PagedKvPool(cfg, nblocks, kv_page_tokens,
+                                             device=self.device)
+            self.prefix = kv_cache.PrefixIndex(
+                self.pool, kv_page_tokens,
+                token_bytes=kv_cache.kv_token_bytes(cfg),
+                host_tier=kv_host_tier)
+        self._stream = _worker_stream(cfg, self.device)
+
+        self.server = runtime.Server()
+        self.batcher = runtime.NativeBatcher(
+            max_batch_size=4, max_queue_delay_us=500,
+            max_queue_len=max_queue_len, limiter=limiter)
+        self.batcher.add_method(self.server, PREFILL_SERVICE, PREFILL_METHOD,
+                                runtime.LANE_INTERACTIVE)
+        # Bulk prompts ride the batch lane, so a queued long prefill never
+        # delays an interactive one.
+        self.batcher.add_method(self.server, PREFILL_SERVICE,
+                                PREFILL_METHOD_BATCH, runtime.LANE_BATCH)
+        self.port = self.server.start(port)
+        self._channels = {}
+        self._mu = threading.Lock()
+        self._running = False
+        self._thread = None
+        if autostart:
+            self.start()
+
+    def _channel(self, addr: str) -> runtime.Channel:
+        with self._mu:
+            ch = self._channels.get(addr)
+            if ch is None:
+                # Chunk RPCs ride backoff-spaced retries; the kv layer adds
+                # its own re-posts of dropped frames.
+                ch = runtime.Channel(
+                    addr, timeout_ms=self.kv_timeout_ms,
+                    retry_policy=runtime.RetryPolicy(
+                        max_retry=3, backoff_base_ms=20, backoff_max_ms=500))
+                self._channels[addr] = ch
+            return ch
+
+    def start(self) -> None:
+        if self._thread is not None:
+            return
+        self._running = True
+        self._thread = threading.Thread(target=self._loop, daemon=True,
+                                        name="prefill-loop")
+        self._thread.start()
+
+    def _loop(self) -> None:
+        with _worker_scope(self._stream, self.launches):
+            while self._running:
+                batch = self.batcher.next_batch(wait_us=100_000)
+                if batch is None:
+                    self._running = False
+                    return
+                for req_id, payload, _prio, remaining_us in batch:
+                    if self.draining:
+                        self.batcher.finish(req_id, runtime.ELIMIT,
+                                            self.drain_shed_text())
+                        self.drain_sheds += 1
+                        runtime.app_counter_add("serving_drain_sheds", 1)
+                        continue
+                    self._inflight_handles += 1
+                    t0 = time.monotonic()
+                    try:
+                        self._handle(req_id, payload, remaining_us)
+                        dt = time.monotonic() - t0
+                        self._prefill_ema_s = (
+                            dt if self._prefill_ema_s == 0.0
+                            else 0.8 * self._prefill_ema_s + 0.2 * dt)
+                    except Exception as e:  # noqa: BLE001 — fail the one
+                        self.batcher.finish(req_id, runtime.EAPP,
+                                            f"prefill failed: {e}")
+                    finally:
+                        self._inflight_handles -= 1
+
+    # ---- drain state machine (verbs shared via serving.DrainMixin) ---------
+
+    def drain_live(self) -> int:
+        """Prefills inside _handle (queued work sheds itself)."""
+        return self._inflight_handles
+
+    def drain_eta_ms(self) -> int:
+        """Queued and in-handler prefills x the observed prefill time,
+        clamped to [25, 30000] ms."""
+        try:
+            depth = int(self.batcher.stats().get("queue_depth", 0))
+        except Exception:  # noqa: BLE001 — telemetry must not fail a shed
+            depth = 0
+        work = depth + self._inflight_handles
+        ema = self._prefill_ema_s if self._prefill_ema_s > 0 else 0.05
+        return max(25, min(int(work * ema * 1000), 30_000))
+
+    def _handle(self, req_id: int, payload: bytes,
+                remaining_us: int) -> None:
+        try:
+            handle, budget_us, prompt, max_new, addr = (
+                decode_prefill_request(payload))
+        except ValueError as e:
+            self.batcher.finish(req_id, runtime.EREQUEST, str(e))
+            return
+        if len(prompt) == 0 or len(prompt) > self.max_prompt:
+            self.batcher.finish(req_id, runtime.EREQUEST,
+                                f"prompt length {len(prompt)} not in "
+                                f"[1, {self.max_prompt}]")
+            return
+        length = len(prompt)
+        cfg, page = self.cfg, self.page_tokens
+        runtime.flight_stamp(req_id, runtime.FLIGHT_PREFILL_START)
+        t_start = time.monotonic()
+        sender = runtime.KvSender(
+            self._channel(addr), handle, total_layers=2 * cfg.n_layers,
+            chunk_bytes=self.kv_chunk_bytes)
+        send_err = []
+        t_first_send = []
+
+        def send(layer: int, k_bytes: bytes, v_bytes: bytes) -> None:
+            t0 = time.monotonic()
+            if not t_first_send:
+                t_first_send.append(t0)
+            try:
+                sender.send_layer(2 * layer, k_bytes)
+                sender.send_layer(2 * layer + 1, v_bytes)
+            except runtime.RpcError as e:
+                send_err.append(e)
+            self.send_seconds += time.monotonic() - t0
+
+        shared, use = [], 0
+        if self.prefix is not None:
+            shared, use = self.prefix.match(prompt, length - 1)
+            if use and not kv_cache.can_resume(cfg, use, length):
+                self.pool.release(shared)
+                shared, use = [], 0
+        hit_out = None
+        if use:
+            hit_out = kv_cache.prefix_resume(
+                self.pool, self.params, cfg, page, prompt, shared, use,
+                index=self.prefix)
+
+        cache_blocks = None
+        if hit_out is not None:
+            # Prefix hit: only the suffix was computed; every page (cached
+            # prefix and fresh suffix) streams out of the local pool.
+            logits, cache_blocks = hit_out
+            self.prefix_hits += 1
+            idx = torch.tensor(cache_blocks, dtype=torch.long,
+                               device=self.device)
+            kp, vp = self.pool.k[idx].cpu(), self.pool.v[idx].cpu()
+            span = len(cache_blocks) * page
+            kv_shape = (span, cfg.n_kv_heads, cfg.d_head)
+            for layer in range(cfg.n_layers):
+                if send_err:
+                    break
+                send(layer,
+                     kv_cache.encode_layer(kp[:, layer].reshape(kv_shape),
+                                           length, page, cfg),
+                     kv_cache.encode_layer(vp[:, layer].reshape(kv_shape),
+                                           length, page, cfg))
+        else:
+            padded = np.zeros(serving.prompt_bucket(length, self.max_prompt),
+                              np.int32)
+            padded[:length] = prompt
+            tokens = torch.from_numpy(padded).to(self.device)
+            if self.layerwise:
+                kept = [] if self.prefix is not None else None
+
+                def on_layer(layer, k, v):
+                    # Layer l's pages go to the sender before layer l + 1
+                    # is enqueued. Encoding waits on the host for layer l's
+                    # K/V, and send_layer blocks once the sender's chunk
+                    # window is full.
+                    if send_err:
+                        return
+                    t0 = time.monotonic()
+                    kb = kv_cache.encode_layer(k, length, page, cfg)
+                    vb = kv_cache.encode_layer(v, length, page, cfg)
+                    self.layer_stall_seconds += time.monotonic() - t0
+                    self.layers_streamed += 1
+                    if kept is not None:
+                        kept.append((k, v))  # the device copy, for caching
+                    send(layer, kb, vb)
+
+                logits = transformer.prefill_stream(
+                    self.params, tokens, length, cfg, on_layer)
+                if kept is not None and len(kept) == cfg.n_layers:
+                    cache_blocks = self._cache_pages(
+                        prompt, torch.stack([k for k, _ in kept]),
+                        torch.stack([v for _, v in kept]))
+            else:
+                # One prefill, then the finished layers (the chunk window
+                # still pipelines them on the wire).
+                logits, k, v = transformer.prefill(self.params, tokens,
+                                                   length, cfg)
+                kc, vc = k.cpu(), v.cpu()
+                for layer in range(cfg.n_layers):
+                    if send_err:
+                        break
+                    send(layer,
+                         kv_cache.encode_layer(kc[layer], length, page, cfg),
+                         kv_cache.encode_layer(vc[layer], length, page, cfg))
+                if self.prefix is not None:
+                    cache_blocks = self._cache_pages(prompt, k, v)
+        tok = int(logits.argmax())  # synchronises: the compute is done
+        t_computed = time.monotonic()
+        self.prefill_seconds += t_computed - t_start
+        if self.prefix is not None:
+            if cache_blocks:
+                # Admit, then release: the pages idle on the evictable LRU
+                # until the next shared-prefix prompt revives them.
+                self.prefix.admit(prompt, cache_blocks)
+                self.pool.release(cache_blocks)
+            self.prefix.sync_native()
+        self.prefills += 1
+        self.cache_seconds += time.monotonic() - t_computed
+        runtime.flight_stamp(req_id, runtime.FLIGHT_PREFILL_DONE)
+        if hit_out is not None:
+            runtime.flight_route(req_id, runtime.ROUTE_HBM_HIT)
+        t_commit = time.monotonic()
+        try:
+            if send_err:
+                raise send_err[0]
+            sender.commit()
+        except runtime.RpcError as e:
+            self.kv_sends_failed += 1
+            self.batcher.finish(req_id, e.code,
+                                f"kv transfer failed: {e.text}")
+            return
+        t_done = time.monotonic()
+        self.commit_seconds += t_done - t_commit
+        self.transfer_seconds += t_done - t_first_send[0]
+        self.transfer_bytes += sender.bytes_sent
+        runtime.flight_stamp(req_id, runtime.FLIGHT_KV_TRANSFER)
+        # Link attribution: the transfer's wire bytes and destination.
+        runtime.flight_note_once(
+            req_id, f"kv w={sender.bytes_sent} l={addr}")
+        rc = self.batcher.emit(req_id, struct.pack("<I", tok))
+        if rc != 0:
+            self.batcher.finish(req_id, rc, "router went away")
+            return
+        self.batcher.finish(req_id, 0, "")
+
+    def _cache_pages(self, prompt, k, v) -> Optional[list]:
+        """Land a prefill's pages (k/v [L, P, KV, Dh] on the device) in the
+        local pool. Returns the blocks (the caller admits and releases
+        them) or None when the pool cannot fit them: caching is
+        best-effort, never a request failure."""
+        blocks = self.pool.alloc(kv_cache.pages_for(len(prompt),
+                                                    self.page_tokens))
+        if blocks is None:
+            return None
+        k_pages, v_pages = kv_cache.prefill_cache_pages(
+            k, v, len(prompt), self.page_tokens)
+        self.pool.write_blocks(blocks, k_pages, v_pages)
+        return blocks
+
+    def stats(self) -> dict:
+        s = self.batcher.stats()
+        s.update(prefills=self.prefills, prefix_hits=self.prefix_hits,
+                 kv_sends_failed=self.kv_sends_failed,
+                 prefill_seconds=self.prefill_seconds,
+                 layer_stall_seconds=self.layer_stall_seconds,
+                 send_seconds=self.send_seconds,
+                 layers_streamed=self.layers_streamed,
+                 cache_seconds=self.cache_seconds,
+                 transfer_seconds=self.transfer_seconds,
+                 commit_seconds=self.commit_seconds,
+                 transfer_bytes=self.transfer_bytes,
+                 drain_sheds=self.drain_sheds)
+        return s
+
+    def close(self) -> None:
+        self._running = False
+        if self._thread is not None:
+            self._thread.join(timeout=10)
+            self._thread = None
+        if self._stream is not None:
+            self._stream.synchronize()
+        self.server.stop()
+        self.batcher.stop()
+        self.batcher.close()
+        self.server.close()
+        with self._mu:
+            for ch in self._channels.values():
+                ch.close()
+            self._channels.clear()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+
+# ---- decode worker ------------------------------------------------------------
+
+class DecodeWorker(serving.ServingEngine):
+    """Decode-role node: a ServingEngine whose admission ADOPTS a
+    transferred KV instead of prefilling. Decode.adopt claims the handle
+    from the native receive pool, lands the pages in the paged block pool,
+    and the sequence joins the continuous decode batch; its tokens go back
+    on the adopt stream (the router relays them).
+
+    Adopted pages are admitted to the prefix index under the prompt the
+    adopt carries. An adopt whose prompt the local tiers already cover
+    resumes off them and releases the transfer unclaimed. A SPLICE request
+    (kind 2) is served entirely off the cache (cached pages retained into
+    a fresh block table, the suffix prefilled with K4); less than
+    ``splice_min_hit_tokens`` cached answers a terminal EREJECT."""
+
+    service = DECODE_SERVICE
+    lanes = ((DECODE_METHOD, runtime.LANE_INTERACTIVE),)
+
+    def __init__(self, params, cfg, *, kv_claim_timeout_ms: int = 1_000,
+                 splice_min_hit_tokens: Optional[int] = None,
+                 peer_pull_timeout_ms: int = 800,
+                 peer_pull_window: int = 4,
+                 peer_fill_budget_ms: int = 1_500, **kwargs):
+        # The router commits the transfer before the adopt, so the claim
+        # normally succeeds at once; the claim runs on the engine thread,
+        # where a long wait would stall every live sequence.
+        self.kv_claim_timeout_ms = kv_claim_timeout_ms
+        self.splice_min_hit_tokens = splice_min_hit_tokens
+        # Peer pulls also run on the engine thread: a short per-pull
+        # deadline, no channel retry, a dead-peer memo and a whole-fill
+        # budget bound the stall near one timeout.
+        self.peer_pull_timeout_ms = peer_pull_timeout_ms
+        self.peer_pull_window = peer_pull_window
+        self.peer_fill_budget_ms = peer_fill_budget_ms
+        self.adopts = 0
+        self.adopt_failures = 0
+        self.adopt_local_skips = 0  # adopts served off the local tiers
+        self.splices = 0
+        self.splice_rejects = 0
+        self.peer_fill_pages = 0    # pages landed from peers
+        self.launches: Dict[str, int] = {}
+        self._peer_mu = threading.Lock()
+        self._peer_channels: Dict[str, runtime.Channel] = {}
+        self._stream = _worker_stream(cfg,
+                                      resolve_device(kwargs.get("device")))
+        super().__init__(params, cfg, **kwargs)
+
+    def _loop(self) -> None:
+        with _worker_scope(self._stream, self.launches):
+            super()._loop()
+
+    def _peer_channel(self, addr: str) -> runtime.Channel:
+        with self._peer_mu:
+            ch = self._peer_channels.get(addr)
+            if ch is None:
+                ch = runtime.Channel(addr,
+                                     timeout_ms=self.peer_pull_timeout_ms,
+                                     max_retry=0)
+                self._peer_channels[addr] = ch
+            return ch
+
+    def _peer_fill(self, prompt, peers: List[str]) -> int:
+        """Pull this prompt's locally missing pages from ``peers`` into the
+        local host tier, a window of pulls at a time; the next match fills
+        them into the pool like any spilled page. Only the contiguous head
+        of the chain is admitted. Failure is never an error: the splice
+        just misses. Returns the pages landed."""
+        if self.prefix is None or not peers:
+            return 0
+        plan = self.prefix.plan_peer_fill(prompt, len(prompt) - 1)
+        if not plan:
+            return 0
+        page_bytes = kv_cache.host_page_bytes(self.cfg, self.page_tokens)
+        t0 = time.monotonic()
+        budget_s = self.peer_fill_budget_ms / 1000.0
+        dead: set = set()  # peers that failed at transport in this fill
+
+        def pull_one(hkey: int):
+            for addr in peers:
+                if addr in dead:
+                    continue
+                try:
+                    data = runtime.kv_pull(self._peer_channel(addr), hkey,
+                                           page_bytes)
+                except runtime.RpcError:
+                    dead.add(addr)  # one window of timeouts per dead peer
+                    continue
+                if data is not None and len(data) == page_bytes:
+                    return data, addr
+            return None, None
+
+        window = max(1, min(self.peer_pull_window, len(plan)))
+        results = []
+        with ThreadPoolExecutor(max_workers=window,
+                                thread_name_prefix="kv-peer-pull") as ex:
+            for base_i in range(0, len(plan), window):
+                if base_i and time.monotonic() - t0 > budget_s:
+                    break
+                if len(dead) >= len(peers):
+                    break  # every source is gone
+                batch = plan[base_i:base_i + window]
+                results.extend(ex.map(pull_one, [hk for _i, hk in batch]))
+        landed = 0
+        served_by: dict = {}
+        cut_page = plan[len(results)][0] if len(results) < len(plan) \
+            else None
+        for (i, hkey), (data, addr) in zip(plan, results):
+            if data is None:
+                cut_page = i
+                break
+            runtime.kv_host_put(hkey, data)
+            served_by[addr] = served_by.get(addr, 0) + 1
+            landed += 1
+        if landed:
+            self._last_peer_fill_addr = max(served_by, key=served_by.get)
+            covered = (cut_page if cut_page is not None
+                       else (len(prompt) - 1) // self.page_tokens)
+            self.prefix.admit_host(prompt, covered * self.page_tokens)
+            runtime.kv_tier_note_fill(
+                int((time.monotonic() - t0) * 1e6), peer=True)
+            self.peer_fill_pages += landed
+        return landed
+
+    def _admit(self, req_id: int, payload: bytes, remaining_us: int,
+               slot: int) -> bool:
+        kind = payload[0] if payload else 0
+        if kind == ADOPT_KIND_SPLICE:
+            return self._admit_splice(req_id, payload[1:], remaining_us,
+                                      slot)
+        if kind == ADOPT_KIND_PAGES:
+            return self._admit_adopt(req_id, payload[1:], remaining_us,
+                                     slot)
+        self.batcher.finish(req_id, runtime.EREQUEST,
+                            f"unknown adopt kind {kind}")
+        return False
+
+    def _admit_splice(self, req_id: int, payload: bytes, remaining_us: int,
+                      slot: int) -> bool:
+        try:
+            budget_us, prompt, max_new, peers = \
+                decode_splice_request(payload)
+        except ValueError as e:
+            self.batcher.finish(req_id, runtime.EREQUEST, str(e))
+            return False
+        budgets = [b for b in (budget_us, remaining_us) if b >= 0]
+        rem = min(budgets) if budgets else -1
+        min_hit = self.splice_min_hit_tokens
+        if min_hit is None:
+            # At least one full reused page, or everything reusable for a
+            # short prompt.
+            min_hit = min(max(len(prompt) - 1, 1), self.page_tokens)
+        if self.prefix is None:
+            self.splice_rejects += 1
+            self.batcher.finish(req_id, runtime.EREJECT,
+                                "prefix cache disabled")
+            return False
+        runtime.flight_route(req_id, runtime.ROUTE_SPLICE)
+        if peers:
+            # Pages the local tiers miss come from the advertising peers
+            # before the verdict; a dead peer just leaves the miss.
+            try:
+                landed = self._peer_fill(prompt, peers)
+                if landed > 0:
+                    runtime.flight_route(req_id, runtime.ROUTE_PEER_PULL)
+                    page_bytes = kv_cache.host_page_bytes(self.cfg,
+                                                          self.page_tokens)
+                    src = getattr(self, "_last_peer_fill_addr", peers[0])
+                    runtime.flight_note_once(
+                        req_id,
+                        f"kv pull w={landed * page_bytes} l={src}")
+            except Exception:  # noqa: BLE001 — pulls must never fail a req
+                pass
+        ok = self._admit_prompt(req_id, prompt, max_new, rem, slot,
+                                min_hit_tokens=min_hit, emit_first=True)
+        if ok:
+            self.splices += 1
+        return ok
+
+    def _admit_adopt(self, req_id: int, payload: bytes, remaining_us: int,
+                     slot: int) -> bool:
+        try:
+            handle, budget_us, prompt, last_token, left = (
+                decode_adopt_request(payload))
+        except ValueError as e:
+            self.batcher.finish(req_id, runtime.EREQUEST, str(e))
+            return False
+        length = len(prompt)
+        if length < 1 or length >= self.cfg.max_seq or left < 1:
+            self.batcher.finish(req_id, runtime.EREQUEST,
+                                "adopt coordinates out of range")
+            return False
+        budgets = [b for b in (budget_us, remaining_us) if b >= 0]
+        deadline = (time.monotonic() + min(budgets) / 1e6
+                    if budgets else None)
+        left = min(left, self.cfg.max_seq - 1 - length)
+        seq = {
+            "id": req_id,
+            "pos": length,
+            "last": last_token,
+            "left": left,
+            "deadline": deadline,
+            "tokens": [int(t) for t in prompt],
+        }
+        if self.prefix is not None and left >= 1:
+            # When the local tiers cover all but the recomputed last token,
+            # resume off them and drop the transfer unclaimed; greedy
+            # decode re-derives the same first token.
+            shared, use = self.prefix.match(prompt, length - 1)
+            if use >= length - 1 and kv_cache.can_resume(self.cfg, use,
+                                                         length):
+                t_resume = time.monotonic()
+                out = kv_cache.prefix_resume(
+                    self.pool, self.params, self.cfg, self.page_tokens,
+                    prompt, shared, use, index=self.prefix)
+                if out is not None:
+                    logits, blocks = out
+                    logits.argmax().item()  # synchronises: resume done
+                    self.resumes += 1
+                    self.resume_seconds += time.monotonic() - t_resume
+                    try:  # free the redundant transfer's pages now
+                        runtime.kv_recv_claim(handle, 0)
+                        runtime.kv_recv_release(handle)
+                    except runtime.RpcError:
+                        pass  # not landed yet: pressure eviction covers it
+                    self.adopts += 1
+                    self.adopt_local_skips += 1
+                    runtime.flight_route(req_id, runtime.ROUTE_HBM_HIT)
+                    # Admit before activation: the host export reads the
+                    # pages while our references are held.
+                    self.prefix.admit(prompt, blocks)
+                    self.prefix.sync_native()
+                    return self._activate_seq(slot, seq, blocks,
+                                              emit_first=False)
+                # pool exhausted mid-resume: fall through to the claim
+            elif shared:
+                self.pool.release(shared)
+        claim_ms = self.kv_claim_timeout_ms
+        if remaining_us >= 0:
+            claim_ms = min(claim_ms, max(1, remaining_us // 1000))
+        runtime.flight_route(req_id, runtime.ROUTE_DISAGG)
+        try:
+            k_pages, v_pages = kv_cache.claim_into_pages(
+                handle, length, self.page_tokens, self.cfg, claim_ms)
+        except runtime.RpcError as e:
+            self.adopt_failures += 1
+            self.batcher.finish(req_id, e.code,
+                                f"kv claim failed: {e.text}")
+            return False
+        runtime.flight_stamp(req_id, runtime.FLIGHT_KV_TRANSFER)
+        blocks = self.pool.alloc(len(k_pages))
+        if blocks is None:
+            self.adopt_failures += 1
+            self.batcher.finish(req_id, runtime.ELIMIT,
+                                "kv block pool exhausted")
+            return False
+        self.adopts += 1
+        self.pool.write_blocks(blocks, k_pages, v_pages)
+        if self.prefix is not None:
+            # Index the adopted pages (after the write, before activation:
+            # the host export needs our references still held).
+            self.prefix.admit(prompt, blocks)
+            self.prefix.sync_native()
+        # emit_first=False: the router already delivered the prefill token.
+        return self._activate_seq(slot, seq, blocks, emit_first=False)
+
+    def stats(self) -> dict:
+        s = super().stats()
+        s.update(adopts=self.adopts, adopt_failures=self.adopt_failures,
+                 adopt_local_skips=self.adopt_local_skips,
+                 splices=self.splices, splice_rejects=self.splice_rejects,
+                 peer_fill_pages=self.peer_fill_pages)
+        return s
+
+    def close(self) -> None:
+        super().close()
+        if self._stream is not None:
+            self._stream.synchronize()
+        with self._peer_mu:
+            for ch in self._peer_channels.values():
+                ch.close()
+            self._peer_channels.clear()
+
+
+# ---- worker pool (per role) ---------------------------------------------------
+
+class _WorkerPool:
+    """The worker set of one role, with the signals the pick weighs:
+    router-local inflight per worker, recent p99 TTFT measured at the
+    router, and a short-TTL failure score (half-life 2 s, gone after 10 s)
+    under which a worker failing repeatedly drains: it takes no fresh
+    traffic while alternatives exist.
+
+    pick() minimises
+      (1 + inflight + reported_qd) / capacity
+        x (1 + p99_ttft_s) x (1 + fail_score) [x AFFINITY_WEIGHT]
+    where a worker whose prefix digest holds the request's affinity key is
+    scaled by AFFINITY_WEIGHT. Membership is the static list given at
+    construction (registry-fed membership is not ported yet)."""
+
+    FAIL_HALF_LIFE_S = 2.0
+    FAIL_TTL_S = 10.0
+    DRAIN_SCORE = 2.0
+    AFFINITY_WEIGHT = 0.3
+
+    def __init__(self, addrs: Sequence[str] = ()):
+        self._mu = threading.Lock()
+        self._members: Dict[str, cluster.Member] = {
+            a: cluster.Member(addr=a) for a in addrs}
+        self._inflight: Dict[str, int] = {}
+        self._fail: Dict[str, tuple] = {}   # addr -> (score, stamp)
+        self._ttft: Dict[str, deque] = {}   # addr -> recent seconds samples
+        self.drained_picks = 0  # picks that skipped a draining worker
+        self.warming_skips = 0  # picks that skipped a not-yet-ready worker
+        self.affinity_picks = 0  # picks the prefix-locality term decided
+
+    def addrs(self) -> List[str]:
+        with self._mu:
+            return list(self._members)
+
+    def note_done(self, addr: str) -> None:
+        with self._mu:
+            if addr in self._inflight:
+                self._inflight[addr] = max(self._inflight[addr] - 1, 0)
+
+    def note_failure(self, addr: str) -> None:
+        now = time.monotonic()
+        with self._mu:
+            if addr not in self._members:
+                return
+            self._fail[addr] = (self._fail_score_locked(addr, now) + 1.0,
+                                now)
+
+    def note_ttft(self, addr: str, seconds: float) -> None:
+        with self._mu:
+            if addr not in self._members:
+                return
+            dq = self._ttft.get(addr)
+            if dq is None:
+                dq = self._ttft[addr] = deque(maxlen=32)
+            dq.append(seconds)
+
+    def _fail_score_locked(self, addr: str, now: float) -> float:
+        entry = self._fail.get(addr)
+        if entry is None:
+            return 0.0
+        score, stamp = entry
+        age = now - stamp
+        if age >= self.FAIL_TTL_S:
+            del self._fail[addr]
+            return 0.0
+        return score * 0.5 ** (age / self.FAIL_HALF_LIFE_S)
+
+    def _p99_ttft_s_locked(self, addr: str, member) -> float:
+        dq = self._ttft.get(addr)
+        if dq:
+            return sorted(dq)[max(int(len(dq) * 0.99) - 1, 0)]
+        return member.p99_ttft_us / 1e6
+
+    def load_snapshot(self) -> dict:
+        """(inflight + reported queue depth, capacity) totals: the
+        pressure gate's overload signal. A draining worker's capacity does
+        not count; its load does."""
+        with self._mu:
+            load = sum(self._inflight.get(a, 0) + m.queue_depth
+                       for a, m in self._members.items())
+            cap = sum(max(m.capacity, 1) for m in self._members.values()
+                      if not m.draining)
+            return {"load": load, "capacity": cap}
+
+    def holds_prefix(self, addr: str, key: Optional[str]) -> bool:
+        """Does ``addr``'s prefix digest claim the prefix ``key``?"""
+        if not key:
+            return False
+        with self._mu:
+            m = self._members.get(addr)
+            return m is not None and m.holds_prefix(key)
+
+    def page_holders(self, key: Optional[str],
+                     model: str = "") -> List[str]:
+        """Workers whose page digest advertises page ``key`` (same model
+        only, with ``model`` set): candidate peer-pull sources."""
+        if not key:
+            return []
+        with self._mu:
+            return [a for a, m in self._members.items()
+                    if m.holds_page(key)
+                    and (not model or m.model == model)]
+
+    def pick(self, exclude=(),
+             affinity_key: Optional[str] = None,
+             model: str = "") -> Optional[str]:
+        now = time.monotonic()
+        picked_by_affinity = False
+        with self._mu:
+            best, best_score, draining = None, None, []
+            warming = []
+            best_plain = None  # who would have won without affinity
+            excluded = []
+            for addr, m in self._members.items():
+                if model and m.model != model:
+                    continue  # wrong weights are never a fallback
+                fail = self._fail_score_locked(addr, now)
+                score = ((1.0 + self._inflight.get(addr, 0) + m.queue_depth)
+                         / max(m.capacity, 1)
+                         * (1.0 + self._p99_ttft_s_locked(addr, m))
+                         * (1.0 + fail))
+                plain = score
+                if affinity_key is not None and m.holds_prefix(affinity_key):
+                    score *= self.AFFINITY_WEIGHT
+                if addr in exclude:
+                    excluded.append((score, addr))
+                    continue
+                if not m.ready:
+                    warming.append((score, addr))
+                    continue
+                if m.draining or fail >= self.DRAIN_SCORE:
+                    draining.append((score, addr))
+                    continue
+                if best_score is None or score < best_score:
+                    best, best_score = addr, score
+                    picked_by_affinity = score < plain
+                if best_plain is None or plain < best_plain[0]:
+                    best_plain = (plain, addr)
+            if picked_by_affinity and best_plain is not None \
+                    and best_plain[1] != best:
+                self.affinity_picks += 1
+            if best is None and warming:
+                best = min(warming)[1]
+            elif warming:
+                self.warming_skips += 1
+            if best is None and draining:
+                # The least-bad draining worker beats failing the request.
+                best = min(draining)[1]
+            elif draining:
+                self.drained_picks += 1
+            if best is None and excluded:
+                # Every member already failed this request: retry the
+                # least-bad one, so a one-worker role stays retriable.
+                best = min(excluded)[1]
+            if best is not None:
+                self._inflight[best] = self._inflight.get(best, 0) + 1
+            return best
+
+
+# ---- router -------------------------------------------------------------------
+
+class _TierStats:
+    """Per-SLO-tier attribution at the router (the one place that sees
+    every tier's admission verdict): completions, sheds, errors, delivered
+    tokens, and a TTFT reservoir per tier."""
+
+    WINDOW = 512
+
+    def __init__(self):
+        self._mu = threading.Lock()
+        self._ttft = {t: deque(maxlen=self.WINDOW) for t in serving.TIERS}
+        self.ok = {t: 0 for t in serving.TIERS}
+        self.shed = {t: 0 for t in serving.TIERS}
+        self.errors = {t: 0 for t in serving.TIERS}
+        self.good_tokens = {t: 0 for t in serving.TIERS}
+
+    def note_ok(self, tier: str, ttft_s: Optional[float],
+                tokens: int) -> None:
+        with self._mu:
+            self.ok[tier] += 1
+            self.good_tokens[tier] += tokens
+            if ttft_s is not None:
+                self._ttft[tier].append(ttft_s)
+
+    def note_shed(self, tier: str) -> None:
+        with self._mu:
+            self.shed[tier] += 1
+
+    def note_error(self, tier: str) -> None:
+        with self._mu:
+            self.errors[tier] += 1
+
+    def snapshot(self) -> dict:
+        with self._mu:
+            return {t: {"ok": self.ok[t], "shed": self.shed[t],
+                        "errors": self.errors[t],
+                        "good_tokens": self.good_tokens[t]}
+                    for t in serving.TIERS}
+
+
+class DisaggRouter:
+    """The front door: owns the Serve.generate batcher (the colocated
+    engine's admission: lanes, deadline cull, ELIMIT), picks a prefill and
+    a decode worker from the static ``prefill_addrs``/``decode_addrs``, and
+    relays the decode worker's token stream to the client 1:1, so
+    ``ServingClient.generate`` works unchanged against it.
+
+    Admission charges per-tenant token budgets (``tenants.set_budget``)
+    and a pressure gate over decode load that sheds the batch lane first
+    with a retriable ELIMIT and a retry_after_ms hint; the gate arms only
+    with explicit thresholds (static members report no real capacity).
+
+    A failed prefill, transfer or adopt before any relayed token
+    re-prefills on another worker with a fresh handle; a decode worker
+    dying mid generation is re-dispatched with the delivered tokens
+    suppressed, so the client's stream stays byte-exact with no
+    duplicates. ``registry=`` (lease-registry membership) is not ported
+    yet and raises ValueError."""
+
+    def __init__(self, prefill_addrs: Optional[Sequence[str]] = None,
+                 decode_addrs: Optional[Sequence[str]] = None, *,
+                 registry: Optional[str] = None,
+                 max_batch_size: int = 16, max_queue_delay_us: int = 1000,
+                 max_queue_len: int = 1024, limiter: str = "",
+                 retries: int = 2, worker_timeout_ms: int = 60_000,
+                 max_concurrency: int = 64,
+                 tenant_rate: float = 0.0,
+                 shed_batch_pressure: Optional[float] = None,
+                 shed_standard_pressure: Optional[float] = None,
+                 shed_interactive_pressure: Optional[float] = None,
+                 page_tokens: int = 16,
+                 prefix_affinity: bool = True,
+                 prefix_splice: bool = True,
+                 port: int = 0, autostart: bool = True):
+        if registry is not None:
+            raise ValueError("registry mode is not ported yet: pass static "
+                             "prefill_addrs and decode_addrs")
+        if not prefill_addrs or not decode_addrs:
+            raise ValueError("need at least one prefill and one decode node")
+        self.retries = retries
+        self.worker_timeout_ms = worker_timeout_ms
+        # page_tokens must match the workers': the affinity key names the
+        # prompt's first page.
+        self.page_tokens = page_tokens
+        self.prefix_affinity = prefix_affinity
+        self.prefix_splice = prefix_splice
+        self.re_prefills = 0        # attempts after a failed first attempt
+        self.relayed_tokens = 0
+        self.shed_overload = 0      # pressure-gate ELIMIT rejections
+        self.shed_tenant = 0        # tenant-budget ELIMIT rejections
+        self.resumed_streams = 0    # mid-generation re-dispatches
+        self.spliced_streams = 0    # served off a decode worker's cache
+        self.splice_rejects = 0     # splice tried, the worker said miss
+        self.drain_bounces = 0      # attempts bounced off a draining worker
+
+        self.prefills = _WorkerPool(prefill_addrs)
+        self.decodes = _WorkerPool(decode_addrs)
+        self.tenants = cluster.TenantGovernor(default_rate=tenant_rate)
+        # Static members default to capacity 1, which would understate an
+        # 8-slot worker and shed real traffic: the gate arms only when a
+        # threshold is given.
+        if shed_batch_pressure is None and shed_standard_pressure is None \
+                and shed_interactive_pressure is None:
+            self.shed_batch_pressure = float("inf")
+            self.shed_standard_pressure = float("inf")
+            self.shed_interactive_pressure = float("inf")
+        else:
+            self.shed_batch_pressure = (
+                1.5 if shed_batch_pressure is None else shed_batch_pressure)
+            self.shed_standard_pressure = (
+                2.5 if shed_standard_pressure is None
+                else shed_standard_pressure)
+            self.shed_interactive_pressure = (
+                4.0 if shed_interactive_pressure is None
+                else shed_interactive_pressure)
+
+        self._mu = threading.Lock()
+        self._channels = {}
+        self.tier_stats = _TierStats()
+        self.server = runtime.Server()
+        self.batcher = runtime.NativeBatcher(
+            max_batch_size=max_batch_size,
+            max_queue_delay_us=max_queue_delay_us,
+            max_queue_len=max_queue_len, limiter=limiter)
+        self.batcher.add_method(self.server, serving.SERVICE,
+                                serving.METHOD_INTERACTIVE,
+                                runtime.LANE_INTERACTIVE)
+        self.batcher.add_method(self.server, serving.SERVICE,
+                                serving.METHOD_BATCH, runtime.LANE_BATCH)
+        self.port = self.server.start(port)
+        self._pool = ThreadPoolExecutor(max_workers=max_concurrency,
+                                        thread_name_prefix="disagg-router")
+        self._running = False
+        self._thread = None
+        if autostart:
+            self.start()
+
+    # ---- plumbing ----------------------------------------------------------
+
+    @property
+    def prefill_addrs(self) -> List[str]:
+        return self.prefills.addrs()
+
+    @property
+    def decode_addrs(self) -> List[str]:
+        return self.decodes.addrs()
+
+    def _channel(self, addr: str) -> runtime.Channel:
+        with self._mu:
+            ch = self._channels.get(addr)
+            if ch is None:
+                ch = runtime.Channel(
+                    addr, timeout_ms=self.worker_timeout_ms,
+                    retry_policy=runtime.RetryPolicy(
+                        max_retry=2, backoff_base_ms=20, backoff_max_ms=500))
+                self._channels[addr] = ch
+            return ch
+
+    def _kv_abort(self, decode_addr: str, handle: int) -> None:
+        """Best-effort: free a committed transfer nobody will adopt."""
+        try:
+            runtime.kv_abort(self._channel(decode_addr), handle)
+        except Exception:  # noqa: BLE001 — cleanup must never fail a request
+            pass
+
+    # ---- serving loop ------------------------------------------------------
+
+    def start(self) -> None:
+        if self._thread is not None:
+            return
+        self._running = True
+        self._thread = threading.Thread(target=self._loop, daemon=True,
+                                        name="disagg-router-loop")
+        self._thread.start()
+
+    def _loop(self) -> None:
+        while self._running:
+            batch = self.batcher.next_batch(wait_us=100_000)
+            if batch is None:
+                self._running = False
+                return
+            for item in batch:
+                self._pool.submit(self._serve_guarded, *item)
+
+    def _serve_guarded(self, req_id, payload, prio, remaining_us):
+        try:
+            self._serve(req_id, payload, prio, remaining_us)
+        except Exception as e:  # noqa: BLE001 — one request, loud terminal
+            self.batcher.finish(req_id, runtime.EAPP,
+                                f"router error: {e}")
+
+    @staticmethod
+    def _retriable(code: int) -> bool:
+        # Transport failures, shed load and cancelled workers re-route;
+        # EREQUEST-class verdicts are final.
+        return (code in runtime.RETRIABLE_ERRNOS
+                or code in (runtime.ELIMIT, runtime.ECANCELED))
+
+    def _prefill_once(self, addr: str, method: str, req) -> int:
+        """One prefill attempt; returns the first token. Raises RpcError on
+        any failure (the retriable ones re-route)."""
+        rs = self._channel(addr).open_stream_rx(
+            PREFILL_SERVICE, method, req)
+        try:
+            budget_s = self.worker_timeout_ms / 1000.0 + 5.0
+            while True:
+                try:
+                    msg = rs.read(timeout=budget_s)
+                except TimeoutError:
+                    raise runtime.RpcError(
+                        runtime.ENORESPONSE,
+                        "prefill stream silent past its budget") from None
+                if msg is None:
+                    raise runtime.RpcError(
+                        runtime.ECLOSE, "prefill worker died mid-request")
+                if not msg:
+                    continue
+                if msg[:1] == b"d":
+                    return struct.unpack("<I", msg[1:5])[0]
+                if msg[:1] == b"f":
+                    status = struct.unpack("<I", msg[1:5])[0]
+                    if status == 0:
+                        # A clean terminal without the token frame: the 'd'
+                        # frame was lost; retriable.
+                        raise runtime.RpcError(
+                            runtime.ENORESPONSE,
+                            "prefill terminal arrived without a token")
+                    raise runtime.RpcError(
+                        status,
+                        msg[5:].decode(errors="replace") or "prefill failed")
+        finally:
+            rs.close()
+
+    def _shed_check(self, prio: int, tenant: str, cost: float,
+                    tier: str = ""):
+        """Admission-time degradation, before any dispatch. None admits;
+        (errno, text) sheds. The pressure gate runs first, in strict tier
+        order (batch, then standard, then interactive; untagged requests
+        take their lane's edge tier), so a pressure-shed request debits no
+        tenant budget. Both sheds are retriable ELIMIT with a
+        retry_after_ms hint."""
+        snap = self.decodes.load_snapshot()
+        if snap["capacity"] > 0:
+            pressure = snap["load"] / snap["capacity"]
+            if tier == "standard":
+                threshold = self.shed_standard_pressure
+            elif tier == "interactive":
+                threshold = self.shed_interactive_pressure
+            elif tier == "batch":
+                threshold = self.shed_batch_pressure
+            else:
+                threshold = (self.shed_batch_pressure
+                             if prio != runtime.LANE_INTERACTIVE
+                             else self.shed_interactive_pressure)
+            if pressure > threshold:
+                self.shed_overload += 1
+                retry_ms = max(50, min(int(200 * (pressure - threshold + 1)),
+                                       5000))
+                return (runtime.ELIMIT,
+                        f"cluster overloaded (pressure {pressure:.1f}x); "
+                        f"retry_after_ms={retry_ms}")
+        ok, retry_ms = self.tenants.charge(tenant, cost)
+        if not ok:
+            self.shed_tenant += 1
+            return (runtime.ELIMIT,
+                    f"tenant budget exhausted; retry_after_ms={retry_ms}")
+        return None
+
+    def _serve(self, req_id: int, payload: bytes, prio: int,
+               remaining_us: int) -> None:
+        try:
+            prompt, max_new, tenant, tier, model = \
+                serving.decode_request_meta(payload)
+        except ValueError as e:
+            self.batcher.finish(req_id, runtime.EREQUEST, str(e))
+            return
+        if len(prompt) == 0 or max_new < 1:
+            self.batcher.finish(req_id, runtime.EREQUEST,
+                                "empty prompt or max_new_tokens < 1")
+            return
+        if tier not in serving.TIERS:
+            tier = ""  # unknown tier tag: untagged
+        # Untagged requests take their lane's edge tier for attribution.
+        eff_tier = tier or ("batch" if prio == runtime.LANE_BATCH
+                            else "interactive")
+        runtime.flight_tier(req_id, serving.tier_code(eff_tier))
+        shed = self._shed_check(prio, tenant, len(prompt) + max_new,
+                                tier=tier)
+        if shed is not None:
+            self.tier_stats.note_shed(eff_tier)
+            self.batcher.finish(req_id, shed[0], shed[1])
+            return
+        t_admit = time.monotonic()
+        deadline = (time.monotonic() + remaining_us / 1e6
+                    if remaining_us >= 0 else None)
+
+        def budget_us() -> int:
+            if deadline is None:
+                return -1
+            return int((deadline - time.monotonic()) * 1e6)
+
+        last_err: Optional[runtime.RpcError] = None
+        failed_prefills: set = set()
+        failed_decodes: set = set()
+        # Across attempts: the delivered prefill token (or None) and the
+        # decode tokens already relayed, which a resumed attempt
+        # suppresses before relaying the tail.
+        state = {"first_tok": None, "decode_relayed": 0}
+        # Cache affinity: the prompt's first full page names its prefix
+        # family; shorter prompts have nothing shareable.
+        affinity_key = (kv_cache.prefix_hash(prompt[:self.page_tokens])
+                        if self.prefix_affinity
+                        and len(prompt) > self.page_tokens else None)
+        # Peer tier: the first page's content key, as page digests
+        # advertise it.
+        page_hex = None
+        if self.prefix_splice and len(prompt) > self.page_tokens:
+            page_hex = "{:016x}".format(
+                kv_cache.page_key(prompt[:self.page_tokens],
+                                  self.page_tokens))
+        for attempt in range(self.retries + 1):
+            if deadline is not None and budget_us() <= 0:
+                self.tier_stats.note_error(eff_tier)
+                self.batcher.finish(req_id, runtime.ERPCTIMEDOUT,
+                                    "budget exhausted while routing")
+                return
+            if attempt > 0:
+                self.re_prefills += 1
+            handle = _mint_handle()
+            prefill_addr = self.prefills.pick(failed_prefills, model=model)
+            decode_addr = self.decodes.pick(failed_decodes,
+                                            affinity_key=affinity_key,
+                                            model=model)
+            if attempt > 0:
+                # The re-dispatch phase, with the failed worker and its
+                # replacement in the note.
+                runtime.flight_stamp(req_id, runtime.FLIGHT_REDISPATCH)
+                runtime.flight_route(req_id, runtime.ROUTE_REDISPATCH)
+                role = getattr(last_err, "failed_role", "prefill") \
+                    if last_err is not None else "prefill"
+                prev_p, prev_d = state.get("last_pick", (None, None))
+                prev = prev_d if role == "decode" else prev_p
+                new = decode_addr if role == "decode" else prefill_addr
+                if prev is not None and new is not None:
+                    runtime.flight_note(
+                        req_id, f"redispatch {role} {prev}->{new}")
+            state["last_pick"] = (prefill_addr, decode_addr)
+            if prefill_addr is None or decode_addr is None:
+                if prefill_addr is not None:
+                    self.prefills.note_done(prefill_addr)
+                if decode_addr is not None:
+                    self.decodes.note_done(decode_addr)
+                self.tier_stats.note_error(eff_tier)
+                self.batcher.finish(
+                    req_id, runtime.EHOSTDOWN,
+                    f"no live prefill/decode workers for model "
+                    f"'{model}'" if model
+                    else "no live prefill/decode workers")
+                return
+            # Splice when the picked worker's digest claims the prefix, or
+            # siblings advertise its pages for a peer pull.
+            splice_peers = [a for a in self.decodes.page_holders(
+                                page_hex, model=model)
+                            if a != decode_addr][:3]
+            try_splice = (self.prefix_splice
+                          and (self.decodes.holds_prefix(decode_addr,
+                                                         affinity_key)
+                               or bool(splice_peers)))
+            try:
+                self._attempt(req_id, handle, prompt, max_new, prio,
+                              prefill_addr, decode_addr, budget_us, state,
+                              try_splice=try_splice,
+                              splice_peers=splice_peers)
+                delivered = ((0 if state["first_tok"] is None else 1)
+                             + state["decode_relayed"])
+                t_first = state.get("t_first")
+                self.tier_stats.note_ok(
+                    eff_tier,
+                    (t_first - t_admit) if t_first is not None else None,
+                    delivered)
+                return
+            except runtime.RpcError as e:
+                last_err = e
+                if e.code == runtime.ELIMIT and "draining" in e.text:
+                    runtime.flight_route(req_id, runtime.ROUTE_DRAIN)
+                    self.drain_bounces += 1
+                # Blame the phase that failed, and keep the blame across
+                # requests (the short-TTL failure score).
+                if getattr(e, "failed_role", "prefill") == "decode":
+                    failed_decodes.add(decode_addr)
+                    self.decodes.note_failure(decode_addr)
+                else:
+                    failed_prefills.add(prefill_addr)
+                    self.prefills.note_failure(prefill_addr)
+                if not self._retriable(e.code):
+                    self.tier_stats.note_error(eff_tier)
+                    self.batcher.finish(req_id, e.code, e.text)
+                    return
+            finally:
+                self.prefills.note_done(prefill_addr)
+                self.decodes.note_done(decode_addr)
+        err = last_err or runtime.RpcError(runtime.EINTERNAL, "no attempt ran")
+        self.tier_stats.note_error(eff_tier)
+        self.batcher.finish(req_id, err.code, err.text)
+
+    def _splice_once(self, req_id, prompt, max_new, decode_addr,
+                     budget_us, state, peers=()):
+        """Serve the request off ``decode_addr``'s prefix cache (no prefill
+        RPC, no transfer). True/False as ``_attempt``'s contract, or None
+        on the worker's EREJECT (a cache miss: the standard path serves
+        the same attempt). Transport errors raise with failed_role
+        decode."""
+        req = encode_splice_request(budget_us(), prompt, max_new, peers)
+        t0 = time.monotonic()
+        try:
+            rs = self._channel(decode_addr).open_stream_rx(
+                DECODE_SERVICE, DECODE_METHOD, req)
+        except runtime.RpcError as e:
+            e.failed_role = "decode"
+            raise
+        # Tokens an earlier attempt delivered are re-derived: swallow them.
+        suppress = ((0 if state["first_tok"] is None else 1)
+                    + state["decode_relayed"])
+        if suppress > 0:
+            self.resumed_streams += 1
+        first_noted = False
+        try:
+            budget_s = self.worker_timeout_ms / 1000.0 + 5.0
+            while True:
+                try:
+                    msg = rs.read(timeout=budget_s)
+                except TimeoutError:
+                    raise runtime.RpcError(
+                        runtime.ENORESPONSE,
+                        "splice stream silent past its budget") from None
+                if msg is None:
+                    raise runtime.RpcError(
+                        runtime.ECLOSE, "decode worker died mid-splice")
+                if not msg:
+                    continue
+                kind = msg[:1]
+                if kind == b"d":
+                    if not first_noted:
+                        self.decodes.note_ttft(decode_addr,
+                                               time.monotonic() - t0)
+                        first_noted = True
+                        runtime.flight_route(req_id, runtime.ROUTE_SPLICE)
+                    if suppress > 0:
+                        suppress -= 1
+                        continue
+                    rc = self.batcher.emit(req_id, msg[1:])
+                    if rc != 0:
+                        return False  # client gone
+                    tok = struct.unpack("<I", msg[1:5])[0]
+                    if state["first_tok"] is None:
+                        state["first_tok"] = tok
+                        state.setdefault("t_first", time.monotonic())
+                    else:
+                        state["decode_relayed"] += 1
+                    self.relayed_tokens += 1
+                elif kind == b"f":
+                    status = struct.unpack("<I", msg[1:5])[0]
+                    text = msg[5:].decode(errors="replace")
+                    if status == runtime.EREJECT:
+                        self.splice_rejects += 1
+                        runtime.flight_route(req_id,
+                                             runtime.ROUTE_DEGRADED)
+                        return None  # cache miss: standard path, same try
+                    delivered = (state["first_tok"] is not None
+                                 or state["decode_relayed"] > 0)
+                    if status != 0 and self._retriable(status) and not (
+                            delivered and status == runtime.ERPCTIMEDOUT):
+                        raise runtime.RpcError(status, text)
+                    self.batcher.finish(req_id, status, text)
+                    if status == 0:
+                        self.spliced_streams += 1
+                    return True
+        except runtime.RpcError as e:
+            e.failed_role = "decode"
+            raise
+        finally:
+            rs.close()
+
+    def _attempt(self, req_id, handle, prompt, max_new, prio, prefill_addr,
+                 decode_addr, budget_us, state, try_splice=False,
+                 splice_peers=()) -> bool:
+        """One prefill + adopt + relay attempt. True = the request finished
+        (terminal sent); False = the client went away. Raises RpcError
+        when the attempt failed and a re-dispatch is safe: ``state`` holds
+        the tokens already delivered, and a resumed attempt suppresses
+        exactly that many. With ``try_splice`` the decode worker's cache
+        is offered the request first; a miss falls through."""
+        if try_splice:
+            done = self._splice_once(req_id, prompt, max_new, decode_addr,
+                                     budget_us, state, peers=splice_peers)
+            if done is not None:
+                return done
+        req = encode_prefill_request(handle, budget_us(), prompt, max_new,
+                                     decode_addr)
+        method = (PREFILL_METHOD if prio == runtime.LANE_INTERACTIVE
+                  else PREFILL_METHOD_BATCH)
+        runtime.flight_stamp(req_id, runtime.FLIGHT_PREFILL_START)
+        runtime.flight_route(req_id, runtime.ROUTE_DISAGG)
+        t0 = time.monotonic()
+        try:
+            first_tok = self._prefill_once(prefill_addr, method, req)
+        except runtime.RpcError as e:
+            # A prefill that failed sending its pages is the destination's
+            # failure (the worker marks it "kv transfer failed:"): blame
+            # decode, so the retry avoids the dead destination.
+            e.failed_role = ("decode" if e.text.startswith("kv transfer "
+                                                           "failed")
+                             else "prefill")
+            raise
+        self.prefills.note_ttft(prefill_addr, time.monotonic() - t0)
+        # The prefill worker commits the transfer before answering.
+        runtime.flight_stamp(req_id, runtime.FLIGHT_PREFILL_DONE)
+        runtime.flight_stamp(req_id, runtime.FLIGHT_KV_TRANSFER)
+
+        if state["first_tok"] is None:
+            rc = self.batcher.emit(req_id, struct.pack("<I", first_tok))
+            if rc != 0:
+                self._kv_abort(decode_addr, handle)  # client gone
+                return False
+            state["first_tok"] = first_tok
+            state.setdefault("t_first", time.monotonic())
+            self.relayed_tokens += 1
+        left = max_new - 1
+        if left <= 0:
+            self.batcher.finish(req_id, 0, "")
+            self._kv_abort(decode_addr, handle)  # nothing will adopt it
+            return True
+
+        adopt = encode_adopt_request(handle, budget_us(), prompt,
+                                     first_tok, left)
+        try:
+            rs = self._channel(decode_addr).open_stream_rx(
+                DECODE_SERVICE, DECODE_METHOD, adopt)
+        except runtime.RpcError as e:
+            e.failed_role = "decode"
+            self._kv_abort(decode_addr, handle)
+            raise
+        # Tokens a previous attempt relayed are re-derived: swallow them.
+        suppress = state["decode_relayed"]
+        if suppress > 0:
+            self.resumed_streams += 1
+        relayed_any = suppress > 0
+        try:
+            budget_s = self.worker_timeout_ms / 1000.0 + 5.0
+            while True:
+                try:
+                    msg = rs.read(timeout=budget_s)
+                except TimeoutError:
+                    raise runtime.RpcError(
+                        runtime.ENORESPONSE,
+                        "decode stream silent past its budget") from None
+                if msg is None:
+                    raise runtime.RpcError(
+                        runtime.ECLOSE, "decode worker died mid-stream")
+                if not msg:
+                    continue
+                kind = msg[:1]
+                if kind == b"d":
+                    if suppress > 0:
+                        suppress -= 1
+                        continue
+                    rc = self.batcher.emit(req_id, msg[1:])
+                    if rc != 0:
+                        return False  # client gone; decode reclaims
+                    relayed_any = True
+                    state["decode_relayed"] += 1
+                    self.relayed_tokens += 1
+                elif kind == b"f":
+                    status = struct.unpack("<I", msg[1:5])[0]
+                    text = msg[5:].decode(errors="replace")
+                    # A retriable terminal re-dispatches, except a deadline
+                    # cut mid generation: the budget is the request's.
+                    if status != 0 and self._retriable(status) and not (
+                            relayed_any
+                            and status == runtime.ERPCTIMEDOUT):
+                        raise runtime.RpcError(status, text)
+                    self.batcher.finish(req_id, status, text)
+                    return True
+        except runtime.RpcError as e:
+            e.failed_role = "decode"
+            self._kv_abort(decode_addr, handle)  # best-effort cleanup
+            raise
+        finally:
+            rs.close()
+
+    # ---- telemetry / teardown ---------------------------------------------
+
+    def stats(self) -> dict:
+        s = self.batcher.stats()
+        s.update(re_prefills=self.re_prefills,
+                 relayed_tokens=self.relayed_tokens,
+                 shed_overload=self.shed_overload,
+                 shed_tenant=self.shed_tenant,
+                 resumed_streams=self.resumed_streams,
+                 spliced_streams=self.spliced_streams,
+                 splice_rejects=self.splice_rejects,
+                 drain_bounces=self.drain_bounces,
+                 warming_skips=(self.prefills.warming_skips
+                                + self.decodes.warming_skips),
+                 affinity_picks=self.decodes.affinity_picks,
+                 prefill_workers=len(self.prefills.addrs()),
+                 decode_workers=len(self.decodes.addrs()),
+                 tiers=self.tier_stats.snapshot())
+        return s
+
+    def close(self) -> None:
+        self._running = False
+        if self._thread is not None:
+            self._thread.join(timeout=10)
+            self._thread = None
+        self.server.stop()
+        self.batcher.stop()
+        self._pool.shutdown(wait=True, cancel_futures=True)
+        self.batcher.close()
+        self.server.close()
+        with self._mu:
+            for ch in self._channels.values():
+                ch.close()
+            self._channels.clear()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()

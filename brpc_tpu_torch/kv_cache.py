@@ -22,6 +22,8 @@ fill back on the next match; host page bytes are the reference's.
 Wire codec: transfer layer ``2l`` carries K of layer l and ``2l + 1`` its
 V; each is the first ``npages`` pages, ``[npages * page, KV, Dh]`` in the
 model dtype, byte-compatible with the reference's codec.
+``claim_into_pages`` turns a transfer the native receive pool holds into
+block-major pages for ``write_blocks``.
 """
 
 from __future__ import annotations
@@ -418,6 +420,19 @@ class PrefixIndex:
             self.evictions += 1
         node.children.clear()
         node.partials.clear()
+
+    def serves_other(self, blk: int, keep: int, rows) -> bool:
+        """Whether an entry on ``blk`` serves one of the page's rows from
+        ``keep`` on with another token than ``rows`` (the tokens a resume
+        is about to write there, in place, from row ``keep`` on): writing
+        them would change what that entry serves."""
+        rows = np.asarray(rows, np.int32)
+        with self._mu:
+            for _parent, key, _kind in self._by_block.get(blk, ()):
+                toks = np.frombuffer(key, np.int32)[keep:keep + len(rows)]
+                if not np.array_equal(toks, rows[:len(toks)]):
+                    return True
+        return False
 
     def _drop_child_locked(self, parent: _PrefixNode, key: bytes) -> None:
         child = parent.children.pop(key, None)
@@ -1023,11 +1038,15 @@ def prefix_resume(pool: PagedKvPool, params, cfg, page_tokens: int,
     ``shared`` (blocks retained by ``PrefixIndex.match``): compute the
     suffix from position ``use`` through the block table, writing its rows
     in place. A mid-page tail that another holder still references
-    (refcount > 1 after our retain) is copied first into a fresh block
-    (copy-on-write) and the table points at the copy before any suffix row
-    lands, so the other holder's page stays byte-unchanged; as the sole
-    holder we write into the tail in place (the index's partial-tail claim
-    covers only positions the resume does not change).
+    (refcount > 1 after our retain), or on which ``index`` keeps an entry
+    that serves one of the rows the resume writes with another token, is
+    copied first into a fresh block (copy-on-write) and the table points
+    at the copy before any suffix row lands, so the other holder's page
+    stays byte-unchanged. Otherwise we write into the tail in place. (The
+    reference writes in place whenever the refcount is 1, which corrupts
+    a page that an earlier resume admitted onto the same block once no
+    sequence holds it: the prompt p, then p + x and p + y with p's
+    sequence gone, then p + x again.)
 
     Returns (first_token_logits, blocks): the sequence's full block list,
     one caller-owned reference per block. On pool exhaustion releases
@@ -1038,7 +1057,11 @@ def prefix_resume(pool: PagedKvPool, params, cfg, page_tokens: int,
     n_keep = pages_for(use, page)
     total = pages_for(P, page)
     tail_in_shared = use % page != 0
-    cow = tail_in_shared and pool.refcount(shared[-1]) > 1
+    keep = use % page
+    cow = tail_in_shared and (
+        pool.refcount(shared[-1]) > 1
+        or (index is not None and index.serves_other(
+            shared[-1], keep, prompt[use:use - keep + page])))
     n_fresh = total - n_keep
     alloc_n = n_fresh + (1 if cow else 0)
     fresh = pool.alloc(alloc_n) if alloc_n else []
@@ -1114,3 +1137,30 @@ def decode_layer(buf, npages: int, page_tokens: int, cfg) -> torch.Tensor:
             f"elems, want {want}")
     flat = torch.frombuffer(bytearray(raw), dtype=cfg.dtype)
     return flat.reshape(npages, page_tokens, cfg.n_kv_heads, cfg.d_head)
+
+
+def claim_into_pages(handle: int, length: int, page_tokens: int, cfg,
+                     timeout_ms: int):
+    """Claim a committed transfer out of the native receive pool and decode
+    it into block-major pages, (k_pages, v_pages) each [npages, L, page,
+    KV, Dh] in the model dtype on the CPU (the caller's ``write_blocks``
+    moves them to its device). A layer count other than the model's is
+    EREQUEST. The claim is always released: the bytes are copied out."""
+    npages = pages_for(length, page_tokens)
+    n_layers = runtime.kv_recv_claim(handle, timeout_ms)
+    try:
+        if n_layers != 2 * cfg.n_layers:
+            raise runtime.RpcError(
+                runtime.EREQUEST,
+                f"kv transfer has {n_layers} wire layers, model wants "
+                f"{2 * cfg.n_layers}")
+        ks, vs = [], []
+        for layer in range(cfg.n_layers):
+            ks.append(decode_layer(runtime.kv_recv_layer(handle, 2 * layer),
+                                   npages, page_tokens, cfg))
+            vs.append(decode_layer(
+                runtime.kv_recv_layer(handle, 2 * layer + 1), npages,
+                page_tokens, cfg))
+        return torch.stack(ks, dim=1), torch.stack(vs, dim=1)
+    finally:
+        runtime.kv_recv_release(handle)

@@ -12,6 +12,8 @@ stay f32, as the reference's f32 norm math reads them.
 - ``prefill``: one right-padded sequence; returns the last real position's
   logits and the KV of every layer, ``[L, P, KV, Dh]`` (the reference pads
   its cache to max_seq; the pages cut from either are the same).
+- ``prefill_stream``: the same prefill, handing each layer's K/V to a
+  callback as soon as they exist (the prefill worker streams them out).
 - ``prefill_resume``: the suffix of a prompt whose prefix is cached in the
   paged pool, written in place and read through the sequence's block table
   (the reference runs over a dense gathered prefix view).
@@ -286,27 +288,20 @@ def forward(params: Params, tokens: torch.Tensor,
 
 # ---- serving: prefill + paged decode ----------------------------------------
 
-def prefill(params: Params, tokens: torch.Tensor, length: int,
-            cfg: TransformerConfig):
-    """Prefill ONE sequence. tokens: [P] right-padded to a bucket; length:
-    the true prompt length. Returns (logits [vocab] f32 at position
-    length-1, k, v each [L, P, KV, Dh]). Pad positions write KV too, as in
-    the reference; decode overwrites them from ``length`` on before any
-    query can attend them."""
+def _prefill(params: Params, tokens: torch.Tensor, length: int,
+             cfg: TransformerConfig, on_kv) -> torch.Tensor:
+    """The prefill of ``prefill`` and ``prefill_stream``: ``on_kv(l, k,
+    v)`` receives layer l's K/V [P, KV, Dh] as soon as they exist, before
+    its attention. Returns the logits [vocab] f32 at position length-1."""
     P = tokens.shape[0]
-    H, KV, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
-    dev = tokens.device
-    cos_t, sin_t = _rope_tables(cfg, dev)
+    H, Dh = cfg.n_heads, cfg.d_head
+    cos_t, sin_t = _rope_tables(cfg, tokens.device)
     cos = cos_t[:P][:, None, :]  # [P, 1, half] broadcast over heads
     sin = sin_t[:P][:, None, :]
-    k_all = torch.empty((cfg.n_layers, P, KV, Dh), dtype=cfg.dtype,
-                        device=dev)
-    v_all = torch.empty_like(k_all)
 
     def attend(l, lp, h):
         q, k, v = _qkv(h, lp, cfg, cos, sin)
-        k_all[l] = k
-        v_all[l] = v
+        on_kv(l, k, v)
         o = attention.prefill_attention(q, k, v, length)
         return o.reshape(P, H * Dh) @ lp["wo"]
 
@@ -315,8 +310,37 @@ def prefill(params: Params, tokens: torch.Tensor, length: int,
     # reference's norm-all-then-take.
     r = slice(length - 1, length)
     last = norm.rms_norm(x[r] + delta[r], params["ln_out"], cfg.norm_eps)
-    logits = last[0] @ params["w_out"]
-    return logits.float(), k_all, v_all
+    return (last[0] @ params["w_out"]).float()
+
+
+def prefill(params: Params, tokens: torch.Tensor, length: int,
+            cfg: TransformerConfig):
+    """Prefill ONE sequence. tokens: [P] right-padded to a bucket; length:
+    the true prompt length. Returns (logits [vocab] f32 at position
+    length-1, k, v each [L, P, KV, Dh]). Pad positions write KV too, as in
+    the reference; decode overwrites them from ``length`` on before any
+    query can attend them."""
+    P = tokens.shape[0]
+    k_all = torch.empty((cfg.n_layers, P, cfg.n_kv_heads, cfg.d_head),
+                        dtype=cfg.dtype, device=tokens.device)
+    v_all = torch.empty_like(k_all)
+
+    def keep(l, k, v):
+        k_all[l] = k
+        v_all[l] = v
+
+    logits = _prefill(params, tokens, length, cfg, keep)
+    return logits, k_all, v_all
+
+
+def prefill_stream(params: Params, tokens: torch.Tensor, length: int,
+                   cfg: TransformerConfig, on_layer) -> torch.Tensor:
+    """Layer-wise prefill for disaggregated serving: the math of
+    ``prefill`` (K2 and the fused norms), but ``on_layer(l, k, v)`` fires
+    as soon as layer l's K/V exist (k/v [P, KV, Dh], unpadded), so layer
+    l's transfer can start while layer l+1 is enqueued. Returns the logits
+    [vocab] f32 at position length-1."""
+    return _prefill(params, tokens, length, cfg, on_layer)
 
 
 def prefill_resume(params: Params, tokens: torch.Tensor, start: int,

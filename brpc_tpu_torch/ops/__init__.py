@@ -2,8 +2,13 @@
 
 Each wrapper counts its kernel launches on an int attribute
 (``wrapper.launches``); ``launch_counts``/``reset_launch_counts`` read and
-zero them together.
+zero them together. ``thread_launches`` also counts the launches of one
+thread apart (two workers of one process, each on its own loop thread).
 """
+
+import contextlib
+
+from brpc_tpu_torch.ops import _build
 
 from brpc_tpu_torch.ops.attention import (  # noqa: F401
     paged_decode_attention,
@@ -28,3 +33,15 @@ def launch_counts() -> dict:
 def reset_launch_counts() -> None:
     for fn in KERNELS.values():
         fn.launches = 0
+
+
+@contextlib.contextmanager
+def thread_launches(counts: dict):
+    """Inside the block, also count every launch the calling thread makes
+    into ``counts`` ({kernel name: launches})."""
+    prev = getattr(_build._tally, "counts", None)
+    _build._tally.counts = counts
+    try:
+        yield counts
+    finally:
+        _build._tally.counts = prev

@@ -19,6 +19,7 @@ import os
 import re
 import shutil
 import subprocess
+import threading
 
 import torch
 
@@ -143,6 +144,21 @@ def stream(t: torch.Tensor) -> int:
     ``torch.cuda.current_stream(t.device).cuda_stream`` gives, without
     building a Stream object on every launch."""
     return torch._C._cuda_getCurrentRawStream(t.device.index)
+
+
+_launch_mu = threading.Lock()
+_tally = threading.local()
+
+
+def count_launch(fn) -> None:
+    """One launch of ``fn``'s kernel: add one to ``fn.launches`` (the
+    process-wide count) and to the calling thread's tally, where
+    ``ops.thread_launches`` opened one."""
+    with _launch_mu:
+        fn.launches += 1
+    counts = getattr(_tally, "counts", None)
+    if counts is not None:
+        counts[fn.__name__] = counts.get(fn.__name__, 0) + 1
 
 
 def check(rc: int, name: str) -> None:

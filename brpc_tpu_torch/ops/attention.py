@@ -209,7 +209,7 @@ def paged_decode_attention(q, k_pool, v_pool, tables, pos,
         k_pool.stride(0), k_pool.stride(2), k_pool.stride(3),
         softmax_scale(Dh), per, n_splits, _build.stream(q))
     _build.check(rc, "paged_decode_attention")
-    paged_decode_attention.launches += 1
+    _build.count_launch(paged_decode_attention)
     return out
 
 
@@ -257,7 +257,7 @@ def prefill_attention(q, k, v, length: int) -> torch.Tensor:
         out.data_ptr(), P, int(length), H, KV, Dh, softmax_scale(Dh),
         _build.stream(q))
     _build.check(rc, "prefill_attention")
-    prefill_attention.launches += 1
+    _build.count_launch(prefill_attention)
     return out
 
 
@@ -413,7 +413,7 @@ def paged_prefill_attention(q, k_pool, v_pool, table, start: int,
         k_pool.stride(2), k_pool.stride(3), softmax_scale(Dh), per, n_splits,
         _build.stream(q))
     _build.check(rc, "paged_prefill_attention")
-    paged_prefill_attention.launches += 1
+    _build.count_launch(paged_prefill_attention)
     return out
 
 

@@ -41,7 +41,7 @@ def rms_norm(x: torch.Tensor, gain: torch.Tensor, eps: float) -> torch.Tensor:
         out.data_ptr(), rows, d, float(eps),
         _build.stream(x))
     _build.check(rc, "rms_norm")
-    rms_norm.launches += 1
+    _build.count_launch(rms_norm)
     return out
 
 
@@ -86,7 +86,7 @@ def add_rms_norm(x: torch.Tensor, delta: torch.Tensor, gain: torch.Tensor,
         g.data_ptr(), s.data_ptr(), h.data_ptr(), xc.numel() // d, d,
         float(eps), _build.stream(x))
     _build.check(rc, "add_rms_norm")
-    add_rms_norm.launches += 1
+    _build.count_launch(add_rms_norm)
     return s, h
 
 

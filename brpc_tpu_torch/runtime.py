@@ -1,7 +1,9 @@
-"""ctypes surface of the native RPC runtime, as far as the serving path
-needs it: Server, Channel with bidirectional streams, the request batcher,
-error codes, the flight recorder's stamps, the host-tier KV page store and
-the metrics dump.
+"""ctypes surface of the native RPC runtime, as far as the serving paths
+need it: Server, Channel (with a retry policy) and bidirectional streams,
+the request batcher, error codes, the flight recorder's stamps and notes,
+the KV transfer of disaggregated serving (layer-wise sender, receive pool,
+claim), the host-tier KV page store with the peer page pull, and the
+metrics dump.
 
 The C ABI is ``cpp/trpc/c_api.h``; the library is this package's own build
 (``native.lib()``). Handlers and stream sinks run on native worker threads
@@ -15,7 +17,7 @@ import json
 import queue
 import threading
 import traceback
-from typing import Optional
+from typing import Optional, Sequence
 
 from brpc_tpu_torch import native
 
@@ -55,6 +57,11 @@ def _lib() -> ctypes.CDLL:
         lib.trpc_channel_create.argtypes = [
             ctypes.c_char_p, ctypes.c_char_p, ctypes.c_int, ctypes.c_int]
         lib.trpc_channel_create.restype = ctypes.c_void_p
+        lib.trpc_channel_create_ex.argtypes = [
+            ctypes.c_char_p, ctypes.c_char_p, ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.POINTER(ctypes.c_int), ctypes.c_int]
+        lib.trpc_channel_create_ex.restype = ctypes.c_void_p
         lib.trpc_channel_destroy.argtypes = [ctypes.c_void_p]
         lib.trpc_buf_free.argtypes = [ctypes.POINTER(ctypes.c_char)]
         lib.trpc_app_counter_add.argtypes = [
@@ -69,6 +76,10 @@ def _lib() -> ctypes.CDLL:
             ctypes.c_size_t]
         lib.trpc_flight_stamp.argtypes = [ctypes.c_ulonglong, ctypes.c_int]
         lib.trpc_flight_route.argtypes = [ctypes.c_ulonglong, ctypes.c_uint]
+        lib.trpc_flight_tier.argtypes = [ctypes.c_ulonglong, ctypes.c_uint]
+        lib.trpc_flight_note.argtypes = [ctypes.c_ulonglong, ctypes.c_char_p]
+        lib.trpc_flight_note_once.argtypes = [
+            ctypes.c_ulonglong, ctypes.c_char_p]
         lib.trpc_flight_fetch.argtypes = [c_char_pp]
         lib.trpc_flight_fetch.restype = ctypes.c_size_t
         lib.trpc_batcher_create2.argtypes = [
@@ -92,6 +103,34 @@ def _lib() -> ctypes.CDLL:
         lib.trpc_batcher_destroy.argtypes = [ctypes.c_void_p]
         lib.trpc_batcher_stats.argtypes = [
             ctypes.c_void_p, ctypes.POINTER(ctypes.c_longlong), ctypes.c_int]
+        lib.trpc_kv_pool_configure.argtypes = [
+            ctypes.c_longlong, ctypes.c_int]
+        lib.trpc_kv_send_begin.argtypes = [
+            ctypes.c_void_p, ctypes.c_ulonglong, ctypes.c_int,
+            ctypes.c_longlong, ctypes.c_int]
+        lib.trpc_kv_send_begin.restype = ctypes.c_void_p
+        lib.trpc_kv_send_layer.argtypes = [
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_char_p, ctypes.c_size_t]
+        lib.trpc_kv_send_commit.argtypes = [
+            ctypes.c_void_p, ctypes.c_char_p, ctypes.c_size_t]
+        lib.trpc_kv_send_abort.argtypes = [ctypes.c_void_p]
+        lib.trpc_kv_send_abort.restype = None
+        lib.trpc_kv_recv_claim.argtypes = [
+            ctypes.c_ulonglong, ctypes.c_longlong,
+            ctypes.POINTER(ctypes.c_int)]
+        lib.trpc_kv_recv_layer_bytes.argtypes = [
+            ctypes.c_ulonglong, ctypes.c_int]
+        lib.trpc_kv_recv_layer_bytes.restype = ctypes.c_longlong
+        lib.trpc_kv_recv_copy_layer.argtypes = [
+            ctypes.c_ulonglong, ctypes.c_int, ctypes.c_void_p,
+            ctypes.c_size_t]
+        lib.trpc_kv_recv_release.argtypes = [ctypes.c_ulonglong]
+        lib.trpc_kv_abort.argtypes = [ctypes.c_void_p, ctypes.c_ulonglong]
+        lib.trpc_kv_stats.argtypes = [
+            ctypes.POINTER(ctypes.c_longlong), ctypes.c_int]
+        lib.trpc_kv_pull.argtypes = [
+            ctypes.c_void_p, ctypes.c_ulonglong, ctypes.c_void_p,
+            ctypes.c_size_t, ctypes.POINTER(ctypes.c_longlong)]
         lib.trpc_kv_host_configure.argtypes = [ctypes.c_longlong]
         lib.trpc_kv_host_put.argtypes = [
             ctypes.c_ulonglong, ctypes.c_char_p, ctypes.c_size_t]
@@ -115,7 +154,12 @@ def _lib() -> ctypes.CDLL:
                    lib.trpc_batcher_stop, lib.trpc_batcher_stats,
                    lib.trpc_kv_host_configure, lib.trpc_kv_host_put,
                    lib.trpc_kv_host_get, lib.trpc_kv_host_drop,
-                   lib.trpc_kv_tier_stats):
+                   lib.trpc_kv_tier_stats, lib.trpc_flight_tier,
+                   lib.trpc_flight_note, lib.trpc_flight_note_once,
+                   lib.trpc_kv_pool_configure, lib.trpc_kv_send_layer,
+                   lib.trpc_kv_send_commit, lib.trpc_kv_recv_claim,
+                   lib.trpc_kv_recv_copy_layer, lib.trpc_kv_recv_release,
+                   lib.trpc_kv_abort, lib.trpc_kv_stats, lib.trpc_kv_pull):
             fn.restype = ctypes.c_int
         for fn in (lib.trpc_server_destroy, lib.trpc_channel_destroy,
                    lib.trpc_buf_free, lib.trpc_batcher_destroy,
@@ -127,6 +171,9 @@ def _lib() -> ctypes.CDLL:
         _configured = True
     return lib
 
+
+# Application-handler failure code (mirror TRPC_EAPP in c_api.h).
+EAPP = 3001
 
 # Framework errno values (mirror cpp/trpc/rpc_errno.h).
 ERPCTIMEDOUT = 1008    # deadline reached before a response
@@ -167,6 +214,26 @@ class RpcError(RuntimeError):
         return self.code in RETRIABLE_ERRNOS
 
 
+class RetryPolicy:
+    """Channel retry behaviour: attempt budget, exponential backoff with
+    jitter, and the errno whitelist that gates which failures retry.
+
+    ``backoff_base_ms == 0`` retries at once. The delay before retry k is
+    ``min(base << (k-1), max)`` scaled by ``1 +- jitter``.
+    ``retriable=None`` uses the transport-error default whitelist."""
+
+    def __init__(self, max_retry: int = 3, backoff_base_ms: int = 0,
+                 backoff_max_ms: int = 2000, jitter: float = 0.2,
+                 retriable: Optional[Sequence[int]] = None):
+        if not 0.0 <= jitter <= 1.0:
+            raise ValueError("jitter must be in [0, 1]")
+        self.max_retry = max_retry
+        self.backoff_base_ms = backoff_base_ms
+        self.backoff_max_ms = backoff_max_ms
+        self.jitter = jitter
+        self.retriable = list(retriable) if retriable is not None else None
+
+
 class Server:
     """An RPC server; the batcher registers its methods on it before
     ``start``."""
@@ -202,12 +269,29 @@ class Server:
 
 class Channel:
     """Client stub to ``"ip:port"``; ``open_stream_rx`` opens the serving
-    gateway's token-delivery stream."""
+    gateway's token-delivery stream. ``retry_policy`` replaces the bare
+    ``max_retry`` with backoff-spaced retries gated on an errno
+    whitelist."""
 
-    def __init__(self, addr: str, timeout_ms: int = -1, max_retry: int = -1):
+    def __init__(self, addr: str, timeout_ms: int = -1, max_retry: int = -1,
+                 retry_policy: Optional[RetryPolicy] = None):
         self._lib = _lib()
-        self._h = self._lib.trpc_channel_create(addr.encode(), b"",
-                                                timeout_ms, max_retry)
+        if retry_policy is None:
+            self._h = self._lib.trpc_channel_create(addr.encode(), b"",
+                                                    timeout_ms, max_retry)
+        else:
+            rp = retry_policy
+            if rp.retriable is not None:
+                # [] retries nothing: the C side keys "the default
+                # whitelist" on a NULL pointer, not on an empty list.
+                n_codes = len(rp.retriable)
+                codes = (ctypes.c_int * max(n_codes, 1))(*rp.retriable)
+            else:
+                codes, n_codes = None, 0
+            self._h = self._lib.trpc_channel_create_ex(
+                addr.encode(), b"", timeout_ms, rp.max_retry,
+                rp.backoff_base_ms, rp.backoff_max_ms, int(rp.jitter * 100),
+                codes, n_codes)
         if not self._h:
             raise OSError(f"channel init failed for {addr!r}")
 
@@ -409,6 +493,142 @@ def metrics() -> dict:
     return out
 
 
+# ---- KV transfer of disaggregated serving (cpp/trpc/kv_transfer.h) --------
+
+KV_STAT_NAMES = (
+    "page_bytes", "max_pages", "kv_pages_in_use", "kv_transfer_inflight",
+    "kv_transfers_ready", "kv_transfer_bytes", "kv_transfers_completed",
+    "kv_transfers_failed", "kv_pages_evicted", "kv_send_bytes",
+    "kv_send_retries", "kv_zero_copy_pages",
+)
+
+
+def kv_pool_configure(page_bytes: int = 0, max_pages: int = 0) -> None:
+    """(Re)configure the process-wide KV receive pool: ``page_bytes`` per
+    pool page (a wire layer takes ceil(layer bytes / page_bytes) pages) and
+    the ``max_pages`` budget. 0 keeps the current value (1 MiB, 512); the
+    page size changes only while the pool is empty."""
+    rc = _lib().trpc_kv_pool_configure(page_bytes, max_pages)
+    if rc != 0:
+        raise OSError(rc, "kv pool configure failed (pool not empty?)")
+
+
+def kv_stats() -> dict:
+    """Receive-pool occupancy and transfer counters, ``{name: int}`` (also
+    on /vars and the metrics dump as kv_* gauges)."""
+    buf = (ctypes.c_longlong * len(KV_STAT_NAMES))()
+    n = _lib().trpc_kv_stats(buf, len(buf))
+    return dict(zip(KV_STAT_NAMES[:n], [int(v) for v in buf[:n]]))
+
+
+class KvSender:
+    """Layer-wise, chunked sender of one KV transfer over a Channel.
+
+    ``send_layer`` queues that layer's bytes as pipelined chunk RPCs (at
+    most ``window`` in flight) and returns; ``commit()`` waits for every
+    chunk's ack and seals the transfer on the receiver. Chunks ride the
+    channel's retry policy plus a kv-level re-post of dropped frames, so a
+    fault surfaces as a failed ``send_layer`` or commit, never as a torn
+    transfer."""
+
+    def __init__(self, channel: "Channel", handle: int, total_layers: int,
+                 chunk_bytes: int = -1, window: int = 8):
+        self._lib = _lib()
+        self._h = self._lib.trpc_kv_send_begin(
+            channel._h, handle, total_layers, chunk_bytes, window)
+        if not self._h:
+            raise OSError("kv send begin failed")
+        self.handle = handle
+        self.bytes_sent = 0  # wire bytes queued so far
+
+    def send_layer(self, layer: int, data) -> None:
+        if self._h is None:
+            raise RuntimeError("sender already finished")
+        if not isinstance(data, bytes):
+            data = bytes(data)
+        self.bytes_sent += len(data)
+        rc = self._lib.trpc_kv_send_layer(self._h, layer, data, len(data))
+        if rc != 0:
+            self.abort()
+            raise RpcError(rc, f"kv send_layer {layer} failed")
+
+    def commit(self) -> None:
+        if self._h is None:
+            raise RuntimeError("sender already finished")
+        err = ctypes.create_string_buffer(256)
+        h, self._h = self._h, None
+        rc = self._lib.trpc_kv_send_commit(h, err, len(err))
+        if rc != 0:
+            raise RpcError(rc, err.value.decode(errors="replace"))
+
+    def abort(self) -> None:
+        if self._h is not None:
+            h, self._h = self._h, None
+            self._lib.trpc_kv_send_abort(h)
+
+    def __del__(self):
+        try:
+            self.abort()
+        except Exception:  # noqa: BLE001 — interpreter may be tearing down
+            pass
+
+
+def kv_recv_claim(handle: int, timeout_ms: int) -> int:
+    """Wait until transfer ``handle`` is committed, claim it (pinned
+    against eviction) and return its wire-layer count. RpcError on
+    timeout."""
+    n = ctypes.c_int(0)
+    rc = _lib().trpc_kv_recv_claim(handle, timeout_ms, ctypes.byref(n))
+    if rc != 0:
+        raise RpcError(rc, f"kv transfer {handle:#x} not ready")
+    return n.value
+
+
+def kv_recv_layer(handle: int, layer: int):
+    """One claimed wire layer's bytes as a fresh numpy uint8 array."""
+    import numpy as np
+
+    lib = _lib()
+    nbytes = lib.trpc_kv_recv_layer_bytes(handle, layer)
+    if nbytes < 0:
+        raise RpcError(EREQUEST, f"kv layer {layer} unknown")
+    out = np.empty(nbytes, dtype=np.uint8)
+    rc = lib.trpc_kv_recv_copy_layer(
+        handle, layer, out.ctypes.data_as(ctypes.c_void_p), nbytes)
+    if rc != 0:
+        raise RpcError(rc, f"kv layer {layer} copy failed")
+    return out
+
+
+def kv_recv_release(handle: int) -> None:
+    """Drop the claim on ``handle`` and free its pool pages."""
+    _lib().trpc_kv_recv_release(handle)
+
+
+def kv_abort(channel: "Channel", handle: int) -> int:
+    """Tell the receiver behind ``channel`` to drop transfer ``handle``'s
+    unclaimed assembly now (a committed transfer nobody will adopt).
+    Best-effort: returns the errno without raising."""
+    return _lib().trpc_kv_abort(channel._h, handle)
+
+
+def http_vars(addr: str, prefix: str = "") -> dict:
+    """A server's /vars page over HTTP (the data port sniffs HTTP) parsed
+    into ``{name: float}``."""
+    import urllib.request
+
+    url = f"http://{addr}/vars" + (f"?filter={prefix}" if prefix else "")
+    body = urllib.request.urlopen(url, timeout=10).read().decode()
+    out = {}
+    for line in body.splitlines():
+        name, _, val = line.partition(":")
+        try:
+            out[name.strip()] = float(val)
+        except ValueError:
+            continue
+    return out
+
+
 # ---- host-tier KV page store (cpp/trpc/kv_transfer.h "host tier") ----------
 
 KV_TIER_STAT_NAMES = (
@@ -483,6 +703,24 @@ def kv_tier_note_fill(fill_us: int, peer: bool = False) -> None:
     _lib().trpc_kv_tier_note_fill(int(fill_us), 1 if peer else 0)
 
 
+def kv_pull(channel: "Channel", key: int, max_bytes: int):
+    """Pull one page by content key from the host store behind ``channel``
+    (the peer tier): the page bytes as a numpy uint8 array, or None when
+    the peer does not hold it. A transport failure raises RpcError."""
+    import numpy as np
+
+    out = np.empty(max_bytes, dtype=np.uint8)
+    got = ctypes.c_longlong(0)
+    rc = _lib().trpc_kv_pull(channel._h, key,
+                             out.ctypes.data_as(ctypes.c_void_p), max_bytes,
+                             ctypes.byref(got))
+    if rc == EREQUEST:
+        return None  # the peer does not hold the page: a miss
+    if rc != 0:
+        raise RpcError(rc, f"kv pull {key:#x} failed")
+    return out[:got.value]
+
+
 # ---- flight recorder (cpp/trpc/flight.h) -----------------------------------
 
 # Phase indices (mirror trpc::FlightPhase).
@@ -521,6 +759,22 @@ def flight_stamp(req_id: int, phase: int) -> None:
 def flight_route(req_id: int, bits: int) -> None:
     """OR ROUTE_* bits into ``req_id``'s record."""
     _lib().trpc_flight_route(req_id, bits)
+
+
+def flight_tier(req_id: int, tier: int) -> None:
+    """Set the SLO-tier byte (a TIER_* value) on ``req_id``'s record."""
+    _lib().trpc_flight_tier(req_id, tier)
+
+
+def flight_note(req_id: int, text: str) -> None:
+    """Attach a short note (about 55 bytes kept) to ``req_id``'s record."""
+    _lib().trpc_flight_note(req_id, text.encode()[:55])
+
+
+def flight_note_once(req_id: int, text: str) -> None:
+    """``flight_note`` only where the record has no note yet, so a
+    breadcrumb never clobbers an earlier note (a re-dispatch's)."""
+    _lib().trpc_flight_note_once(req_id, text.encode()[:55])
 
 
 def flight_records(max_items: int = 4096, oldest_first: bool = True) -> list:

@@ -6,7 +6,10 @@ prefix-cache resumes over two chat turns), and serves Llama-3-8B at full
 width and depth (random seeded weights) through the native batcher and the
 kernels: first a prefix-cache phase (shared system prompt, two chat turns,
 a wave that pushes the cached pages out to the host tier, and re-sent
-conversations that fill back from it), then the main path's cold swarm.
+conversations that fill back from it), then the main path's cold swarm,
+then the same lengths through the disaggregated path (the port's router,
+a layer-wise prefill worker and a decode worker, each on its own CUDA
+stream), whose f32 exactness phase 4 also checks.
 
     python3 chip_smoke.py            # all phases, one card
     python3 chip_smoke.py --profile  # + two short profiled swarms
@@ -27,6 +30,7 @@ import faulthandler
 import json
 import os
 import re
+import struct
 import subprocess
 import sys
 import threading
@@ -633,11 +637,119 @@ def phase_exactness(cfg) -> dict:
         f"greedy rollout; two chat turns over a 40-token shared prefix: "
         f"{resumes} resumes ({cows} copy-on-write), all 6 streams identical "
         f"to the plain rollout of the full prompt")
+    # The same requests through the disaggregated path; the colocated
+    # streams above equal the plain rollout, so these must equal them.
+    script = [[(p, 8, out["tokens"][i]) for i, p in enumerate(prompts)],
+              [(p0, 40, r0)], [(a, 8, ab[0]), (b, 8, ab[1])],
+              [(p, 8, t2[i]) for i, p in enumerate(turn2)]]
+    disagg_res = exact_disagg(params, cfg, script)
     del params
     torch.cuda.empty_cache()
     return {"streams": [out["tokens"][i] for i in range(len(prompts))],
             "chat_streams": [t for _, t in chats], "resumes": resumes,
-            "cow_copies": cows}
+            "cow_copies": cows, "disagg": disagg_res}
+
+
+def disagg_fleet(params, cfg, **kw):
+    """The port's disaggregated path in this process: a prefill worker
+    (layer-wise, the default on a card) and a decode worker, each on its
+    own loop thread and CUDA stream, behind the port's router. ``kw``
+    holds each worker's options: ``prefill`` and ``decode``."""
+    from brpc_tpu_torch import disagg
+
+    pw = disagg.PrefillWorker(params, cfg, **kw.get("prefill", {}))
+    dw = disagg.DecodeWorker(params, cfg, **kw.get("decode", {}))
+    router = disagg.DisaggRouter([f"127.0.0.1:{pw.port}"],
+                                 [f"127.0.0.1:{dw.port}"],
+                                 worker_timeout_ms=600_000)
+    return pw, dw, router
+
+
+def close_fleet(pw, dw, router) -> None:
+    router.close()
+    pw.close()
+    dw.close()
+
+
+def wait_idle(dw, timeout_s: float = 60.0) -> None:
+    """Until the decode worker has vacated every finished sequence (a
+    client sees its terminal before the engine releases the pages)."""
+    deadline = time.monotonic() + timeout_s
+    while dw.in_flight() and time.monotonic() < deadline:
+        time.sleep(0.01)
+
+
+def check_worker_launches(pw, dw, L: int) -> None:
+    """Each worker's own launch tally against its counters: K2 once per
+    layer of a cold prefill and K4 of a prefix hit on the prefill worker;
+    K1 per layer of each decode step and K4 per layer of each resume (a
+    local-skip adopt or a splice) on the decode worker; the norms of
+    every pass (check_norm_launches); no kernel of the other role."""
+    ps, ds = pw.stats(), dw.stats()
+    cold, hits = ps["prefills"] - ps["prefix_hits"], ps["prefix_hits"]
+    steps, resumes = ds["model_steps"], ds["resumes"]
+    want_p = {"prefill_attention": L * cold,
+              "paged_prefill_attention": L * hits,
+              "paged_decode_attention": 0}
+    want_d = {"prefill_attention": L * ds["prefills"],
+              "paged_prefill_attention": L * resumes,
+              "paged_decode_attention": L * steps}
+    for who, got, want in (("prefill", pw.launches, want_p),
+                           ("decode", dw.launches, want_d)):
+        for name, n in want.items():
+            if got.get(name, 0) != n:
+                raise AssertionError(f"{who} worker launched {name} "
+                                     f"{got.get(name, 0)} times, want {n}")
+    full = {name: 0 for name in ("rms_norm", "add_rms_norm")}
+    check_norm_launches({**full, **pw.launches}, L, 0, ps["prefills"])
+    check_norm_launches({**full, **dw.launches}, L, steps,
+                        ds["prefills"] + resumes)
+
+
+def exact_disagg(params, cfg, script) -> dict:
+    """``script``: waves of (prompt, new tokens, expected stream); each
+    wave goes concurrently through the port's router, prefill worker
+    (layer-wise) and decode worker, and every stream must equal its
+    expected one."""
+    pw, dw, router = disagg_fleet(
+        params, cfg,
+        prefill={"max_prompt": 128, "kv_blocks": 64},
+        decode={"max_batch_size": 4, "slots": 4, "max_prompt": 128,
+                "kv_blocks": 64})
+    try:
+        if not pw.layerwise:
+            raise AssertionError("the prefill worker is not layer-wise")
+        for wave in script:
+            for n in sorted({n for _, n, _ in wave}):
+                part = [(p, want) for p, m, want in wave if m == n]
+                got = run_swarm(router, [p for p, _ in part], n)["tokens"]
+                for i, (p, want) in enumerate(part):
+                    if got[i] != want:
+                        raise AssertionError(
+                            f"f32 disagg stream (prompt {len(p)}): "
+                            f"{got[i]} != plain {want}")
+        wait_idle(dw)
+        check_worker_launches(pw, dw, cfg.n_layers)
+        res = {"prefill": pw.stats(), "decode": dw.stats(),
+               "prefill_launches": dict(pw.launches),
+               "decode_launches": dict(dw.launches)}
+    finally:
+        close_fleet(pw, dw, router)
+    if not (res["prefill_launches"].get("prefill_attention")
+            and res["decode_launches"].get("paged_decode_attention")
+            and res["decode_launches"].get("rms_norm")):
+        raise AssertionError("the disagg path did not launch K2 on the "
+                             "prefill worker and K1/K3 on the decode worker")
+    n = sum(len(w) for w in script)
+    log(f"[exact] disagg: the same {n} requests through the port's router, "
+        f"layer-wise prefill worker and decode worker identical to the "
+        f"plain rollout; prefill worker {res['prefill']['prefills']} "
+        f"prefills ({res['prefill']['prefix_hits']} prefix hits), decode "
+        f"worker {res['decode']['adopts']} adopts "
+        f"({res['decode']['adopt_local_skips']} local skips); launches "
+        f"prefill {res['prefill_launches']} decode "
+        f"{res['decode_launches']}")
+    return {k: res[k] for k in ("prefill_launches", "decode_launches")}
 
 
 def flight_ttfts(n: int) -> tuple:
@@ -1030,6 +1142,299 @@ def phase_main(params, cfg, init_s: float, card: str, profile_it: bool,
     return res
 
 
+# The disagg phase: phase 5's prompt lengths with fresh tokens (phase 5's
+# own prompts are in the host tier by now, which would make every prefill
+# a host-fill hit), then two of them again, then one direct splice.
+DISAGG_WAVE2 = (0, 3)
+DISAGG_SPLICE = 5
+DISAGG_SOLO_TOKENS = 1024
+
+
+def kv_pool_budget(cfg, page_tokens: int = 16) -> tuple:
+    """The native receive pool's geometry for this script: one pool page
+    per page of one wire layer (K or V of one layer, ``page_tokens``
+    tokens), so a transfer takes 2L pages per KV page with no rounding,
+    and room for twice the disagg phase's first wave and its solo prompt
+    in flight at once (the default, 512 pages of 1 MiB, holds a
+    1024-token bf16 transfer in 128 pages but not the wave)."""
+    from brpc_tpu_torch import kv_cache
+
+    page_bytes = (page_tokens * cfg.n_kv_heads * cfg.d_head
+                  * cfg.dtype.itemsize)
+    pages = sum(kv_cache.pages_for(n, page_tokens)
+                for n in (*MAIN_LENGTHS, DISAGG_SOLO_TOKENS))
+    return page_bytes, 2 * pages * 2 * cfg.n_layers
+
+
+def classify_flights(recs) -> dict:
+    """Newest flight records of one disagg wave, by who wrote them: the
+    prefill worker's carry its transfer note, the router's stamp its
+    prefill RPC, and the decode worker's claim stamps the transfer alone."""
+    out = {"router": [], "prefill": [], "decode": []}
+    for r in recs:
+        if str(r.get("note", "")).startswith("kv w="):
+            out["prefill"].append(r)
+        elif "prefill_start_us" in r:
+            out["router"].append(r)
+        elif "kv_transfer_us" in r:
+            out["decode"].append(r)
+    return out
+
+
+def mean_span_ms(recs, a: str, b: str):
+    spans = [(r[b] - r[a]) / 1e3 for r in recs if a in r and b in r]
+    return sum(spans) / len(spans) if spans else None
+
+
+# (name, who, from stamp, to stamp): the router's queue, its prefill RPC
+# (the prefill worker's queue, compute, cache admission and the transfer's
+# commit) and the relay of the first token; inside it the prefill worker's
+# compute with its cache admission, and the commit; then on the decode
+# worker, after the first token, the claim and the adopt up to its first
+# decoded token (landing the pages, the prefix admission with its
+# host-tier export, one decode step).
+DISAGG_SEGMENTS = (
+    ("queue", "router", "admit_us", "batch_formed_us"),
+    ("prefill_rpc", "router", "prefill_start_us", "prefill_done_us"),
+    ("first_emit", "router", "prefill_done_us", "first_emit_us"),
+    ("prefill", "prefill", "prefill_start_us", "prefill_done_us"),
+    ("kv_commit", "prefill", "prefill_done_us", "kv_transfer_us"),
+    ("claim", "decode", "batch_formed_us", "kv_transfer_us"),
+    ("adopt_to_token", "decode", "kv_transfer_us", "first_emit_us"),
+)
+
+
+def pool_write_timing(cfg, tokens: int = 1024) -> dict:
+    """An adopt's landing at ``tokens`` tokens (64 pages at Llama-3-8B
+    width, 2 MiB each, K and V): the pageable host-to-device copy of the
+    claimed pages and the pool's ``index_copy_`` of them, each by CUDA
+    events (5 calls), the latter also by torch.profiler. Byte bounds: the
+    copy's bytes over PCIe Gen5 x16 (64 GB/s a direction), the
+    index_copy_'s read plus write over HBM."""
+    from brpc_tpu_torch import kv_cache
+
+    page = 16
+    n = kv_cache.pages_for(tokens, page)
+    shape = (n, cfg.n_layers, page, cfg.n_kv_heads, cfg.d_head)
+    host = [torch.ones(shape, dtype=cfg.dtype) for _ in range(2)]
+    pool = kv_cache.PagedKvPool(cfg, n + 1, page, device="cuda")
+    blocks = list(range(1, n + 1))
+    dev = [h.to("cuda") for h in host]
+    nbytes = sum(h.numel() * h.element_size() for h in host)
+    idx = torch.tensor(blocks, dtype=torch.long, device="cuda")
+
+    def h2d():
+        for h in host:
+            h.to("cuda")
+
+    def land():
+        pool.k.index_copy_(0, idx, dev[0])
+        pool.v.index_copy_(0, idx, dev[1])
+
+    res = {"tokens": tokens, "pages": n, "bytes": nbytes,
+           "h2d_ms": time_ms(h2d, iters=5, warmup=1),
+           "h2d_bound_ms": nbytes / 64e9 * 1e3,
+           "index_copy_ms": time_ms(land, iters=5, warmup=1),
+           "index_copy_device_ms": device_ms(land, iters=5),
+           "index_copy_bound_ms": 2 * nbytes / HBM_BYTES_PER_S * 1e3,
+           "write_blocks_ms": time_ms(
+               lambda: pool.write_blocks(blocks, *host), iters=5,
+               warmup=1)}
+    del pool, dev
+    torch.cuda.empty_cache()
+    log(f"[pool-write] {tokens}-token adopt, {n} pages, {nbytes} bytes: "
+        f"pageable H2D {res['h2d_ms']:.3f} ms (PCIe bound "
+        f"{res['h2d_bound_ms']:.3f}), index_copy_ {res['index_copy_ms']:.4f}"
+        f" ms device {fmt_ms(res['index_copy_device_ms'])} (byte bound "
+        f"{res['index_copy_bound_ms']:.4f}), write_blocks "
+        f"{res['write_blocks_ms']:.3f} ms")
+    return res
+
+
+def phase_disagg(params, cfg, card: str, main_res: dict) -> dict:
+    """Disaggregated serving at full width and depth: the port's router
+    in front of one layer-wise prefill worker and one decode worker (8
+    slots), each on its own stream; a stock client swarm of phase 5's
+    lengths, then two prompts again (prefix hits on the prefill worker,
+    local-skip adopts on the decode worker), then one splice sent to the
+    decode worker directly."""
+    from brpc_tpu_torch import disagg, kv_cache, runtime, serving
+
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(0, cfg.vocab, n).tolist() for n in MAIN_LENGTHS]
+    max_new = MAIN_NEW_TOKENS
+    blocks = len(prompts) * kv_cache.pages_for(max(MAIN_LENGTHS) + max_new,
+                                               16) + 1
+    kv0 = runtime.kv_stats()
+    torch.cuda.reset_peak_memory_stats()
+    pw, dw, router = disagg_fleet(
+        params, cfg,
+        prefill={"max_prompt": 1024,
+                 "kv_blocks": sum(kv_cache.pages_for(n, 16)
+                                  for n in MAIN_LENGTHS) + 16},
+        decode={"max_batch_size": 8, "slots": 8, "max_prompt": 1024,
+                "kv_blocks": blocks})
+    # Host-clock intervals of each prefill and of each decode step that
+    # decoded, to count the steps that ran while a prefill ran.
+    spans = {"prefill": [], "step": []}
+
+    def timed(fn, key, keep=lambda out: True):
+        def wrapper(*a, **kw):
+            t0 = time.monotonic()
+            out = fn(*a, **kw)
+            if keep(out):
+                spans[key].append((t0, time.monotonic()))
+            return out
+        return wrapper
+
+    pw._handle = timed(pw._handle, "prefill")
+    dw.step = timed(dw.step, "step", keep=lambda active: active > 0)
+    try:
+        wave1 = run_swarm(router, prompts, max_new)
+        wait_idle(dw)
+        flights = classify_flights(runtime.flight_records(
+            max_items=3 * len(prompts), oldest_first=False))
+        s1p, s1d = pw.stats(), dw.stats()
+        kv1 = runtime.kv_stats()
+        wave2 = run_swarm(router, [prompts[i] for i in DISAGG_WAVE2],
+                          max_new)
+        wait_idle(dw)
+        ch = runtime.Channel(f"127.0.0.1:{dw.port}", timeout_ms=600_000)
+        try:
+            rs = ch.open_stream_rx(
+                disagg.DECODE_SERVICE, disagg.DECODE_METHOD,
+                disagg.encode_splice_request(-1, prompts[DISAGG_SPLICE],
+                                             max_new))
+            splice_toks, status = [], None
+            while status is None:
+                msg = rs.read(timeout=600)
+                if msg is None:
+                    raise AssertionError("splice stream closed early")
+                if msg[:1] == b"d":
+                    splice_toks.append(struct.unpack("<I", msg[1:5])[0])
+                elif msg[:1] == b"f":
+                    status = struct.unpack("<I", msg[1:5])[0]
+            rs.close()
+        finally:
+            ch.close()
+        wait_idle(dw)
+        # One cold prompt alone: the prefill worker's time with no decode
+        # step and no other prefill beside it.
+        s3 = pw.stats()
+        run_swarm(router, [rng.integers(0, cfg.vocab,
+                                       DISAGG_SOLO_TOKENS).tolist()], 2)
+        wait_idle(dw)
+        s4 = pw.stats()
+        solo = {k: 1e3 * (s4[k] - s3[k])
+                for k in ("prefill_seconds", "layer_stall_seconds",
+                          "send_seconds", "cache_seconds",
+                          "transfer_seconds", "commit_seconds")}
+        ps, ds = pw.stats(), dw.stats()
+        launches = {"prefill": dict(pw.launches),
+                    "decode": dict(dw.launches)}
+        check_worker_launches(pw, dw, cfg.n_layers)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+    finally:
+        close_fleet(pw, dw, router)
+    pool_write = pool_write_timing(cfg)
+    kv = runtime.kv_stats()
+    if kv["kv_transfers_failed"] or kv["kv_pages_evicted"]:
+        raise AssertionError(f"kv transfers failed or evicted: {kv}")
+    if status != 0 or len(splice_toks) != max_new:
+        raise AssertionError(f"splice ended {status} after "
+                             f"{len(splice_toks)} tokens")
+    for name, n in (("prefill worker prefix hits", ps["prefix_hits"]),
+                    ("local-skip adopts", ds["adopt_local_skips"]),
+                    ("splices", ds["splices"])):
+        if n < 1:
+            raise AssertionError(f"{name}: {n}, want >= 1")
+    for toks in (*wave1["tokens"].values(), *wave2["tokens"].values(),
+                 splice_toks):
+        if not all(0 <= t < cfg.vocab for t in toks):
+            raise AssertionError("token id out of vocabulary")
+    overlap = sum(any(a < e and s < b for a, b in spans["prefill"])
+                  for s, e in spans["step"])
+    ttft = sorted(wave1["ttft_s"].values())
+    n_tok = sum(len(t) for t in wave1["tokens"].values())
+    cold = s1p["prefills"]
+    segments = {name: mean_span_ms(flights[who], a, b)
+                for name, who, a, b in DISAGG_SEGMENTS}
+    res = {
+        "card": card, "requests": len(prompts),
+        "prompt_lengths": MAIN_LENGTHS, "new_tokens": max_new,
+        "tokens_per_s": n_tok / wave1["wall_s"],
+        "ttft_p50_ms": 1e3 * ttft[len(ttft) // 2],
+        "ttft_p99_ms": 1e3 * ttft[min(len(ttft) - 1,
+                                      int(0.99 * len(ttft)))],
+        "decode_step_ms": 1e3 * s1d["decode_seconds"]
+        / max(1, s1d["model_steps"]),
+        "model_steps": s1d["model_steps"],
+        "prefill_ms_mean": 1e3 * s1p["prefill_seconds"] / cold,
+        "layer_stall_ms_mean": 1e3 * s1p["layer_stall_seconds"]
+        / max(1, s1p["layers_streamed"]),
+        "layer_stall_ms_per_prefill": 1e3 * s1p["layer_stall_seconds"]
+        / cold,
+        "send_ms_per_prefill": 1e3 * s1p["send_seconds"] / cold,
+        "solo_1024_ms": solo,
+        "cache_admit_ms_mean": 1e3 * s1p["cache_seconds"] / cold,
+        "transfer_ms_mean": 1e3 * s1p["transfer_seconds"] / cold,
+        "commit_ms_mean": 1e3 * s1p["commit_seconds"] / cold,
+        "transfer_bytes_wave1": s1p["transfer_bytes"],
+        "kv_transfer_bytes_wave1": kv1["kv_transfer_bytes"]
+        - kv0["kv_transfer_bytes"],
+        "kv_transfers_completed": kv["kv_transfers_completed"]
+        - kv0["kv_transfers_completed"],
+        "kv_stats": kv, "ttft_segments_ms": segments,
+        "decode_steps_during_prefill": overlap,
+        "decode_steps_timed": len(spans["step"]),
+        "prefill_stats": ps, "decode_stats": ds,
+        "prefix_hits": ps["prefix_hits"],
+        "adopt_local_skips": ds["adopt_local_skips"],
+        "splices": ds["splices"],
+        "splice_matches_wave1": splice_toks
+        == wave1["tokens"][DISAGG_SPLICE],
+        "launches": launches, "peak_mem_gib": peak,
+        "pool_write": pool_write,
+    }
+    log(f"[disagg] Llama-3-8B bf16 {cfg.n_layers} layers, {card}: "
+        f"{len(prompts)} concurrent requests through router -> layer-wise "
+        f"prefill worker -> decode worker (own streams), {n_tok} tokens in "
+        f"{wave1['wall_s']:.3f} s = {res['tokens_per_s']:.2f} tok/s; TTFT "
+        f"p50 {res['ttft_p50_ms']:.1f} ms p99 {res['ttft_p99_ms']:.1f} ms; "
+        f"decode step {res['decode_step_ms']:.2f} ms mean over "
+        f"{res['model_steps']} steps; peak memory {peak:.2f} GiB")
+    log(f"[disagg] TTFT segments mean ms {fmt_segments(segments)}")
+    log(f"[disagg] prefill worker, {cold} cold prefills: prefill "
+        f"{res['prefill_ms_mean']:.2f} ms mean, of it host stall per layer "
+        f"{res['layer_stall_ms_mean']:.3f} ms ({res['layer_stall_ms_per_prefill']:.2f} "
+        f"ms per prefill), handing layers to the sender "
+        f"{res['send_ms_per_prefill']:.2f} ms per prefill; local cache "
+        f"admission "
+        f"{res['cache_admit_ms_mean']:.2f} ms; transfer (first layer sent "
+        f"to commit) {res['transfer_ms_mean']:.2f} ms mean, commit wait "
+        f"{res['commit_ms_mean']:.2f} ms; {res['transfer_bytes_wave1']} "
+        f"wire bytes; decode steps that ran while a prefill ran: "
+        f"{overlap} of {len(spans['step'])}")
+    log(f"[disagg] one cold {DISAGG_SOLO_TOKENS}-token prompt alone, "
+        f"prefill worker ms: "
+        + " ".join(f"{k.replace('_seconds', '')} {v:.2f}"
+                   for k, v in solo.items()))
+    log(f"[disagg] kv_stats {json.dumps(kv)}")
+    log(f"[disagg] prefix_hits {ps['prefix_hits']} adopt_local_skips "
+        f"{ds['adopt_local_skips']} splices {ds['splices']} (splice stream "
+        f"equal to wave 1's: {res['splice_matches_wave1']}); launches "
+        f"prefill worker {launches['prefill']} decode worker "
+        f"{launches['decode']}")
+    log(f"[disagg] against phase 5 (colocated, same lengths) in this run: "
+        f"tok/s {res['tokens_per_s']:.2f} vs {main_res['tokens_per_s']:.2f}"
+        f", TTFT p50 {res['ttft_p50_ms']:.1f} vs "
+        f"{main_res['ttft_p50_ms']:.1f} ms, p99 {res['ttft_p99_ms']:.1f} vs "
+        f"{main_res['ttft_p99_ms']:.1f} ms, decode step "
+        f"{res['decode_step_ms']:.2f} vs {main_res['decode_step_ms']:.2f} "
+        f"ms, peak memory {peak:.2f} vs {main_res['peak_mem_gib']:.2f} GiB")
+    return res
+
+
 def main() -> int:
     faulthandler.enable()
     # The host tier keeps its pages on the heap: in the registered send
@@ -1073,9 +1478,15 @@ def main() -> int:
     report["build_s"] = {"native": t_native, "kernels": t_kernels}
     report["sass_mma"] = sass_mma_counts(_build)
     cases = phase_kernels()
+    from brpc_tpu_torch import runtime
     from brpc_tpu_torch.models import transformer
 
     cfg = transformer.TransformerConfig.llama3_8b()
+    # Before the first transfer: the pool's page size changes only while
+    # the pool is empty.
+    pool_page, pool_pages = kv_pool_budget(cfg)
+    runtime.kv_pool_configure(pool_page, pool_pages)
+    log(f"[kv] receive pool {pool_pages} pages of {pool_page} bytes")
     report["exact"] = phase_exactness(
         dataclasses.replace(cfg, n_layers=2, dtype=torch.float32))
     os.makedirs(args.report_dir, exist_ok=True)
@@ -1090,6 +1501,7 @@ def main() -> int:
     main_res = phase_main(params, cfg, init_s, card, args.profile,
                           args.report_dir)
     report["main"] = main_res
+    report["disagg"] = phase_disagg(params, cfg, card, main_res)
     report["kernel_cases"] = cases
     with open(os.path.join(args.report_dir, "chip_smoke_report.json"),
               "w") as f:

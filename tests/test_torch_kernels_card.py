@@ -7,12 +7,13 @@ PyTorch and a card only:
 """
 
 import dataclasses
+import time
 
 import numpy as np
 import pytest
 import torch
 
-from brpc_tpu_torch import ops, serving
+from brpc_tpu_torch import disagg, ops, serving
 from brpc_tpu_torch.models import transformer
 from brpc_tpu_torch.ops import attention, norm
 
@@ -279,6 +280,53 @@ def test_engine_on_card_streams_plain_greedy(cuda_device, n_kv_heads):
     # prefill's one-row final norm stays unfused.
     assert counts["rms_norm"] == steps + 2 * prefills
     assert counts["add_rms_norm"] == 2 * L * steps + (2 * L - 1) * prefills
+    for p, toks in zip(prompts, got):
+        assert toks == transformer.greedy_reference(params, cfg, p, 6,
+                                                    device=cuda_device)
+
+
+@pytest.mark.cuda
+def test_disagg_on_card_streams_plain_greedy(cuda_device):
+    """The f32 disaggregated path on the card: the port's router, a
+    layer-wise prefill worker and a decode worker, each on its own stream,
+    stream exactly the plain forward's greedy tokens; K2 and the norms run
+    on the prefill worker, K1 and the norms on the decode worker, counted
+    apart per worker."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(transformer.TransformerConfig.tiny(),
+                              dtype=torch.float32, n_kv_heads=2)
+    params = transformer.init_params(
+        cfg, torch.Generator(device=cuda_device).manual_seed(3),
+        device=cuda_device)
+    torch.cuda.synchronize()
+    prompts = [[9, 8, 7], [40 + i for i in range(21)], [3] * 16]
+    pw = disagg.PrefillWorker(params, cfg, max_prompt=32,
+                              prefix_cache=False)
+    dw = disagg.DecodeWorker(params, cfg, slots=4, max_prompt=32,
+                             prefix_cache=False)
+    router = disagg.DisaggRouter([f"127.0.0.1:{pw.port}"],
+                                 [f"127.0.0.1:{dw.port}"],
+                                 worker_timeout_ms=60_000)
+    try:
+        got = [serving.generate(f"127.0.0.1:{router.port}", p, 6, 60_000)
+               for p in prompts]
+        deadline = time.monotonic() + 30
+        while dw.in_flight() and time.monotonic() < deadline:
+            time.sleep(0.01)
+        steps = dw.stats()["model_steps"]
+        assert pw.layerwise and pw.stats()["layers_streamed"] == \
+            cfg.n_layers * len(prompts)
+    finally:
+        router.close()
+        pw.close()
+        dw.close()
+    L, n = cfg.n_layers, len(prompts)
+    assert pw.launches == {"rms_norm": 2 * n,
+                           "add_rms_norm": (2 * L - 1) * n,
+                           "prefill_attention": L * n}
+    assert dw.launches == {"rms_norm": steps,
+                           "add_rms_norm": 2 * L * steps,
+                           "paged_decode_attention": L * steps}
     for p, toks in zip(prompts, got):
         assert toks == transformer.greedy_reference(params, cfg, p, 6,
                                                     device=cuda_device)
