@@ -39,11 +39,19 @@
 // its row max m and sum l, which a merge pass (`merge_row`, below) combines.
 // A row that sees no key of its split keeps m = -inf and l = 0, and the
 // merge gives it weight 0.
+//
+// A problem that declares `static constexpr bool kFolds = true` (K5, the
+// ring's block fold, csrc/ring_attention.cu) does neither: the block's
+// (O, m, l) is folded into a running f32 state of its rows by merge_row's
+// rule (`fold_row`), which then stays in place or, on the ring's last step,
+// is written out as O / l rounded to T. Its key range may be empty: the
+// block then only writes the state out.
 #pragma once
 
 #include <stdint.h>
 
 #include <atomic>
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -64,6 +72,8 @@ constexpr float kLog2e = 1.4426950408889634f;
 
 // Where a block's rows go. Rows are numbered as in q and out, [n, H]
 // flattened; partials are [split][row][Dh] f32 and [split][row][2] (m, l).
+// For a folding problem o_part and ml_part are the running state, [row][Dh]
+// and [row][2], and `partial` keeps it there (false: write out O / l).
 template <typename T>
 struct Sink {
   T* out;
@@ -73,6 +83,43 @@ struct Sink {
   int split;
   bool partial;
 };
+
+template <typename P, typename = void>
+struct Folds : std::false_type {};
+template <typename P>
+struct Folds<P, std::void_t<decltype(P::kFolds)>>
+    : std::bool_constant<P::kFolds> {};
+
+// Folds a block's row (its unnormalised o over `n` columns `cols(j)`, max
+// m and sum l) into the running state (ms, ls, read by the caller before a
+// __syncwarp, and the state's O row) by merge_row's rule; `writer` is the
+// one lane that stores m and l. With sink.partial the state is updated in
+// place, else the row O / l (l = 0 read as 1) is written to out.
+template <typename T, int N, typename Cols>
+__device__ __forceinline__ void fold_row(const Sink<T>& sink, int rid,
+                                         int dh, const float* o, float m,
+                                         float l, float ms, float ls,
+                                         bool writer, Cols cols) {
+  const float mx = fmaxf(ms, m);
+  const float ws = ms == -INFINITY ? 0.f : expf(ms - mx);
+  const float wb = m == -INFINITY ? 0.f : expf(m - mx);
+  const float lsum = ws * ls + wb * l;
+  float* srow = sink.o_part + static_cast<long long>(rid) * dh;
+  if (sink.partial) {
+#pragma unroll
+    for (int j = 0; j < N; ++j) srow[cols(j)] = ws * srow[cols(j)] + wb * o[j];
+    if (writer) {
+      sink.ml_part[static_cast<long long>(rid) * 2] = mx;
+      sink.ml_part[static_cast<long long>(rid) * 2 + 1] = lsum;
+    }
+  } else {
+    const float inv = 1.0f / (lsum == 0.f ? 1.f : lsum);
+    T* orow = sink.out + static_cast<long long>(rid) * dh;
+#pragma unroll
+    for (int j = 0; j < N; ++j)
+      orow[cols(j)] = from_f32<T>((ws * srow[cols(j)] + wb * o[j]) * inv);
+  }
+}
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -179,7 +226,7 @@ __device__ void mma_tile(const Problem& p, const __nv_bfloat16* __restrict__ q,
   constexpr int kStride = DH + 8;
   constexpr int kChunks = DH / 8;
   constexpr int kDSteps = DH / 16;  // k-steps of Q.K^T, n-tile pairs of P.V
-  if (p.key_begin >= p.key_end) {
+  if (!Folds<Problem>::value && p.key_begin >= p.key_end) {
     write_empty(p, sink);
     return;
   }
@@ -200,8 +247,9 @@ __device__ void mma_tile(const Problem& p, const __nv_bfloat16* __restrict__ q,
                rid >= 0);
   }
   cp_async_commit();
-  const int n_tiles = (p.key_end - p.key_begin + kTileKeys - 1) / kTileKeys;
-  mma_load_kv<DH>(p, ks, vs, p.key_begin, p.key_end);
+  const int n_tiles =
+      max(0, (p.key_end - p.key_begin + kTileKeys - 1) / kTileKeys);
+  if (n_tiles > 0) mma_load_kv<DH>(p, ks, vs, p.key_begin, p.key_end);
   cp_async_commit();
 
   // Rows are numbered valid first, so a warp whose first row is past the
@@ -349,32 +397,62 @@ __device__ void mma_tile(const Problem& p, const __nv_bfloat16* __restrict__ q,
     l_b += __shfl_xor_sync(0xffffffffu, l_b, off);
   }
   const int col = 2 * (lane % 4);
-  // Row row_a + 8 h of this lane: o[.][2 h], o[.][2 h + 1].
-  auto store = [&](int rid, float m, float l, int h) {
-    if (rid < 0) return;
-    if (!sink.partial) {
-      const float inv = 1.0f / l;
-      bf16* orow = sink.out + static_cast<long long>(rid) * DH;
+  if constexpr (Folds<Problem>::value) {
+    // This lane's columns of its two rows, then the fold of each row.
+    const int rid[2] = {p.row_id(row_a), p.row_id(row_a + 8)};
+    const float mb[2] = {m_a, m_b}, lb[2] = {l_a, l_b};
+    float ms[2], ls[2];
 #pragma unroll
-      for (int j = 0; j < DH / 8; ++j)
-        *reinterpret_cast<__nv_bfloat162*>(orow + j * 8 + col) =
-            __floats2bfloat162_rn(o[j][2 * h] * inv, o[j][2 * h + 1] * inv);
-    } else {
-      const long long prow =
-          static_cast<long long>(sink.split) * sink.n_rows + rid;
-      float* orow = sink.o_part + prow * DH;
-#pragma unroll
-      for (int j = 0; j < DH / 8; ++j)
-        *reinterpret_cast<float2*>(orow + j * 8 + col) =
-            make_float2(o[j][2 * h], o[j][2 * h + 1]);
-      if (lane % 4 == 0) {
-        sink.ml_part[prow * 2] = m;
-        sink.ml_part[prow * 2 + 1] = l;
-      }
+    for (int h = 0; h < 2; ++h) {
+      ms[h] = rid[h] < 0 ? -INFINITY
+                         : sink.ml_part[static_cast<long long>(rid[h]) * 2];
+      ls[h] = rid[h] < 0 ? 0.f
+                         : sink.ml_part[static_cast<long long>(rid[h]) * 2 + 1];
     }
-  };
-  store(p.row_id(row_a), m_a, l_a, 0);
-  store(p.row_id(row_a + 8), m_b, l_b, 1);
+    __syncwarp();  // every lane has read m and l before one writes them
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      if (rid[h] < 0) continue;
+      float ov[DH / 4];
+#pragma unroll
+      for (int j = 0; j < DH / 8; ++j) {
+        ov[2 * j] = o[j][2 * h];
+        ov[2 * j + 1] = o[j][2 * h + 1];
+      }
+      fold_row<bf16, DH / 4>(sink, rid[h], DH, ov, mb[h], lb[h], ms[h], ls[h],
+                             lane % 4 == 0, [&](int j) {
+                               return (j / 2) * 8 + col + (j % 2);
+                             });
+    }
+  } else {
+    // Row row_a + 8 h of this lane: o[.][2 h], o[.][2 h + 1].
+    auto store = [&](int rid, float m, float l, int h) {
+      if (rid < 0) return;
+      if (!sink.partial) {
+        const float inv = 1.0f / l;
+        bf16* orow = sink.out + static_cast<long long>(rid) * DH;
+#pragma unroll
+        for (int j = 0; j < DH / 8; ++j)
+          *reinterpret_cast<__nv_bfloat162*>(orow + j * 8 + col) =
+              __floats2bfloat162_rn(o[j][2 * h] * inv,
+                                    o[j][2 * h + 1] * inv);
+      } else {
+        const long long prow =
+            static_cast<long long>(sink.split) * sink.n_rows + rid;
+        float* orow = sink.o_part + prow * DH;
+#pragma unroll
+        for (int j = 0; j < DH / 8; ++j)
+          *reinterpret_cast<float2*>(orow + j * 8 + col) =
+              make_float2(o[j][2 * h], o[j][2 * h + 1]);
+        if (lane % 4 == 0) {
+          sink.ml_part[prow * 2] = m;
+          sink.ml_part[prow * 2 + 1] = l;
+        }
+      }
+    };
+    store(p.row_id(row_a), m_a, l_a, 0);
+    store(p.row_id(row_a + 8), m_b, l_b, 1);
+  }
 }
 
 // ---- f32 on the CUDA cores ------------------------------------------------
@@ -394,7 +472,7 @@ __device__ void f32_tile(const Problem& p, const float* __restrict__ q,
   constexpr int kRows = kTileRows / kWarps;  // query rows per warp
   constexpr int kVpt = DH / 32;
   constexpr int kStrideK = DH + 4;  // keeps float4 rows 16-byte aligned
-  if (p.key_begin >= p.key_end) {
+  if (!Folds<Problem>::value && p.key_begin >= p.key_end) {
     write_empty(p, sink);
     return;
   }
@@ -491,24 +569,38 @@ __device__ void f32_tile(const Problem& p, const float* __restrict__ q,
   }
 
   if (!active) return;
+  if constexpr (Folds<Problem>::value) {
+    // A row's id is the same on every lane of its warp.
 #pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    const int rid = p.row_id(warp * kRows + r);
-    if (rid < 0) continue;
-    if (!sink.partial) {
-      const float inv = 1.0f / l[r];
-      float* orow = sink.out + static_cast<long long>(rid) * DH;
+    for (int r = 0; r < kRows; ++r) {
+      const int rid = p.row_id(warp * kRows + r);
+      if (rid < 0) continue;
+      const float ms = sink.ml_part[static_cast<long long>(rid) * 2];
+      const float ls = sink.ml_part[static_cast<long long>(rid) * 2 + 1];
+      __syncwarp();  // every lane has read m and l before lane 0 writes them
+      fold_row<float, kVpt>(sink, rid, DH, acc[r], m[r], l[r], ms, ls,
+                            lane == 0, [&](int j) { return lane + 32 * j; });
+    }
+  } else {
 #pragma unroll
-      for (int j = 0; j < kVpt; ++j) orow[lane + 32 * j] = acc[r][j] * inv;
-    } else {
-      const long long prow =
-          static_cast<long long>(sink.split) * sink.n_rows + rid;
-      float* orow = sink.o_part + prow * DH;
+    for (int r = 0; r < kRows; ++r) {
+      const int rid = p.row_id(warp * kRows + r);
+      if (rid < 0) continue;
+      if (!sink.partial) {
+        const float inv = 1.0f / l[r];
+        float* orow = sink.out + static_cast<long long>(rid) * DH;
 #pragma unroll
-      for (int j = 0; j < kVpt; ++j) orow[lane + 32 * j] = acc[r][j];
-      if (lane == 0) {
-        sink.ml_part[prow * 2] = m[r];
-        sink.ml_part[prow * 2 + 1] = l[r];
+        for (int j = 0; j < kVpt; ++j) orow[lane + 32 * j] = acc[r][j] * inv;
+      } else {
+        const long long prow =
+            static_cast<long long>(sink.split) * sink.n_rows + rid;
+        float* orow = sink.o_part + prow * DH;
+#pragma unroll
+        for (int j = 0; j < kVpt; ++j) orow[lane + 32 * j] = acc[r][j];
+        if (lane == 0) {
+          sink.ml_part[prow * 2] = m[r];
+          sink.ml_part[prow * 2 + 1] = l[r];
+        }
       }
     }
   }

@@ -1,4 +1,6 @@
-"""Hand-written CUDA kernels of the serving path and their wrappers.
+"""Hand-written CUDA kernels of the port and their wrappers: the serving
+path's attention (K1, K2, K4) and norms (K3), and the ring-attention
+block fold (K5).
 
 Each wrapper counts its kernel launches on an int attribute
 (``wrapper.launches``); ``launch_counts``/``reset_launch_counts`` read and
@@ -16,6 +18,9 @@ from brpc_tpu_torch.ops.attention import (  # noqa: F401
     prefill_attention,
 )
 from brpc_tpu_torch.ops.norm import add_rms_norm, rms_norm  # noqa: F401
+from brpc_tpu_torch.ops.ring_attention import (  # noqa: F401
+    ring_attention_fold,
+)
 
 KERNELS = {
     "paged_decode_attention": paged_decode_attention,
@@ -23,6 +28,7 @@ KERNELS = {
     "paged_prefill_attention": paged_prefill_attention,
     "rms_norm": rms_norm,
     "add_rms_norm": add_rms_norm,
+    "ring_attention_fold": ring_attention_fold,
 }
 
 

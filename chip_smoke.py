@@ -9,7 +9,12 @@ a wave that pushes the cached pages out to the host tier, and re-sent
 conversations that fill back from it), then the main path's cold swarm,
 then the same lengths through the disaggregated path (the port's router,
 a layer-wise prefill worker and a decode worker, each on its own CUDA
-stream), whose f32 exactness phase 4 also checks.
+stream), whose f32 exactness phase 4 also checks. Before the serving
+phases, the parallelism path: K5 (the ring-attention block fold) at
+Llama-3-8B's attention width over S 32768 as 8 in-process ranks, held
+against its plain fold step by step and against dense attention at S
+8192, then the collectives, ring attention, the GPipe pipeline and the
+expert-parallel MoE through an NCCL world of one rank.
 
     python3 chip_smoke.py            # all phases, one card
     python3 chip_smoke.py --profile  # + two short profiled swarms
@@ -67,6 +72,7 @@ REPLACES = {
     "paged_prefill_attention": "brpc_tpu/kv_cache.py:1151",
     "rms_norm": "brpc_tpu/models/transformer.py:102",
     "add_rms_norm": "brpc_tpu/models/transformer.py:102",
+    "ring_attention_fold": "brpc_tpu/ops/ring_attention.py:65",
 }
 SOURCES = {
     "paged_decode_attention":
@@ -76,6 +82,7 @@ SOURCES = {
         "brpc_tpu_torch/csrc/paged_prefill_attention.cu",
     "rms_norm": "brpc_tpu_torch/csrc/rms_norm.cu",
     "add_rms_norm": "brpc_tpu_torch/csrc/rms_norm.cu",
+    "ring_attention_fold": "brpc_tpu_torch/csrc/ring_attention.cu",
 }
 
 
@@ -181,8 +188,9 @@ def ptxas_summary(path: str) -> list:
     return out
 
 
-# Kernels on the shared attention tile core (K1, K2, K4, and the merges).
-TILE_KERNEL = re.compile(r"prefill|paged_decode")
+# Kernels on the shared attention tile core (K1, K2, K4, K5, and the
+# merges).
+TILE_KERNEL = re.compile(r"prefill|paged_decode|ring_attention")
 
 
 def sass_mma_counts(build) -> dict:
@@ -204,7 +212,7 @@ def sass_mma_counts(build) -> dict:
             log(f"[sass] {name}: {n} HMMA/HGMMA")
             if "merge" not in name and n == 0:
                 raise AssertionError(f"{name} has no tensor-core instruction")
-    for kind in ("prefill", "paged_decode_kernel"):
+    for kind in ("prefill", "paged_decode_kernel", "ring_attention_fold"):
         if not any(kind in k and "bfloat16" in k for k in counts):
             raise AssertionError(f"no bf16 {kind} kernel in the SASS")
     return counts
@@ -531,6 +539,302 @@ def phase_kernels() -> dict:
                 f"{r['plain_ms']:.4f} bound_ms {r['bound_ms']:.5f} "
                 f"({r['bound_by']}) library_ms {lib}{dev}")
     return cases
+
+
+# ---- the parallel phase: K5, the collectives, the pipeline, MoE -------------
+
+# K5 at Llama-3-8B's attention width (TransformerConfig.llama3_8b: H 32, Dh
+# 128), B 1: S 32768 as 8 in-process ranks of 4096, and S 8192 (8 x 1024)
+# against dense attention (dense at 32768 would need 137 GB of f32 scores).
+RING_RANKS = 8
+RING_S = 32768
+RING_DENSE_S = 8192
+RING_H, RING_DH = 32, 128
+
+
+def ring_launches(n: int, causal: bool) -> int:
+    """K5 launches of one in-process ring of n ranks: every fold, except
+    that a causal block above the diagonal launches only as a rank's last
+    step (to write its output)."""
+    if not causal:
+        return n * n
+    return n * (n + 1) // 2 + n - 1
+
+
+def ring_blocks(gen, dtype, S: int) -> tuple:
+    """q, k, v of one sequence [1, S, H, Dh], each cut into RING_RANKS
+    blocks on dim 1 (rank order)."""
+    shape = (1, S, RING_H, RING_DH)
+    full = [torch.randn(shape, generator=gen, device="cuda").to(dtype)
+            for _ in range(3)]
+    return full, [list(t.split(S // RING_RANKS, dim=1)) for t in full]
+
+
+def check_ring_fold(dtype, gen, causal: bool) -> dict:
+    """K5 step by step against the plain fold (the reference's ``step``)
+    through an in-process ring at S 32768: after every step each rank's
+    state, normalised, is held to TOL and ROW_TOL; then each rank's output
+    (the kernel's last-step epilogue) against the plain fold's. Returns the
+    worst errors, the inputs and the ring's outputs."""
+    from brpc_tpu_torch.ops import ring_attention as ra
+
+    n, s = RING_RANKS, RING_S // RING_RANKS
+    _, (qs, ks, vs) = ring_blocks(gen, dtype, RING_S)
+    tag = f"ring_attention_fold {str(dtype)[6:]} causal={causal}"
+    worst, worst_row, finals = 0.0, 0.0, []
+    for my in range(n):
+        state, plain = ra.fold_state(qs[my]), ra.fold_state(qs[my])
+        for t in range(n):
+            src = (my - t) % n
+            state = ra.ring_attention_fold(qs[my], ks[src], vs[src], state,
+                                           my * s, src * s, causal)
+            plain = ra.ring_attention_fold_plain(qs[my], ks[src], vs[src],
+                                                 plain, my * s, src * s,
+                                                 causal)
+            err, row = compare(f"{tag} rank {my} step {t}",
+                               ra.fold_output(state, torch.float32),
+                               ra.fold_output(plain, torch.float32), dtype,
+                               rows=True)
+            worst, worst_row = max(worst, err), max(worst_row, row)
+        finals.append(ra.fold_output(plain, dtype))
+        del state, plain
+    outs = ra.ring_attention_local(qs, ks, vs, causal)
+    for my in range(n):
+        err, row = compare(f"{tag} rank {my} output", outs[my], finals[my],
+                           dtype, rows=True)
+        worst, worst_row = max(worst, err), max(worst_row, row)
+    return {"max_abs_err": worst, "row_rel_err": worst_row,
+            "inputs": (qs, ks, vs), "outputs": outs}
+
+
+def check_ring_dense(dtype, gen, causal: bool) -> tuple:
+    """The in-process ring at S 8192 against dense attention."""
+    from brpc_tpu_torch.ops import ring_attention as ra
+
+    (q, k, v), (qs, ks, vs) = ring_blocks(gen, dtype, RING_DENSE_S)
+    got = torch.cat(ra.ring_attention_local(qs, ks, vs, causal), dim=1)
+    want = ra.attention_reference(q, k, v, causal)
+    return compare(f"ring_attention S={RING_DENSE_S} {str(dtype)[6:]} "
+                   f"causal={causal} vs dense", got, want, dtype, rows=True)
+
+
+def time_ring_fold(dtype, gen) -> dict:
+    """One fold of a block with every key visible (rank 1 folding rank 0's
+    block) and one diagonal block, s 4096; the plain fold; SDPA over the
+    same block as the library yardstick."""
+    from brpc_tpu_torch.ops import ring_attention as ra
+
+    s, H, D = RING_S // RING_RANKS, RING_H, RING_DH
+    q, k, v = (torch.randn((1, s, H, D), generator=gen, device="cuda")
+               .to(dtype) for _ in range(3))
+    state = ra.fold_state(q)
+
+    def kern():
+        return ra.ring_attention_fold(q, k, v, state, s, 0, True)
+
+    def diag():
+        return ra.ring_attention_fold(q, k, v, state, s, s, True)
+
+    def plain():
+        return ra.ring_attention_fold_plain(q, k, v, state, s, 0, True)
+
+    F = torch.nn.functional
+    q4, k4, v4 = (t.transpose(1, 2) for t in (q, k, v))
+
+    def lib():
+        return F.scaled_dot_product_attention(q4, k4, v4)
+
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    # q, k, v read; the state (o and (m, l), f32) read and written.
+    nbytes = 3 * s * H * D * itemsize + 2 * s * H * (D + 2) * 4
+    b, by = bound_ms(nbytes, 4.0 * H * s * s * D, dtype)
+    b_diag, _ = bound_ms(nbytes, 4.0 * H * D * s * (s + 1) / 2, dtype)
+    return {"shape": f"q,k,v[1,{s},{H},{D}] one block, every key visible",
+            "ms": time_ms(kern), "device_ms": device_ms(kern),
+            "diag_ms": time_ms(diag), "diag_bound_ms": b_diag,
+            "plain_ms": time_ms(plain, iters=5), "bound_ms": b,
+            "bound_by": by, "library_ms": time_ms(lib),
+            "library_device_ms": device_ms(lib)}
+
+
+def phase_world(gen) -> dict:
+    """The collectives, ring attention, the pipeline and MoE through an
+    NCCL process group of world size 1 on the card (one card cannot hold
+    two NCCL ranks: the CPU tests run them in gloo worlds of 4). f32 with
+    TF32 off for the pipeline and MoE."""
+    import socket
+
+    import torch.distributed as dist
+    from brpc_tpu_torch import parallel as par
+    from brpc_tpu_torch.models import moe
+    from brpc_tpu_torch.ops import ring_attention as ra
+    from brpc_tpu_torch.parallel.pipeline import pipeline_forward
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    with socket.socket() as so:
+        so.bind(("localhost", 0))
+        port = so.getsockname()[1]
+    t0 = time.monotonic()
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            world_size=1, rank=0)
+    res = {"init_s": time.monotonic() - t0}
+    try:
+        x = torch.randn((4, 1024), generator=gen, device=dev)
+        for name, got in (
+                ("all_gather", par.all_gather(x)),
+                ("all_reduce", par.all_reduce(x)),
+                ("reduce_scatter", par.reduce_scatter(x[None])[0]),
+                ("all_to_all", par.all_to_all(x[:1])),
+                ("ring_shift", par.ring_shift(x, 1)),
+                ("fanout_concat", par.fanout_call(
+                    lambda r, a: a * (r + 1), x, "concat")),
+                ("fanout_sum", par.fanout_call(
+                    lambda r, a: a * (r + 1), x, "sum"))):
+            want = x[:1] if name == "all_to_all" else x
+            if not torch.equal(got, want):
+                raise AssertionError(f"{name} in a world of one changed "
+                                     f"its input")
+        (q, k, v), _ = ring_blocks(gen, torch.bfloat16, 4096)
+        res["ring_err"] = compare("ring_attention, world of one, S 4096",
+                                  ra.ring_attention(q, k, v, True),
+                                  ra.attention_reference(q, k, v, True),
+                                  torch.bfloat16, rows=True)
+        # GPipe: 4 stages of tanh(a @ w) at width 4096 (the one rank holds
+        # all 4), 8 microbatches of 512 rows.
+        w = torch.randn((4, 4096, 4096), generator=gen, device=dev) \
+            * 4096 ** -0.5
+        xs = torch.randn((8, 512, 4096), generator=gen, device=dev)
+
+        def stage(p, a):
+            return torch.tanh(a @ p)
+
+        t0 = time.monotonic()
+        ys = pipeline_forward(stage, w, xs)
+        torch.cuda.synchronize()
+        res["pipeline_ms"] = (time.monotonic() - t0) * 1e3
+        want = xs
+        for i in range(4):
+            want = stage(w[i], want)
+        res["pipeline_err"] = compare("pipeline_forward", ys, want,
+                                      torch.float32)[0]
+        del w, xs, ys, want
+        # MoE at Llama-3-8B's MLP width, 8 experts, f32: ample capacity
+        # (512 tokens, no drop) and capacity 16 (drops).
+        p = moe.moe_init(torch.Generator(device=dev).manual_seed(7), 4096,
+                         14336, 8, device=dev)
+        xm = torch.randn((4, 128, 4096), generator=gen, device=dev)
+        for cap in (512, 16):
+            t0 = time.monotonic()
+            got = moe.moe_forward(p, xm, cap)
+            torch.cuda.synchronize()
+            ms = (time.monotonic() - t0) * 1e3
+            want = moe.moe_reference(p, xm, cap)
+            kept = int(moe._route(xm.reshape(-1, 4096), p["router"], cap,
+                                  8)[0].sum())
+            res[f"moe_cap{cap}"] = {
+                "max_abs_err": compare(f"moe_forward capacity {cap}", got,
+                                       want, torch.float32)[0],
+                "tokens_kept": kept, "ms": ms}
+        if res["moe_cap512"]["tokens_kept"] != 512 or \
+                res["moe_cap16"]["tokens_kept"] >= 512:
+            raise AssertionError(f"MoE capacities did not keep all tokens "
+                                 f"and then drop some: {res}")
+        del p, xm
+    finally:
+        dist.destroy_process_group()
+    return res
+
+
+def phase_parallel() -> dict:
+    """K5 against its plain fold and dense attention, its timings, then the
+    main run of this path: counts zeroed, the in-process causal bf16 ring
+    at S 32768 and the NCCL world, counts read."""
+    from brpc_tpu_torch import ops
+    from brpc_tpu_torch.ops import ring_attention as ra
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    res = {"fold": {}, "dense": {}, "timing": {}}
+    t_phase = time.monotonic()
+    main_in = main_out = None
+    for dtype in (torch.bfloat16, torch.float32):
+        tag = str(dtype)[6:]
+        for causal in (True, False):
+            r = check_ring_fold(dtype, gen, causal)
+            if dtype == torch.bfloat16 and causal:
+                main_in, main_out = r["inputs"], r["outputs"]
+            res["fold"][f"{tag} causal={causal}"] = {
+                "max_abs_err": r["max_abs_err"],
+                "row_rel_err": r["row_rel_err"]}
+            del r
+            err, row = check_ring_dense(dtype, gen, causal)
+            res["dense"][f"{tag} causal={causal}"] = {"max_abs_err": err,
+                                                      "row_rel_err": row}
+            log(f"[parallel] K5 {tag} causal={causal}: S {RING_S} as "
+                f"{RING_RANKS} x {RING_S // RING_RANKS} vs plain fold, "
+                f"every step: max_abs_err "
+                f"{res['fold'][f'{tag} causal={causal}']['max_abs_err']:.3e}"
+                f" row_rel_err "
+                f"{res['fold'][f'{tag} causal={causal}']['row_rel_err']:.3e}"
+                f"; S {RING_DENSE_S} vs dense: max_abs_err {err:.3e} "
+                f"row_rel_err {row:.3e}")
+            torch.cuda.empty_cache()
+        t = time_ring_fold(dtype, gen)
+        res["timing"][tag] = t
+        log(f"[kernel] ring_attention_fold {tag} {t['shape']}: ms "
+            f"{t['ms']:.4f} device_ms {fmt_ms(t['device_ms'])} plain_ms "
+            f"{t['plain_ms']:.4f} bound_ms {t['bound_ms']:.5f} "
+            f"({t['bound_by']}) library_ms {t['library_ms']:.4f} "
+            f"library_device_ms {fmt_ms(t['library_device_ms'])}; diagonal "
+            f"block ms {t['diag_ms']:.4f} bound_ms {t['diag_bound_ms']:.5f}")
+    # The whole causal ring against one causal SDPA over S 32768 (bf16).
+    qs, ks, vs = main_in
+    F = torch.nn.functional
+    Q, K, V = (torch.cat(b, dim=1).transpose(1, 2) for b in (qs, ks, vs))
+    ring_ms = time_ms(lambda: ra.ring_attention_local(qs, ks, vs, True),
+                      iters=3, warmup=1)
+    sdpa_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        Q, K, V, is_causal=True), iters=3, warmup=1)
+    ring_bound, _ = bound_ms(
+        4 * RING_S * RING_H * RING_DH * 2,
+        4.0 * RING_H * RING_DH * RING_S * (RING_S + 1) / 2, torch.bfloat16)
+    res["ring_bf16_causal"] = {"ring_ms": ring_ms, "sdpa_causal_ms": sdpa_ms,
+                               "bound_ms": ring_bound}
+    log(f"[parallel] causal ring, S {RING_S} bf16, {RING_RANKS} in-process "
+        f"ranks: {ring_ms:.3f} ms ({ring_launches(RING_RANKS, True)} K5 "
+        f"launches); one causal SDPA over S {RING_S}: {sdpa_ms:.3f} ms; "
+        f"bound {ring_bound:.3f} ms (operations)")
+    del Q, K, V
+    # The path's main run: counts zeroed just before, read just after.
+    ops.reset_launch_counts()
+    outs = ra.ring_attention_local(qs, ks, vs, True)
+    res["world"] = phase_world(gen)
+    launches = ops.launch_counts()
+    want = ring_launches(RING_RANKS, True) + 1  # + the world of one's fold
+    if launches["ring_attention_fold"] != want:
+        raise AssertionError(f"K5 launched {launches['ring_attention_fold']}"
+                             f" times on the parallel path, not {want}")
+    for my in range(RING_RANKS):
+        if not torch.equal(outs[my], main_out[my]):
+            raise AssertionError(f"the ring's output on rank {my} changed "
+                                 f"between two runs")
+    res["launches"] = launches
+    w = res["world"]
+    log(f"[parallel] NCCL world of one (init {w['init_s']:.1f} s): "
+        f"collectives exact; ring_attention S 4096 vs dense max_abs_err "
+        f"{w['ring_err'][0]:.3e} row_rel_err {w['ring_err'][1]:.3e}; "
+        f"pipeline (4 stages x 4096, 8 x 512 rows) {w['pipeline_ms']:.1f} ms"
+        f" max_abs_err {w['pipeline_err']:.3e}; MoE (4096 x 14336, 8 "
+        f"experts, 512 tokens, f32) capacity 512 kept "
+        f"{w['moe_cap512']['tokens_kept']} in "
+        f"{w['moe_cap512']['ms']:.1f} ms max_abs_err "
+        f"{w['moe_cap512']['max_abs_err']:.3e}, capacity 16 kept "
+        f"{w['moe_cap16']['tokens_kept']} max_abs_err "
+        f"{w['moe_cap16']['max_abs_err']:.3e}; K5 launches {launches}; "
+        f"phase {time.monotonic() - t_phase:.1f} s")
+    del main_in, main_out, outs, qs, ks, vs
+    torch.cuda.empty_cache()
+    return res
 
 
 # ---- phases 4 and 5: the serving path -----------------------------------------
@@ -1478,6 +1782,7 @@ def main() -> int:
     report["build_s"] = {"native": t_native, "kernels": t_kernels}
     report["sass_mma"] = sass_mma_counts(_build)
     cases = phase_kernels()
+    report["parallel"] = parallel = phase_parallel()
     from brpc_tpu_torch import runtime
     from brpc_tpu_torch.models import transformer
 
@@ -1526,6 +1831,17 @@ def main() -> int:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
         })
+    t = parallel["timing"]["bfloat16"]
+    rows.append({
+        "name": "ring_attention_fold", "route": "cuda",
+        "source": SOURCES["ring_attention_fold"],
+        "replaces": REPLACES["ring_attention_fold"],
+        "launches": parallel["launches"]["ring_attention_fold"],
+        "max_abs_err": parallel["fold"]["bfloat16 causal=True"][
+            "max_abs_err"],
+        "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+        "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+    })
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

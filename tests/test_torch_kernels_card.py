@@ -4,6 +4,9 @@ no card is visible; the file imports no JAX, so it runs on a machine with
 PyTorch and a card only:
 
     python3 -m pytest -m cuda tests/test_torch_kernels_card.py -q
+
+Each test loops over its cases (dtypes, head layouts, shapes) and names
+the case in every failure message.
 """
 
 import dataclasses
@@ -16,6 +19,7 @@ import torch
 from brpc_tpu_torch import disagg, ops, serving
 from brpc_tpu_torch.models import transformer
 from brpc_tpu_torch.ops import attention, norm
+from brpc_tpu_torch.ops import ring_attention as ra
 
 HEADS = [(4, 4, 32), (4, 2, 32), (8, 2, 64), (32, 8, 128)]  # (H, KV, Dh)
 
@@ -33,10 +37,19 @@ CARD_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2e-2, 1e-2)}
 ROW_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 
 
-def _assert_rows_close(got, want, dtype):
+DTYPES = [torch.float32, torch.bfloat16]
+
+
+def _assert_close(got, want, dtype, case):
+    atol, rtol = CARD_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                               rtol=rtol, msg=lambda m: f"{case}: {m}")
+
+
+def _assert_rows_close(got, want, dtype, case):
     err = attention.max_row_rel_err(got, want)
     assert err <= ROW_TOL[dtype], (
-        f"a row's relative error {err:.3e} is above {ROW_TOL[dtype]}")
+        f"{case}: a row's relative error {err:.3e} is above {ROW_TOL[dtype]}")
 
 
 @pytest.fixture
@@ -71,64 +84,61 @@ def _decode_inputs(H, KV, Dh, dev, dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("H,KV,Dh", HEADS)
-def test_kernels_match_plain_on_card(cuda_device, dtype, H, KV, Dh):
-    atol, rtol = CARD_TOL[dtype]
+def test_kernels_match_plain_on_card(cuda_device):
     dev = cuda_device
-    args = _decode_inputs(H, KV, Dh, dev, dtype)
-    n = attention.paged_decode_attention.launches
-    got = attention.paged_decode_attention(*args, 2)
-    assert attention.paged_decode_attention.launches == n + 1
-    want = attention.paged_decode_attention_plain(*args, 2)
-    torch.testing.assert_close(got.float(), want.float(), atol=atol,
-                               rtol=rtol)
-    _assert_rows_close(got, want, dtype)
-    x = torch.randn((70, H, Dh), device=dev).to(dtype)
-    kv = torch.randn((70, KV, Dh), device=dev).to(dtype)
-    got = attention.prefill_attention(x, kv, kv * 0.5, 41)
-    want = attention.prefill_attention_plain(x, kv, kv * 0.5, 41)
-    torch.testing.assert_close(got.float(), want.float(), atol=atol,
-                               rtol=rtol)
-    _assert_rows_close(got, want, dtype)
-    g = torch.rand(H * Dh, device=dev) + 0.5
-    rows = x.reshape(70, H * Dh)
-    torch.testing.assert_close(norm.rms_norm(rows, g, 1e-5).float(),
-                               norm.rms_norm_plain(rows, g, 1e-5).float(),
-                               atol=atol, rtol=rtol)
-    # The fused residual add: the sum exactly as torch rounds it, the norm
-    # within the tolerance.
-    delta = torch.randn_like(rows)
-    n = norm.add_rms_norm.launches
-    s, h = norm.add_rms_norm(rows, delta, g, 1e-5)
-    assert norm.add_rms_norm.launches == n + 1
-    s_want, h_want = norm.add_rms_norm_plain(rows, delta, g, 1e-5)
-    assert torch.equal(s, s_want)
-    torch.testing.assert_close(h.float(), h_want.float(), atol=atol,
-                               rtol=rtol)
+    for dtype in DTYPES:
+        for H, KV, Dh in HEADS:
+            case = f"{dtype} H={H} KV={KV} Dh={Dh}"
+            args = _decode_inputs(H, KV, Dh, dev, dtype)
+            n = attention.paged_decode_attention.launches
+            got = attention.paged_decode_attention(*args, 2)
+            assert attention.paged_decode_attention.launches == n + 1, case
+            want = attention.paged_decode_attention_plain(*args, 2)
+            _assert_close(got, want, dtype, f"decode {case}")
+            _assert_rows_close(got, want, dtype, f"decode {case}")
+            x = torch.randn((70, H, Dh), device=dev).to(dtype)
+            kv = torch.randn((70, KV, Dh), device=dev).to(dtype)
+            got = attention.prefill_attention(x, kv, kv * 0.5, 41)
+            want = attention.prefill_attention_plain(x, kv, kv * 0.5, 41)
+            _assert_close(got, want, dtype, f"prefill {case}")
+            _assert_rows_close(got, want, dtype, f"prefill {case}")
+            g = torch.rand(H * Dh, device=dev) + 0.5
+            rows = x.reshape(70, H * Dh)
+            _assert_close(norm.rms_norm(rows, g, 1e-5),
+                          norm.rms_norm_plain(rows, g, 1e-5), dtype,
+                          f"rms_norm {case}")
+            # The fused residual add: the sum exactly as torch rounds it,
+            # the norm within the tolerance.
+            delta = torch.randn_like(rows)
+            n = norm.add_rms_norm.launches
+            s, h = norm.add_rms_norm(rows, delta, g, 1e-5)
+            assert norm.add_rms_norm.launches == n + 1, case
+            s_want, h_want = norm.add_rms_norm_plain(rows, delta, g, 1e-5)
+            assert torch.equal(s, s_want), f"add_rms_norm sum {case}"
+            _assert_close(h, h_want, dtype, f"add_rms_norm {case}")
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("P,length", [(2048, 1060), (130, 77)])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("H,KV,Dh", HEADS)
-def test_prefill_attention_matches_plain_on_card(cuda_device, H, KV, Dh,
-                                                 dtype, P, length):
+def test_prefill_attention_matches_plain_on_card(cuda_device):
     """K2 against its plain version: a 1060-token prompt in its 2048
     bucket (key tiles past the length skipped, pad rows still computed)
     and a ragged short one."""
-    atol, rtol = CARD_TOL[dtype]
-    gen = torch.Generator(device=cuda_device).manual_seed(P + length)
-    q = torch.randn((P, H, Dh), generator=gen, device=cuda_device).to(dtype)
-    k = torch.randn((P, KV, Dh), generator=gen, device=cuda_device).to(dtype)
-    v = torch.randn((P, KV, Dh), generator=gen, device=cuda_device).to(dtype)
-    before = attention.prefill_attention.launches
-    got = attention.prefill_attention(q, k, v, length)
-    assert attention.prefill_attention.launches == before + 1
-    want = attention.prefill_attention_plain(q, k, v, length)
-    torch.testing.assert_close(got.float(), want.float(), atol=atol,
-                               rtol=rtol)
-    _assert_rows_close(got, want, dtype)
+    for H, KV, Dh in HEADS:
+        for dtype in DTYPES:
+            for P, length in [(2048, 1060), (130, 77)]:
+                case = f"{dtype} H={H} KV={KV} Dh={Dh} P={P} len={length}"
+                gen = torch.Generator(device=cuda_device).manual_seed(
+                    P + length)
+                q, k, v = (torch.randn((P, h, Dh), generator=gen,
+                                       device=cuda_device).to(dtype)
+                           for h in (H, KV, KV))
+                before = attention.prefill_attention.launches
+                got = attention.prefill_attention(q, k, v, length)
+                assert attention.prefill_attention.launches == before + 1, \
+                    case
+                want = attention.prefill_attention_plain(q, k, v, length)
+                _assert_close(got, want, dtype, case)
+                _assert_rows_close(got, want, dtype, case)
 
 
 # K1 at Llama-3-8B heads, 8 lanes: (positions, table columns (None: the
@@ -145,17 +155,9 @@ DECODE_CASES = {
 }
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("case", list(DECODE_CASES))
-def test_paged_decode_attention_matches_plain_on_card(cuda_device, case,
-                                                      dtype):
-    """K1 (split-K over each lane's table, the plan from the table's width)
-    against its plain version on the last layer of a strided pool."""
-    atol, rtol = CARD_TOL[dtype]
+def _check_paged_decode(dev, case, dtype):
     pos, width, idle = DECODE_CASES[case]
     H, KV, Dh, L, page = 32, 8, 128, 2, 16
-    dev = cuda_device
     gen = torch.Generator(device=dev).manual_seed(len(case))
     need = [0 if s in idle else p // page + 1 for s, p in enumerate(pos)]
     width = width or max(need)
@@ -174,12 +176,21 @@ def test_paged_decode_attention_matches_plain_on_card(cuda_device, case,
     before = attention.paged_decode_attention.launches
     got = attention.paged_decode_attention(q, k_pool, v_pool, tables, pos_t,
                                            L - 1)
-    assert attention.paged_decode_attention.launches == before + 1
+    what = f"{case} {dtype}"
+    assert attention.paged_decode_attention.launches == before + 1, what
     want = attention.paged_decode_attention_plain(q, k_pool, v_pool, tables,
                                                   pos_t, L - 1)
-    torch.testing.assert_close(got.float(), want.float(), atol=atol,
-                               rtol=rtol)
-    _assert_rows_close(got, want, dtype)
+    _assert_close(got, want, dtype, what)
+    _assert_rows_close(got, want, dtype, what)
+
+
+@pytest.mark.cuda
+def test_paged_decode_attention_matches_plain_on_card(cuda_device):
+    """K1 (split-K over each lane's table, the plan from the table's width)
+    against its plain version on the last layer of a strided pool."""
+    for dtype in DTYPES:
+        for case in DECODE_CASES:
+            _check_paged_decode(cuda_device, case, dtype)
 
 
 # (start, n): page-aligned, mid-page start ending mid-page, one query deep,
@@ -188,15 +199,7 @@ def test_paged_decode_attention_matches_plain_on_card(cuda_device, case,
 RESUME_CASES = [(1008, 40), (517, 300), (4000, 1), (100, 200)]
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("start,n", RESUME_CASES)
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("H,KV,Dh", HEADS)
-def test_paged_prefill_attention_matches_plain_on_card(cuda_device, H, KV,
-                                                       Dh, dtype, start, n):
-    """K4 against its plain version on a shuffled table over the last
-    layer of a strided pool."""
-    atol, rtol = CARD_TOL[dtype]
+def _check_paged_prefill(cuda_device, H, KV, Dh, dtype, start, n):
     L, page = 2, 16
     gen = torch.Generator(device=cuda_device).manual_seed(start + n)
     pages = -(-(start + n) // page)
@@ -210,22 +213,37 @@ def test_paged_prefill_attention_matches_plain_on_card(cuda_device, H, KV,
     before = attention.paged_prefill_attention.launches
     got = attention.paged_prefill_attention(q, k_pool, v_pool, table, start,
                                             L - 1)
-    assert attention.paged_prefill_attention.launches == before + 1
+    case = f"{dtype} H={H} KV={KV} Dh={Dh} start={start} n={n}"
+    assert attention.paged_prefill_attention.launches == before + 1, case
     want = attention.paged_prefill_attention_plain(q, k_pool, v_pool, table,
                                                    start, L - 1)
-    torch.testing.assert_close(got.float(), want.float(), atol=atol,
-                               rtol=rtol)
-    _assert_rows_close(got, want, dtype)
+    _assert_close(got, want, dtype, case)
+    _assert_rows_close(got, want, dtype, case)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n_kv_heads", [4, 2], ids=["mha", "gqa"])
-def test_engine_on_card_prefix_hits_stream_plain_greedy(cuda_device,
-                                                        n_kv_heads):
+def test_paged_prefill_attention_matches_plain_on_card(cuda_device):
+    """K4 against its plain version on a shuffled table over the last
+    layer of a strided pool."""
+    for H, KV, Dh in HEADS:
+        for dtype in DTYPES:
+            for start, n in RESUME_CASES:
+                _check_paged_prefill(cuda_device, H, KV, Dh, dtype, start, n)
+
+
+@pytest.mark.cuda
+def test_engine_on_card_prefix_hits_stream_plain_greedy(cuda_device):
     """The f32 engine on the card with the prefix cache: a mid-page prefix
     hit while the shared tail is live (a copy-on-write), then the next
     turn off the finished sequence, each streaming exactly the plain
-    forward's greedy tokens, with K4 launched once per layer per resume."""
+    forward's greedy tokens, with K4 launched once per layer per resume;
+    with every KV head its own (MHA) and grouped (GQA)."""
+    for n_kv_heads in (4, 2):
+        _check_engine_prefix_hits(cuda_device, n_kv_heads)
+
+
+def _check_engine_prefix_hits(cuda_device, n_kv_heads):
+    case = f"n_kv_heads={n_kv_heads}"
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = dataclasses.replace(transformer.TransformerConfig.tiny(),
                               dtype=torch.float32, n_kv_heads=n_kv_heads)
@@ -245,20 +263,26 @@ def test_engine_on_card_prefix_hits_stream_plain_greedy(cuda_device,
         turn2 = base + got_base + [7, 8]
         got2 = serving.generate(addr, turn2, 6)
         s = eng.stats()
-    assert s["resumes"] == 2 and s["kv_prefix_cow_copies"] >= 1
+    assert s["resumes"] == 2 and s["kv_prefix_cow_copies"] >= 1, case
     assert ops.launch_counts()["paged_prefill_attention"] == \
-        cfg.n_layers * s["resumes"]
+        cfg.n_layers * s["resumes"], case
     for prompt, toks, n in ((base, got_base, 12),
                             (base + [90, 91, 92], mid, 6), (turn2, got2, 6)):
-        assert toks == transformer.greedy_reference(params, cfg, prompt, n,
-                                                    device=cuda_device)
+        assert toks == transformer.greedy_reference(
+            params, cfg, prompt, n, device=cuda_device), (case, prompt)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n_kv_heads", [4, 2], ids=["mha", "gqa"])
-def test_engine_on_card_streams_plain_greedy(cuda_device, n_kv_heads):
+def test_engine_on_card_streams_plain_greedy(cuda_device):
     """The f32 engine on the card (kernels on every prefill and decode
-    step) streams exactly the plain forward's greedy tokens."""
+    step) streams exactly the plain forward's greedy tokens, MHA and
+    GQA."""
+    for n_kv_heads in (4, 2):
+        _check_engine_streams(cuda_device, n_kv_heads)
+
+
+def _check_engine_streams(cuda_device, n_kv_heads):
+    case = f"n_kv_heads={n_kv_heads}"
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = dataclasses.replace(transformer.TransformerConfig.tiny(),
                               dtype=torch.float32, n_kv_heads=n_kv_heads)
@@ -274,15 +298,16 @@ def test_engine_on_card_streams_plain_greedy(cuda_device, n_kv_heads):
         steps, prefills = eng.stats()["model_steps"], eng.stats()["prefills"]
     counts = ops.launch_counts()
     L = cfg.n_layers
-    assert counts["paged_decode_attention"] == L * steps
-    assert counts["prefill_attention"] == L * prefills
+    assert counts["paged_decode_attention"] == L * steps, case
+    assert counts["prefill_attention"] == L * prefills, case
     # Every norm but the first of a pass takes its residual add along; a
     # prefill's one-row final norm stays unfused.
-    assert counts["rms_norm"] == steps + 2 * prefills
-    assert counts["add_rms_norm"] == 2 * L * steps + (2 * L - 1) * prefills
+    assert counts["rms_norm"] == steps + 2 * prefills, case
+    assert counts["add_rms_norm"] == \
+        2 * L * steps + (2 * L - 1) * prefills, case
     for p, toks in zip(prompts, got):
-        assert toks == transformer.greedy_reference(params, cfg, p, 6,
-                                                    device=cuda_device)
+        assert toks == transformer.greedy_reference(
+            params, cfg, p, 6, device=cuda_device), (case, p)
 
 
 @pytest.mark.cuda
@@ -330,3 +355,59 @@ def test_disagg_on_card_streams_plain_greedy(cuda_device):
     for p, toks in zip(prompts, got):
         assert toks == transformer.greedy_reference(params, cfg, p, 6,
                                                     device=cuda_device)
+
+
+# K5 cases: (B, ranks, block length s, H, D, causal). Ragged blocks (s not
+# a multiple of the 64-row tile), every head dim the core has, and a
+# Llama-width one.
+RING_CASES = [(2, 4, 48, 4, 32, True), (1, 3, 130, 2, 64, False),
+              (1, 4, 100, 2, 128, True), (1, 2, 256, 32, 128, False)]
+
+
+@pytest.mark.cuda
+def test_ring_attention_fold_matches_plain_on_card(cuda_device):
+    """K5 against the plain fold, step by step through an in-process ring
+    (each rank's state normalised after every step), and the ring's output
+    against dense attention; a block above the diagonal launches nothing
+    until the last step; a head dim the core lacks raises."""
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    for B, n, s, H, D, causal in RING_CASES:
+        for dtype in DTYPES:
+            case = f"{dtype} B={B} n={n} s={s} H={H} D={D} causal={causal}"
+            q, k, v = (torch.randn((B, n * s, H, D), generator=gen,
+                                   device=cuda_device).to(dtype)
+                       for _ in range(3))
+            qs, ks, vs = (list(t.split(s, dim=1)) for t in (q, k, v))
+            for my in range(n):
+                state = ra.fold_state(qs[my])
+                plain = ra.fold_state(qs[my])
+                for t in range(n):
+                    src = (my - t) % n
+                    before = ra.ring_attention_fold.launches
+                    state = ra.ring_attention_fold(
+                        qs[my], ks[src], vs[src], state, my * s, src * s,
+                        causal)
+                    skipped = causal and src > my
+                    assert ra.ring_attention_fold.launches == \
+                        before + (not skipped), (case, my, t)
+                    plain = ra.ring_attention_fold_plain(
+                        qs[my], ks[src], vs[src], plain, my * s, src * s,
+                        causal)
+                    step = f"{case} rank {my} step {t}"
+                    got, want = (ra.fold_output(st, torch.float32)
+                                 for st in (state, plain))
+                    _assert_close(got, want, dtype, step)
+                    _assert_rows_close(got, want, dtype, step)
+            out = torch.cat(ra.ring_attention_local(qs, ks, vs, causal), 1)
+            assert out.dtype == dtype, case
+            want = ra.attention_reference(q, k, v, causal)
+            _assert_close(out, want, dtype, f"{case} vs dense")
+            _assert_rows_close(out, want, dtype, f"{case} vs dense")
+    x = torch.zeros((1, 64, 2, 16), device=cuda_device)
+    with pytest.raises(ValueError, match="D in"):
+        ra.ring_attention_fold(x, x, x, ra.fold_state(x), 0, 0, False)
+    # K5 has no backward fold yet: differentiating through it raises.
+    q = torch.randn((1, 64, 2, 32), device=cuda_device, requires_grad=True)
+    out = ra.ring_attention_local([q], [q.detach()], [q.detach()])[0]
+    with pytest.raises(NotImplementedError, match="no backward"):
+        out.sum().backward()

@@ -191,6 +191,14 @@ def _port_sources():
 
 
 def test_port_sources_import_no_jax_and_no_library_attention():
+    scanned = {os.path.relpath(p, REPO) for p in _port_sources()}
+    for rel in ("brpc_tpu_torch/parallel/__init__.py",
+                "brpc_tpu_torch/parallel/pipeline.py",
+                "brpc_tpu_torch/parallel/world.py",
+                "brpc_tpu_torch/ops/ring_attention.py",
+                "brpc_tpu_torch/models/moe.py",
+                "brpc_tpu_torch/csrc/ring_attention.cu"):
+        assert rel in scanned, f"the scan misses {rel}"
     imported = {}
     for path in _port_sources():
         text = open(path).read()
