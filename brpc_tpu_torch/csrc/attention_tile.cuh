@@ -40,6 +40,14 @@
 // A row that sees no key of its split keeps m = -inf and l = 0, and the
 // merge gives it weight 0.
 //
+// A sink may also name `lse`, one f32 per row: a block that writes its
+// final rows then also writes the row's log-sum-exp m + log(l) in natural
+// units (the logits' own: m is a max of scaled logits, l a sum of
+// exp(logit - m)), from which a backward pass recomputes the probabilities
+// as exp(logit - lse). A row with l = 0 gets +inf: every probability, and
+// so every gradient of the row, is then 0. Null: no LSE (the serving
+// path).
+//
 // A problem that declares `static constexpr bool kFolds = true` (K5, the
 // ring's block fold, csrc/ring_attention.cu) does neither: the block's
 // (O, m, l) is folded into a running f32 state of its rows by merge_row's
@@ -82,7 +90,13 @@ struct Sink {
   int n_rows;  // n * H
   int split;
   bool partial;
+  float* lse = nullptr;  // [row] f32, or null
 };
+
+// The LSE a final row stores: m + log(l), +inf where no key was seen.
+__device__ __forceinline__ float row_lse(float m, float l) {
+  return l == 0.f ? INFINITY : m + logf(l);
+}
 
 template <typename P, typename = void>
 struct Folds : std::false_type {};
@@ -114,6 +128,7 @@ __device__ __forceinline__ void fold_row(const Sink<T>& sink, int rid,
     }
   } else {
     const float inv = 1.0f / (lsum == 0.f ? 1.f : lsum);
+    if (writer && sink.lse != nullptr) sink.lse[rid] = row_lse(mx, lsum);
     T* orow = sink.out + static_cast<long long>(rid) * dh;
 #pragma unroll
     for (int j = 0; j < N; ++j)
@@ -430,6 +445,7 @@ __device__ void mma_tile(const Problem& p, const __nv_bfloat16* __restrict__ q,
       if (rid < 0) return;
       if (!sink.partial) {
         const float inv = 1.0f / l;
+        if (sink.lse != nullptr && lane % 4 == 0) sink.lse[rid] = row_lse(m, l);
         bf16* orow = sink.out + static_cast<long long>(rid) * DH;
 #pragma unroll
         for (int j = 0; j < DH / 8; ++j)
@@ -588,6 +604,8 @@ __device__ void f32_tile(const Problem& p, const float* __restrict__ q,
       if (rid < 0) continue;
       if (!sink.partial) {
         const float inv = 1.0f / l[r];
+        if (sink.lse != nullptr && lane == 0)
+          sink.lse[rid] = row_lse(m[r], l[r]);
         float* orow = sink.out + static_cast<long long>(rid) * DH;
 #pragma unroll
         for (int j = 0; j < kVpt; ++j) orow[lane + 32 * j] = acc[r][j] * inv;

@@ -26,6 +26,9 @@
 // step launches with no keys to write the state out. bf16 inputs round the
 // probabilities to bf16 before P.V (the tensor cores' operand), where the
 // reference folds in f32: the bf16 kernel is held to the row tolerance.
+// With `lse` the last step also writes each row's log-sum-exp over the
+// whole ring (f32, +inf for a row that saw no key), from which K5b
+// (csrc/ring_attention_backward.cu) recomputes the probabilities.
 #include "attention_tile.cuh"
 
 namespace brpc_tpu_torch {
@@ -74,19 +77,20 @@ __global__ void __launch_bounds__(attn::Core<T>::kThreads,
     ring_attention_fold_kernel(const T* __restrict__ q,
                                const T* __restrict__ k,
                                const T* __restrict__ v, float* o, float* ml,
-                               T* out, int sq, int sk, int n_keys,
-                               int n_heads, int diag, int causal,
+                               T* out, float* lse, int sq, int sk,
+                               int n_keys, int n_heads, int diag, int causal,
                                float scale) {
   const RingProblem<T> p(k, v, sq, sk, n_keys, n_heads, DH, diag,
                          causal != 0);
-  const attn::Sink<T> sink{out, o, ml, 0, 0, out == nullptr};
+  const attn::Sink<T> sink{out, o, ml, 0, 0, out == nullptr, lse};
   attn::Core<T>::template run<DH>(p, q, scale, sink);
 }
 
 template <typename T, int DH>
 int launch(const void* q, const void* k, const void* v, void* o, void* ml,
-           void* out, int batch, int sq, int sk, int n_keys, int n_heads,
-           int diag, int causal, float scale, cudaStream_t stream) {
+           void* out, float* lse, int batch, int sq, int sk, int n_keys,
+           int n_heads, int diag, int causal, float scale,
+           cudaStream_t stream) {
   constexpr size_t smem = attn::Core<T>::template smem<DH>();
   auto kernel = ring_attention_fold_kernel<T, DH>;
   static std::atomic<unsigned long long> smem_set{0};
@@ -95,25 +99,25 @@ int launch(const void* q, const void* k, const void* v, void* o, void* ml,
   kernel<<<grid, attn::Core<T>::kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<float*>(o),
-      static_cast<float*>(ml), static_cast<T*>(out), sq, sk, n_keys, n_heads,
-      diag, causal, scale);
+      static_cast<float*>(ml), static_cast<T*>(out), lse, sq, sk, n_keys,
+      n_heads, diag, causal, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int dispatch_dh(int dh, const void* q, const void* k, const void* v, void* o,
-                void* ml, void* out, int batch, int sq, int sk, int n_keys,
-                int n_heads, int diag, int causal, float scale,
+                void* ml, void* out, float* lse, int batch, int sq, int sk,
+                int n_keys, int n_heads, int diag, int causal, float scale,
                 cudaStream_t stream) {
   switch (dh) {
     case 32:
-      return launch<T, 32>(q, k, v, o, ml, out, batch, sq, sk, n_keys,
+      return launch<T, 32>(q, k, v, o, ml, out, lse, batch, sq, sk, n_keys,
                            n_heads, diag, causal, scale, stream);
     case 64:
-      return launch<T, 64>(q, k, v, o, ml, out, batch, sq, sk, n_keys,
+      return launch<T, 64>(q, k, v, o, ml, out, lse, batch, sq, sk, n_keys,
                            n_heads, diag, causal, scale, stream);
     case 128:
-      return launch<T, 128>(q, k, v, o, ml, out, batch, sq, sk, n_keys,
+      return launch<T, 128>(q, k, v, o, ml, out, lse, batch, sq, sk, n_keys,
                             n_heads, diag, causal, scale, stream);
     default:
       return cudaErrorInvalidValue;
@@ -126,12 +130,13 @@ int dispatch_dh(int dh, const void* q, const void* k, const void* v, void* o,
 // q: [batch, sq, n_heads, dh]; k, v: [batch, sk, n_heads, dh]; o: [batch,
 // sq, n_heads, dh] f32 and ml: [batch, sq, n_heads, 2] f32, the running
 // state, updated in place when out is null; out: [batch, sq, n_heads, dh]
-// in q's dtype, or null. All contiguous and 16-byte aligned. diag =
-// q_start - k_start; n_keys is sk or 0.
+// in q's dtype, or null; lse: [batch, sq, n_heads] f32, written with out,
+// or null. All contiguous and 16-byte aligned. diag = q_start - k_start;
+// n_keys is sk or 0.
 extern "C" int brpc_ring_attention_fold(int dtype, const void* q,
                                         const void* k, const void* v,
                                         void* o, void* ml, void* out,
-                                        int batch, int sq, int sk,
+                                        float* lse, int batch, int sq, int sk,
                                         int n_keys, int n_heads, int dh,
                                         int diag, int causal, float scale,
                                         void* stream) {
@@ -143,11 +148,11 @@ extern "C" int brpc_ring_attention_fold(int dtype, const void* q,
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == kDtypeFloat32)
-    return dispatch_dh<float>(dh, q, k, v, o, ml, out, batch, sq, sk, n_keys,
-                              n_heads, diag, causal, scale, s);
+    return dispatch_dh<float>(dh, q, k, v, o, ml, out, lse, batch, sq, sk,
+                              n_keys, n_heads, diag, causal, scale, s);
   if (dtype == kDtypeBFloat16)
-    return dispatch_dh<__nv_bfloat16>(dh, q, k, v, o, ml, out, batch, sq, sk,
-                                      n_keys, n_heads, diag, causal, scale,
-                                      s);
+    return dispatch_dh<__nv_bfloat16>(dh, q, k, v, o, ml, out, lse, batch,
+                                      sq, sk, n_keys, n_heads, diag, causal,
+                                      scale, s);
   return cudaErrorInvalidValue;
 }

@@ -26,6 +26,16 @@ wrappers in ``brpc_tpu_torch.ops`` (kernels on a CUDA tensor). The three
 serving paths share one layer stack (``_decoder``), in which every norm but
 the first takes the residual add before it into the same launch
 (``add_rms_norm``); ``forward`` keeps the reference's unfused order.
+
+Training (``loss_fn``, the counterpart of the reference's ``loss_fn``) runs
+on f32 master parameters (``train_params_from_numpy``, as the reference's
+``init_params`` keeps them), each matrix cast to the model dtype where it is
+used, so the gradients land in f32. Its forward is the reference's
+``forward`` on the kernels, differentiable: causal attention (K2 with its
+log-sum-exp; K2b backward) and the norms (K3 and its fused add; K3b
+backward); matmuls, RoPE, SwiGLU, the embedding and the cross-entropy stay
+plain torch under autograd. ``loss_fn_plain`` is the same loss through the
+plain ``forward``: the oracle.
 """
 
 from __future__ import annotations
@@ -38,6 +48,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from brpc_tpu_torch import parallel
 from brpc_tpu_torch.ops import attention, norm
 from brpc_tpu_torch.utils import resolve_device
 
@@ -416,6 +427,132 @@ def decode_step(params: Params, tokens: torch.Tensor, pos: torch.Tensor,
     x, delta = _decoder(params, params["embed"][tokens.long()], cfg, attend)
     _, h = norm.add_rms_norm(x, delta, params["ln_out"], cfg.norm_eps)
     return (h @ params["w_out"]).float()
+
+
+# ---- training: the loss on the kernels, and its plain oracle -----------------
+
+def train_params_from_numpy(tree, cfg: TransformerConfig,
+                            device=None) -> Params:
+    """The reference's parameter pytree as numpy arrays -> f32 master
+    parameters on ``device`` (every leaf, gains and matrices alike, in f32
+    as the reference's ``init_params`` keeps them; the training forward
+    casts each matrix to ``cfg.dtype`` where it is used)."""
+    dev = resolve_device(device)
+    if tuple(np.shape(tree["embed"])) != (cfg.vocab, cfg.d_model):
+        raise ValueError(f"embed is {np.shape(tree['embed'])}, the config "
+                         f"wants ({cfg.vocab}, {cfg.d_model})")
+
+    def f32(a):
+        return torch.tensor(np.asarray(a, np.float32), device=dev)
+
+    return {"embed": f32(tree["embed"]),
+            "layers": {name: f32(a) for name, a in tree["layers"].items()},
+            "ln_out": f32(tree["ln_out"]), "w_out": f32(tree["w_out"])}
+
+
+def train_params_to_numpy(params: Params) -> dict:
+    """Master parameters (or gradients of the same layout) -> the
+    reference's pytree of numpy arrays."""
+    def a(t):
+        return t.detach().float().cpu().numpy()
+
+    return {"embed": a(params["embed"]),
+            "layers": {name: a(t) for name, t in params["layers"].items()},
+            "ln_out": a(params["ln_out"]), "w_out": a(params["w_out"])}
+
+
+def _model_view(params: Params, cfg: TransformerConfig) -> Params:
+    """f32 master parameters as ``forward`` reads them: matrices and the
+    embedding cast to the model dtype (differentiably), gains as they
+    are."""
+    dt = cfg.dtype
+    return {"embed": params["embed"].to(dt),
+            "layers": {name: (w.to(dt) if name in _MATRICES else w)
+                       for name, w in params["layers"].items()},
+            "ln_out": params["ln_out"], "w_out": params["w_out"].to(dt)}
+
+
+def train_logits(params: Params, tokens: torch.Tensor,
+                 cfg: TransformerConfig, tp_group=None) -> torch.Tensor:
+    """The training forward: tokens [B, S] -> logits [B, S, vocab] f32,
+    differentiable in the f32 master ``params``. The reference's ``forward``
+    (brpc_tpu/models/transformer.py:163, its ``_block`` :142) with ``_rope``
+    over positions 0..S-1, ``attention.causal_attention`` (K2, K2b) and the
+    norms of ``norm.rms_norm_train`` / ``add_rms_norm_train`` (K3, K3b),
+    every norm but the first taking the residual add before it.
+
+    With ``tp_group`` the parameters are this rank's tensor-parallel shards
+    (``dryrun.shard``): column shards of wq, wk, wv, w_gate and w_up, row
+    shards of wo and w_down (their partial products summed over the
+    group), the embedding split on D and w_out on the vocabulary (each
+    gathered on its split axis), gains whole. Head counts follow from the
+    shards' widths."""
+    dt = cfg.dtype
+    B, S = tokens.shape
+    Dh, eps, lay = cfg.d_head, cfg.norm_eps, params["layers"]
+
+    def enter(t):
+        return t if tp_group is None else parallel.tp_enter(t, tp_group)
+
+    def reduce(t):
+        return t if tp_group is None else parallel.tp_reduce(t, tp_group)
+
+    def gather(t):
+        return t if tp_group is None else parallel.tp_gather(t, -1,
+                                                             tp_group)
+
+    def proj(h, name, l):
+        return h @ lay[name][l].to(dt)
+
+    x = gather(params["embed"].to(dt)[tokens.long()])
+    h = norm.rms_norm_train(x, lay["ln_attn"][0], eps)
+    delta = None
+    for l in range(cfg.n_layers):
+        if delta is not None:
+            x, h = norm.add_rms_norm_train(x, delta, lay["ln_attn"][l], eps)
+        h = enter(h)
+        q = _rope(proj(h, "wq", l).reshape(B, S, -1, Dh), cfg.rope_theta)
+        k = _rope(proj(h, "wk", l).reshape(B, S, -1, Dh), cfg.rope_theta)
+        v = proj(h, "wv", l).reshape(B, S, -1, Dh)
+        o = attention.causal_attention(q, k, v).reshape(B, S, -1)
+        x, h = norm.add_rms_norm_train(x, reduce(proj(o, "wo", l)),
+                                       lay["ln_mlp"][l], eps)
+        h = enter(h)
+        delta = reduce(proj(F.silu(proj(h, "w_gate", l))
+                            * proj(h, "w_up", l), "w_down", l))
+    _, h = norm.add_rms_norm_train(x, delta, params["ln_out"], eps)
+    return gather(enter(h) @ params["w_out"].to(dt)).float()
+
+
+def cross_entropy(logits: torch.Tensor,
+                  targets: torch.Tensor) -> torch.Tensor:
+    """The mean next-token negative log-likelihood, as the reference's
+    ``loss_fn`` takes it: log_softmax over the vocabulary in f32, then the
+    targets' entries."""
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    return -logp.gather(-1, targets.long()[..., None])[..., 0].mean()
+
+
+def loss_fn(params: Params, tokens, cfg: TransformerConfig,
+            device=None) -> torch.Tensor:
+    """Next-token cross-entropy over tokens [B, S + 1] (the counterpart of
+    brpc_tpu/models/transformer.py:176), through ``train_logits``: on a
+    card the forward runs K2 and K3 and the backward K2b and K3b. The
+    tokens go to ``device`` (``cuda`` unless the caller names another),
+    where ``params`` must live."""
+    tokens = torch.as_tensor(tokens, device=resolve_device(device))
+    return cross_entropy(train_logits(params, tokens[:, :-1], cfg),
+                         tokens[:, 1:])
+
+
+def loss_fn_plain(params: Params, tokens, cfg: TransformerConfig,
+                  device=None) -> torch.Tensor:
+    """``loss_fn`` through the plain ``forward`` (no kernel; autograd
+    differentiates its plain torch): the oracle the tests and the smoke
+    hold ``loss_fn`` to."""
+    tokens = torch.as_tensor(tokens, device=resolve_device(device))
+    logits = forward(_model_view(params, cfg), tokens[:, :-1], cfg)
+    return cross_entropy(logits, tokens[:, 1:])
 
 
 def greedy_reference(params: Params, cfg: TransformerConfig, prompt,

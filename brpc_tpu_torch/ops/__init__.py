@@ -1,6 +1,6 @@
 """Hand-written CUDA kernels of the port and their wrappers: the serving
-path's attention (K1, K2, K4) and norms (K3), and the ring-attention
-block fold (K5).
+path's attention (K1, K2, K4) and norms (K3), the ring-attention block
+fold (K5), and the training path's backward kernels (K2b, K3b, K5b).
 
 Each wrapper counts its kernel launches on an int attribute
 (``wrapper.launches``); ``launch_counts``/``reset_launch_counts`` read and
@@ -13,13 +13,20 @@ import contextlib
 from brpc_tpu_torch.ops import _build
 
 from brpc_tpu_torch.ops.attention import (  # noqa: F401
+    attention_backward,
     paged_decode_attention,
     paged_prefill_attention,
     prefill_attention,
 )
-from brpc_tpu_torch.ops.norm import add_rms_norm, rms_norm  # noqa: F401
+from brpc_tpu_torch.ops.norm import (  # noqa: F401
+    add_rms_norm,
+    add_rms_norm_backward,
+    rms_norm,
+    rms_norm_backward,
+)
 from brpc_tpu_torch.ops.ring_attention import (  # noqa: F401
     ring_attention_fold,
+    ring_attention_fold_backward,
 )
 
 KERNELS = {
@@ -29,6 +36,10 @@ KERNELS = {
     "rms_norm": rms_norm,
     "add_rms_norm": add_rms_norm,
     "ring_attention_fold": ring_attention_fold,
+    "attention_backward": attention_backward,
+    "rms_norm_backward": rms_norm_backward,
+    "add_rms_norm_backward": add_rms_norm_backward,
+    "ring_attention_fold_backward": ring_attention_fold_backward,
 }
 
 

@@ -1,7 +1,9 @@
 """Attention of the serving path: the K1 (paged decode), K2 (prefill) and
 K4 (paged suffix prefill) kernels' wrappers, each with its plain PyTorch
-version, the split-K planners of K4 and K1 with plain models of their
-split and merge passes, and a per-row error measure (for the tests).
+version; the training path's causal attention over a batch (K2 with its
+log-sum-exp, and K2b, its backward) as an autograd function; the split-K
+planners of K4 and K1 with plain models of their split and merge passes,
+and a per-row error measure (for the tests).
 
 The plain versions repeat the reference's arithmetic
 (brpc_tpu/models/transformer.py): logits in f32 from the model-dtype
@@ -250,18 +252,162 @@ def prefill_attention(q, k, v, length: int) -> torch.Tensor:
             or not 1 <= length <= P):
         raise ValueError("prefill_attention: q [P, H, Dh], k/v [P, KV, Dh] "
                          "of one dtype, 1 <= length <= P")
+    return _k2(q[None], k[None], v[None], int(length), None)[0]
+
+
+def _k2(q, k, v, length: int, lse) -> torch.Tensor:
+    """Launches K2 over a batch: q [B, S, H, Dh], k/v [B, S, KV, Dh], keys
+    at or past ``length`` masked; with ``lse`` (f32 [B, S, H]) its epilogue
+    writes each row's log-sum-exp there. -> o [B, S, H, Dh]."""
+    B, S, H, Dh = q.shape
     qc, kc, vc = q.contiguous(), k.contiguous(), v.contiguous()
     out = torch.empty_like(qc)
     rc = _build.lib().brpc_prefill_attention(
         _dtype_code(q), qc.data_ptr(), kc.data_ptr(), vc.data_ptr(),
-        out.data_ptr(), P, int(length), H, KV, Dh, softmax_scale(Dh),
-        _build.stream(q))
+        out.data_ptr(), None if lse is None else lse.data_ptr(), B, S,
+        length, H, k.shape[2], Dh, softmax_scale(Dh), _build.stream(q))
     _build.check(rc, "prefill_attention")
     _build.count_launch(prefill_attention)
     return out
 
 
 prefill_attention.launches = 0
+
+
+# ---- K2 and K2b for training: causal attention over a batch -----------------
+
+HEAD_DIMS = (32, 64, 128)
+
+
+def _check_causal_shapes(name, q, k, v):
+    B, S, H, Dh = q.shape
+    KV = k.shape[2]
+    if (k.shape != (B, S, KV, Dh) or v.shape != k.shape or H % KV
+            or k.dtype != q.dtype or v.dtype != q.dtype
+            or k.device != q.device or v.device != q.device):
+        raise ValueError(f"{name}: q [B, S, H, Dh], k/v [B, S, KV, Dh] of "
+                         f"one dtype on one device, KV dividing H")
+    if q.device.type == "cuda" and Dh not in HEAD_DIMS:
+        raise ValueError(f"{name}: Dh must be one of {HEAD_DIMS} on a card")
+
+
+def causal_attention_plain(q, k, v) -> tuple:
+    """brpc_tpu/models/transformer.py:123 ``_attention`` in plain torch,
+    with the rows' log-sum-exp beside it. q: [B, S, H, Dh]; k, v: [B, S,
+    KV, Dh] -> (o [B, S, H, Dh] in q's dtype, lse [B, S, H] f32): f32
+    logits times 1/sqrt(Dh), -1e30 above the diagonal, f32 softmax, the
+    probabilities cast to q's dtype, P.V accumulated in f32; lse =
+    log sum_k exp(logit) in natural units."""
+    B, S, H, Dh = q.shape
+    rep = H // k.shape[2]
+    kr, vr = _repeat_kv(k, rep, 2), _repeat_kv(v, rep, 2)
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), kr.float()) \
+        * softmax_scale(Dh)
+    span = torch.arange(S, device=q.device)
+    mask = span[:, None] >= span[None, :]
+    logits = torch.where(mask[None, None], logits,
+                         torch.tensor(_NEG, device=q.device))
+    probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    o = torch.einsum("bhqk,bkhd->bqhd", probs.float(),
+                     vr.float()).to(q.dtype)
+    return o, torch.logsumexp(logits, dim=-1).transpose(1, 2).contiguous()
+
+
+def prefill_attention_backward_plain(q, k, v, o, lse, do) -> tuple:
+    """The backward of ``causal_attention_plain`` from its saved LSE
+    (FlashAttention-2's, what K2b computes): P = exp(logit - lse) below the
+    diagonal, delta = rowsum(dO o), dS = P (dO.V - delta); dq = scale dS.K,
+    dk = scale dS^T.Q and dv = round(P)^T.dO (P rounded to q's dtype, as
+    the forward's P.V takes it), dk and dv summed over each KV head's
+    H / KV query heads. All sums in f32; -> (dq, dk, dv) in q's dtype."""
+    B, S, H, Dh = q.shape
+    KV = k.shape[2]
+    rep = H // KV
+    scale = softmax_scale(Dh)
+    kr, vr = _repeat_kv(k, rep, 2).float(), _repeat_kv(v, rep, 2).float()
+    qf, dof = q.float(), do.float()
+    logits = torch.einsum("bqhd,bkhd->bhqk", qf, kr) * scale
+    span = torch.arange(S, device=q.device)
+    mask = (span[:, None] >= span[None, :])[None, None]
+    p = torch.where(mask, torch.exp(logits - lse.transpose(1, 2)[..., None]),
+                    0.0)
+    delta = (dof * o.float()).sum(-1).transpose(1, 2)        # [B, H, S]
+    dp = torch.einsum("bqhd,bkhd->bhqk", dof, vr)
+    ds = p * (dp - delta[..., None])
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kr) * scale
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf) * scale
+    dv = torch.einsum("bhqk,bqhd->bkhd", p.to(q.dtype).float(), dof)
+    dk = dk.reshape(B, S, KV, rep, Dh).sum(3)
+    dv = dv.reshape(B, S, KV, rep, Dh).sum(3)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def causal_attention_forward(q, k, v) -> tuple:
+    """The training forward of causal attention -> (o, lse), as
+    ``causal_attention_plain`` gives them. On a CUDA tensor launches K2
+    (csrc/prefill_attention.cu) over the batch with its LSE epilogue
+    (counted on ``prefill_attention``)."""
+    _check_causal_shapes("causal_attention", q, k, v)
+    if q.device.type == "cpu":
+        return causal_attention_plain(q, k, v)
+    if q.device.type != "cuda":
+        raise ValueError(f"causal_attention: unsupported device {q.device}")
+    B, S, H, Dh = q.shape
+    lse = torch.empty((B, S, H), dtype=torch.float32, device=q.device)
+    return _k2(q, k, v, S, lse), lse
+
+
+def attention_backward(q, k, v, o, lse, do) -> tuple:
+    """dq, dk, dv of causal attention from the forward's o and LSE and the
+    output's gradient do. On a CUDA tensor launches csrc/attention_backward.cu
+    (K2b: the delta pre-pass, the dK/dV pass and the dQ pass in one call);
+    on a CPU tensor runs ``prefill_attention_backward_plain``."""
+    _check_causal_shapes("attention_backward", q, k, v)
+    B, S, H, Dh = q.shape
+    if (o.shape != q.shape or do.shape != q.shape or lse.shape != (B, S, H)
+            or o.dtype != q.dtype or do.dtype != q.dtype
+            or lse.dtype != torch.float32):
+        raise ValueError("attention_backward: o and do [B, S, H, Dh] in q's "
+                         "dtype, lse [B, S, H] f32")
+    if q.device.type == "cpu":
+        return prefill_attention_backward_plain(q, k, v, o, lse, do)
+    if q.device.type != "cuda":
+        raise ValueError(f"attention_backward: unsupported device {q.device}")
+    qc, kc, vc, oc, doc = (t.contiguous() for t in (q, k, v, o, do))
+    lc = lse.contiguous()
+    dq, dk, dv = (torch.empty_like(t) for t in (qc, kc, vc))
+    delta = torch.empty_like(lc)
+    rc = _build.lib().brpc_attention_backward(
+        _dtype_code(q), qc.data_ptr(), kc.data_ptr(), vc.data_ptr(),
+        oc.data_ptr(), doc.data_ptr(), lc.data_ptr(), delta.data_ptr(),
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, S, H, k.shape[2], Dh,
+        softmax_scale(Dh), _build.stream(q))
+    _build.check(rc, "attention_backward")
+    _build.count_launch(attention_backward)
+    return dq, dk, dv
+
+
+attention_backward.launches = 0
+
+
+class _CausalAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v):
+        o, lse = causal_attention_forward(q, k, v)
+        ctx.save_for_backward(q, k, v, o, lse)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        return attention_backward(*ctx.saved_tensors, do.contiguous())
+
+
+def causal_attention(q, k, v) -> torch.Tensor:
+    """Differentiable causal attention of the training forward. q: [B, S,
+    H, Dh]; k, v: [B, S, KV, Dh] -> o [B, S, H, Dh] in q's dtype. A CPU
+    tensor runs the plain forward and the plain backward; a CUDA tensor
+    runs K2 with its LSE, and K2b for the gradient."""
+    return _CausalAttention.apply(q, k, v)
 
 
 # ---- K4: suffix-prefill attention over the paged pool ----------------------
@@ -352,16 +498,39 @@ def paged_prefill_attention_split_plain(q, k_pool, v_pool, table,
     return merge_splits_plain(o, m, l).to(q.dtype)
 
 
-def max_row_rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
+# Gradient rows are held relative to at least this share of the tensor's
+# largest row (``max_row_rel_err``'s ``floor``): a causal first query's dq
+# is exactly 0 in exact arithmetic and holds only rounding noise.
+GRAD_ROW_FLOOR = 1e-2
+# The bf16 ring's gradient against dense attention's f32 autograd: in bf16
+# the backward takes delta = rowsum(dO o) from the bf16-rounded output and
+# rounds P and dS to bf16 as tensor-core operands, and where a row's
+# dP - delta nearly cancels its relative error has no useful bound (one
+# row at 0.30 at S 8192, NVIDIA H100 80GB HBM3, 700 W, chip_smoke.py). So
+# the bf16 ring is held row by row to the same backward over one dense
+# block on its own output, and each gradient tensor to dense autograd in
+# the relative 2-norm within this. Both for the tests and the on-card
+# smoke; the main path reads neither.
+RING_BF16_GRAD_TOL = 1e-2
+
+
+def max_row_rel_err(got: torch.Tensor, want: torch.Tensor,
+                    floor: float = 0.0) -> float:
     """The largest relative error of one output row (a (query, head)
     vector over the last dim): max over rows of |got - want| / |want| in
     the 2-norm, in f32. Unlike an elementwise atol it scales with each
     row, so it sees one 64-key tile missing from a 4000-key row, whose
-    outputs are about as small as bf16's atol. For the tests and the
-    on-card smoke; the main path never calls it."""
+    outputs are about as small as bf16's atol. With ``floor`` a row is
+    held relative to at least ``floor`` times the largest row of
+    ``want``: for gradients, whose rows may be exactly 0 in exact
+    arithmetic (a causal first query's dq: its softmax has one key) and
+    hold only rounding noise. For the tests and the on-card smoke; the
+    main path never calls it."""
     g, w = got.float(), want.float()
     num = (g - w).norm(dim=-1)
-    return float((num / w.norm(dim=-1).clamp_min(1e-30)).max())
+    den = w.norm(dim=-1)
+    den = den.clamp_min(max(1e-30, floor * float(den.max())))
+    return float((num / den).max())
 
 
 def paged_prefill_attention(q, k_pool, v_pool, table, start: int,

@@ -8,6 +8,9 @@ After n steps every query has attended to every key once.
 - ``ring_attention_fold``: one step, the K5 kernel's wrapper
   (csrc/ring_attention.cu); ``ring_attention_fold_plain`` is the
   reference's ``step`` in PyTorch and runs for CPU tensors.
+- ``ring_attention_fold_backward``: one block's share of the gradient, the
+  K5b kernel's wrapper (csrc/ring_attention_backward.cu);
+  ``ring_attention_fold_backward_plain`` runs for CPU tensors.
 - ``ring_attention``: the distributed form, one rank per process, the
   blocks shifted over ``torch.distributed`` while the fold runs.
 - ``ring_attention_local``: the same per-rank fold sequence for n ranks in
@@ -23,16 +26,14 @@ from __future__ import annotations
 import torch
 
 from brpc_tpu_torch.ops import _build
-from brpc_tpu_torch.ops.attention import _dtype_code, softmax_scale
+from brpc_tpu_torch.ops.attention import HEAD_DIMS, _dtype_code, softmax_scale
 from brpc_tpu_torch.parallel import rank_and_size, ring_shift_start
 
-__all__ = ["attention_reference", "fold_state", "fold_output",
-           "ring_attention_fold",
-           "ring_attention_fold_plain", "ring_attention",
-           "ring_attention_local"]
-
-_HEAD_DIMS = (32, 64, 128)
-
+__all__ = ["attention_reference", "fold_state", "fold_output", "fold_lse",
+           "ring_attention_fold", "ring_attention_fold_plain",
+           "ring_attention_fold_backward",
+           "ring_attention_fold_backward_plain", "grad_buffers",
+           "ring_attention", "ring_attention_local"]
 
 def attention_reference(q, k, v, causal: bool = False) -> torch.Tensor:
     """Dense single-device attention (the correctness oracle). q/k/v:
@@ -92,26 +93,20 @@ def ring_attention_fold_plain(q, k, v, state: tuple, q_start: int,
     return o_new, torch.stack([m_new, l_new], dim=-1)
 
 
-class _NoBackward(torch.autograd.Function):
-    """Marks K5's output as computed from q, k and v; its backward raises
-    (the fold has no backward kernel yet)."""
-
-    @staticmethod
-    def forward(ctx, out, q, k, v):
-        return out.view_as(out)
-
-    @staticmethod
-    def backward(ctx, *grads):
-        raise NotImplementedError(
-            "ring_attention_fold (K5) has no backward fold yet; "
-            "differentiate the plain version on the CPU")
+def fold_lse(state: tuple) -> torch.Tensor:
+    """A state's rows' log-sum-exp m + log(l) [B, s, H] f32, +inf for a row
+    that saw no key (its probabilities, and gradients, are then 0)."""
+    m, l = state[1][..., 0], state[1][..., 1]
+    return torch.where(l == 0.0, float("inf"), m + torch.log(l))
 
 
 def ring_attention_fold(q, k, v, state: tuple, q_start: int, k_start: int,
-                        causal: bool, final: bool = False):
+                        causal: bool, final: bool = False, lse=None):
     """Fold the K/V block at global key positions k_start.. into the
     running state of q's rows (positions q_start..): -> the new state, or
-    with ``final`` the rows' attention output [B, s, H, D] in q's dtype.
+    with ``final`` the rows' attention output [B, s, H, D] in q's dtype
+    (and, given ``lse``, a [B, s, H] f32 tensor, the rows' log-sum-exp
+    over every block written into it).
 
     On a CUDA tensor launches csrc/ring_attention.cu (K5), which updates
     the state in place and returns it (with ``final`` it writes the output
@@ -122,7 +117,11 @@ def ring_attention_fold(q, k, v, state: tuple, q_start: int, k_start: int,
     if q.device.type == "cpu":
         state = ring_attention_fold_plain(q, k, v, state, q_start, k_start,
                                           causal)
-        return fold_output(state, q.dtype) if final else state
+        if not final:
+            return state
+        if lse is not None:
+            lse.copy_(fold_lse(state))
+        return fold_output(state, q.dtype)
     if q.device.type != "cuda":
         raise ValueError(f"ring_attention_fold: unsupported device "
                          f"{q.device}")
@@ -130,17 +129,23 @@ def ring_attention_fold(q, k, v, state: tuple, q_start: int, k_start: int,
     B, sq, H, D = q.shape
     sk = k.shape[1]
     if (k.shape != (B, sk, H, D) or v.shape != k.shape or k.dtype != q.dtype
-            or v.dtype != q.dtype or D not in _HEAD_DIMS
+            or v.dtype != q.dtype or D not in HEAD_DIMS
             or k.device != q.device or v.device != q.device):
         raise ValueError("ring_attention_fold: q [B, s, H, D] and k, v "
                          "[B, s_k, H, D] of one dtype on one card, D in "
-                         f"{_HEAD_DIMS}")
+                         f"{HEAD_DIMS}")
     if (o.shape != q.shape or ml.shape != q.shape[:-1] + (2,)
             or o.dtype != torch.float32 or ml.dtype != torch.float32
             or not (o.is_contiguous() and ml.is_contiguous())
             or o.device != q.device or ml.device != q.device):
         raise ValueError("ring_attention_fold: the state must be contiguous "
                          "f32 o [B, s, H, D] and ml [B, s, H, 2] on q's card")
+    if lse is not None and (not final or lse.shape != q.shape[:-1]
+                            or lse.dtype != torch.float32
+                            or not lse.is_contiguous()
+                            or lse.device != q.device):
+        raise ValueError("ring_attention_fold: lse is the final step's "
+                         "contiguous f32 [B, s, H] on q's card")
     above = causal and k_start > q_start + sq - 1
     if above and not final:
         return state
@@ -149,31 +154,107 @@ def ring_attention_fold(q, k, v, state: tuple, q_start: int, k_start: int,
     rc = _build.lib().brpc_ring_attention_fold(
         _dtype_code(q), qc.data_ptr(), kc.data_ptr(), vc.data_ptr(),
         o.data_ptr(), ml.data_ptr(), None if out is None else out.data_ptr(),
-        B, sq, sk, 0 if above else sk, H, D, int(q_start - k_start),
-        int(causal), softmax_scale(D), _build.stream(q))
+        None if lse is None else lse.data_ptr(), B, sq, sk,
+        0 if above else sk, H, D, int(q_start - k_start), int(causal),
+        softmax_scale(D), _build.stream(q))
     _build.check(rc, "ring_attention_fold")
     _build.count_launch(ring_attention_fold)
-    if out is None:
-        return state
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
-                                    or v.requires_grad):
-        out = _NoBackward.apply(out, q, k, v)
-    return out
+    return state if out is None else out
 
 
 ring_attention_fold.launches = 0
 
 
-def _ring(q, blocks, my: int, n: int, causal: bool) -> torch.Tensor:
+def ring_attention_fold_backward_plain(q, kb, vb, o, lse, do, q_start: int,
+                                       k_start: int, causal: bool) -> tuple:
+    """One block's share of the ring's gradient, the reference's autodiff
+    of ``step`` (brpc_tpu/ops/ring_attention.py:65) in PyTorch: with the
+    probabilities P = exp(logit - lse) recomputed from the ring's final
+    log-sum-exp under the global causal test k_start + j <= q_start + i,
+    delta = rowsum(dO o) and dS = P (dO.V - delta), -> the block's (dq,
+    dk, dv) contributions in f32: scale dS.K, scale dS^T.Q, P^T.dO."""
+    scale = softmax_scale(q.shape[-1])
+    qf, kf, vf, dof = q.float(), kb.float(), vb.float(), do.float()
+    logits = torch.einsum("bqhd,bkhd->bqhk", qf, kf) * scale
+    p = torch.exp(logits - lse[..., None])
+    if causal:
+        k_pos = k_start + torch.arange(kb.shape[1], device=q.device)
+        q_pos = q_start + torch.arange(q.shape[1], device=q.device)
+        mask = k_pos[None, :] <= q_pos[:, None]                # [sq, sk]
+        p = torch.where(mask[None, :, None, :], p, 0.0)
+    delta = (dof * o.float()).sum(-1)
+    ds = p * (torch.einsum("bqhd,bkhd->bqhk", dof, vf) - delta[..., None])
+    return (torch.einsum("bqhk,bkhd->bqhd", ds, kf) * scale,
+            torch.einsum("bqhk,bqhd->bkhd", ds, qf) * scale,
+            torch.einsum("bqhk,bqhd->bkhd", p, dof))
+
+
+def ring_attention_fold_backward(q, kb, vb, o, lse, do, grads: tuple,
+                                 q_start: int, k_start: int, causal: bool,
+                                 fill_delta: bool) -> None:
+    """Add one block's share of the ring's gradient to ``grads`` = (dq,
+    dk, dv, delta): f32 accumulators of q's rows [B, s, H, D] and of the
+    block's keys [B, s_k, H, D], and delta = rowsum(dO o) [B, s, H] f32,
+    which a rank's first block computes (``fill_delta``) and its later
+    blocks reuse. o, lse: the ring's output and log-sum-exp on q's rows;
+    do: the output's gradient. On a CUDA tensor launches
+    csrc/ring_attention_backward.cu (K5b); a causal block wholly above the
+    diagonal contributes nothing and launches nothing. On a CPU tensor
+    adds the plain version's contributions."""
+    dq, dk, dv, delta = grads
+    B, sq, H, D = q.shape
+    sk = kb.shape[1]
+    if causal and k_start > q_start + sq - 1:
+        return
+    if q.device.type == "cpu":
+        cq, ck, cv = ring_attention_fold_backward_plain(
+            q, kb, vb, o, lse, do, q_start, k_start, causal)
+        dq += cq
+        dk += ck
+        dv += cv
+        return
+    if q.device.type != "cuda":
+        raise ValueError(f"ring_attention_fold_backward: unsupported device "
+                         f"{q.device}")
+    if (kb.shape != (B, sk, H, D) or vb.shape != kb.shape
+            or o.shape != q.shape or do.shape != q.shape
+            or any(t.dtype != q.dtype for t in (kb, vb, o, do))
+            or D not in HEAD_DIMS):
+        raise ValueError("ring_attention_fold_backward: q, o, do [B, s, H, "
+                         "D] and kb, vb [B, s_k, H, D] of one dtype, D in "
+                         f"{HEAD_DIMS}")
+    for t, shape in ((dq, q.shape), (dk, kb.shape), (dv, kb.shape),
+                     (lse, q.shape[:-1]), (delta, q.shape[:-1])):
+        if (t.shape != shape or t.dtype != torch.float32
+                or not t.is_contiguous() or t.device != q.device):
+            raise ValueError("ring_attention_fold_backward: dq, dk, dv, lse "
+                             "and delta must be contiguous f32 on q's card")
+    qc, kc, vc, oc, doc = (t.contiguous() for t in (q, kb, vb, o, do))
+    rc = _build.lib().brpc_ring_attention_fold_backward(
+        _dtype_code(q), qc.data_ptr(), kc.data_ptr(), vc.data_ptr(),
+        oc.data_ptr(), doc.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+        int(fill_delta), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, sq,
+        sk, H, D, int(q_start - k_start), int(causal), softmax_scale(D),
+        _build.stream(q))
+    _build.check(rc, "ring_attention_fold_backward")
+    _build.count_launch(ring_attention_fold_backward)
+
+
+ring_attention_fold_backward.launches = 0
+
+
+def _ring(q, blocks, my: int, n: int, causal: bool) -> tuple:
     """Rank ``my``'s n folds: ``blocks`` yields the K/V block resident at
-    each step t, the one rank (my - t) mod n started with."""
+    each step t, the one rank (my - t) mod n started with. -> (output,
+    lse [B, s, H] f32)."""
     s = q.shape[1]
     state = fold_state(q)
+    lse = torch.empty(q.shape[:-1], dtype=torch.float32, device=q.device)
     for t, (kb, vb) in enumerate(blocks):
         src = (my - t) % n
         if t == n - 1:
             return ring_attention_fold(q, kb, vb, state, my * s, src * s,
-                                       causal, final=True)
+                                       causal, final=True, lse=lse), lse
         state = ring_attention_fold(q, kb, vb, state, my * s, src * s,
                                     causal)
     raise ValueError("the ring has no blocks")
@@ -194,20 +275,104 @@ def _shifted_blocks(k, v, n: int, group):
             kb, vb = k_next, v_next
 
 
+def grad_buffers(q, k) -> tuple:
+    """Zeroed f32 (dq, dk, dv) accumulators and the delta buffer."""
+    dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+    dk = torch.zeros(k.shape, dtype=torch.float32, device=k.device)
+    delta = torch.empty(q.shape[:-1], dtype=torch.float32, device=q.device)
+    return dq, dk, torch.zeros_like(dk), delta
+
+
+class _Ring(torch.autograd.Function):
+    """The distributed ring with its backward: a second pass round the
+    ring in which dq accumulates on its own rank while each block's dk and
+    dv accumulate on the ranks it visits and travel with it."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, group):
+        my, n = rank_and_size(group)
+        out, lse = _ring(q, _shifted_blocks(k, v, n, group), my, n, causal)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.group = causal, group
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        group = ctx.group
+        my, n = rank_and_size(group)
+        s = q.shape[1]
+        dq, dk, dv, delta = grad_buffers(q, k)
+        do = do.contiguous()
+        kb, vb = k, v
+        for t in range(n):
+            src = (my - t) % n
+            # The block's K/V go on while this rank computes; its dk and
+            # dv follow once this rank's share is in. The last step's
+            # shift brings every block's dk and dv home.
+            if t + 1 < n:
+                (k_next, v_next), wait_kv = ring_shift_start([kb, vb], 1,
+                                                             group)
+            ring_attention_fold_backward(q, kb, vb, out, lse, do,
+                                         (dq, dk, dv, delta), my * s,
+                                         src * s, ctx.causal, t == 0)
+            (dk, dv), wait_grads = ring_shift_start([dk, dv], 1, group)
+            wait_grads()
+            if t + 1 < n:
+                wait_kv()
+                kb, vb = k_next, v_next
+        return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None)
+
+
+class _RingLocal(torch.autograd.Function):
+    """The in-process ring with its backward: the distributed backward's
+    steps for every rank, each block's dk and dv summed in the order its
+    travel round the ring would sum them."""
+
+    @staticmethod
+    def forward(ctx, causal, *blocks):
+        n = len(blocks) // 3
+        qs, ks, vs = blocks[:n], blocks[n:2 * n], blocks[2 * n:]
+        outs, lses = zip(*(_ring(q, ((ks[(my - t) % n], vs[(my - t) % n])
+                                     for t in range(n)), my, n, causal)
+                           for my, q in enumerate(qs)))
+        ctx.save_for_backward(*qs, *ks, *vs, *outs, *lses)
+        ctx.causal, ctx.n = causal, n
+        return outs
+
+    @staticmethod
+    def backward(ctx, *dos):
+        n = ctx.n
+        saved = ctx.saved_tensors
+        qs, ks, vs, outs, lses = (saved[i * n:(i + 1) * n] for i in range(5))
+        s = qs[0].shape[1]
+        dos = [torch.zeros_like(o) if d is None else d.contiguous()
+               for o, d in zip(outs, dos)]
+        bufs = [grad_buffers(q, k) for q, k in zip(qs, ks)]
+        for t in range(n):
+            for my in range(n):
+                src = (my - t) % n
+                ring_attention_fold_backward(
+                    qs[my], ks[src], vs[src], outs[my], lses[my], dos[my],
+                    (bufs[my][0], bufs[src][1], bufs[src][2], bufs[my][3]),
+                    my * s, src * s, ctx.causal, t == 0)
+        return (None, *(b[0].to(q.dtype) for b, q in zip(bufs, qs)),
+                *(b[1].to(k.dtype) for b, k in zip(bufs, ks)),
+                *(b[2].to(v.dtype) for b, v in zip(bufs, vs)))
+
+
 def ring_attention(q, k, v, causal: bool = False, group=None) -> torch.Tensor:
     """Exact attention with the sequence sharded over ``group``: q, k, v
     are this rank's blocks [B, s, H, D] (rank r holds positions
-    [r s, (r + 1) s)); returns this rank's output block, in q's dtype."""
-    my, n = rank_and_size(group)
-    return _ring(q, _shifted_blocks(k, v, n, group), my, n, causal)
+    [r s, (r + 1) s)); returns this rank's output block, in q's dtype.
+    Differentiable: the backward runs a second pass round the ring (K5b on
+    a card)."""
+    return _Ring.apply(q, k, v, causal, group)
 
 
 def ring_attention_local(qs, ks, vs, causal: bool = False) -> list:
     """``ring_attention`` for n ranks in one process: ``qs``, ``ks``, ``vs``
     are the ranks' blocks in rank order; each rank runs the same fold
     sequence over the blocks in the order the ring brings them. Returns
-    the ranks' output blocks."""
-    n = len(qs)
-    return [_ring(q, ((ks[(my - t) % n], vs[(my - t) % n])
-                      for t in range(n)), my, n, causal)
-            for my, q in enumerate(qs)]
+    the ranks' output blocks; differentiable like ``ring_attention``."""
+    return list(_RingLocal.apply(causal, *qs, *ks, *vs))

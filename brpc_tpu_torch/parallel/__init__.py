@@ -17,6 +17,13 @@ result. The mapping is the reference's:
 
 The same code runs on gloo (CPU tensors) and on NCCL (CUDA tensors). No
 collective here sends to its own rank: a one-rank shift is a copy.
+
+Tensor parallelism's collectives, differentiable (the reference lets XLA
+place them from ``_param_specs``, __graft_entry__.py:37): ``tp_enter``
+before a column-sharded product (identity; its backward sums the ranks'
+gradients), ``tp_reduce`` after a row-sharded one (a sum; its backward is
+the identity), and ``tp_gather`` for an output sharded on one axis (the
+ranks' shards concatenated; its backward keeps this rank's slice).
 """
 
 from __future__ import annotations
@@ -27,7 +34,7 @@ import torch.distributed as dist
 __all__ = [
     "rank_and_size", "peer", "all_gather", "all_reduce", "reduce_scatter",
     "all_to_all", "all_to_all_axes", "ring_shift", "ring_shift_start",
-    "fanout_call",
+    "fanout_call", "tp_enter", "tp_reduce", "tp_gather",
 ]
 
 # The single-tensor collectives under their current names, or the names
@@ -165,3 +172,56 @@ def fanout_call(fn, x: torch.Tensor, merger: str = "concat",
     if merger == "sum":
         return all_reduce(out, group)
     return all_gather(out, group)
+
+
+class _TpEnter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g, ctx.group), None
+
+
+class _TpReduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return all_reduce(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _TpGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        r, _ = rank_and_size(group)
+        ctx.dim, ctx.rank, ctx.size = dim, r, x.shape[dim]
+        return all_gather(x.movedim(dim, 0), group).movedim(0, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(ctx.dim, ctx.rank * ctx.size,
+                        ctx.size).contiguous(), None, None
+
+
+def tp_enter(x: torch.Tensor, group=None) -> torch.Tensor:
+    """Identity; in the backward, the sum of the ranks' gradients: where a
+    replicated activation enters a column-sharded product, each rank's
+    gradient covers only its shard's columns."""
+    return _TpEnter.apply(x, group)
+
+
+def tp_reduce(x: torch.Tensor, group=None) -> torch.Tensor:
+    """The sum of the ranks' partial results of a row-sharded product, on
+    every rank; its gradient passes through unchanged."""
+    return _TpReduce.apply(x, group)
+
+
+def tp_gather(x: torch.Tensor, dim: int, group=None) -> torch.Tensor:
+    """The ranks' shards of ``x`` concatenated on ``dim`` in rank order;
+    the backward keeps this rank's slice of the gradient."""
+    return _TpGather.apply(x, dim % x.dim(), group)

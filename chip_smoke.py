@@ -14,7 +14,13 @@ phases, the parallelism path: K5 (the ring-attention block fold) at
 Llama-3-8B's attention width over S 32768 as 8 in-process ranks, held
 against its plain fold step by step and against dense attention at S
 8192, then the collectives, ring attention, the GPipe pipeline and the
-expert-parallel MoE through an NCCL world of one rank.
+expert-parallel MoE through an NCCL world of one rank. Then the training
+path: the backward kernels K2b, K3b (and its fused form) and K5b against
+their plain backwards, the ring's backward against dense autograd at S
+8192 and timed at S 32768, one f32 train_step at Llama-3-8B width (2
+layers) against the plain autograd step, the bf16 step at width (4
+layers, tokens [2, 2049]) beside the plain one, and the dp x tp dry-run
+twin in an NCCL world of one.
 
     python3 chip_smoke.py            # all phases, one card
     python3 chip_smoke.py --profile  # + two short profiled swarms
@@ -73,6 +79,10 @@ REPLACES = {
     "rms_norm": "brpc_tpu/models/transformer.py:102",
     "add_rms_norm": "brpc_tpu/models/transformer.py:102",
     "ring_attention_fold": "brpc_tpu/ops/ring_attention.py:65",
+    "attention_backward": "brpc_tpu/models/transformer.py:123",
+    "rms_norm_backward": "brpc_tpu/models/transformer.py:102",
+    "add_rms_norm_backward": "brpc_tpu/models/transformer.py:102",
+    "ring_attention_fold_backward": "brpc_tpu/ops/ring_attention.py:65",
 }
 SOURCES = {
     "paged_decode_attention":
@@ -83,6 +93,11 @@ SOURCES = {
     "rms_norm": "brpc_tpu_torch/csrc/rms_norm.cu",
     "add_rms_norm": "brpc_tpu_torch/csrc/rms_norm.cu",
     "ring_attention_fold": "brpc_tpu_torch/csrc/ring_attention.cu",
+    "attention_backward": "brpc_tpu_torch/csrc/attention_backward.cu",
+    "rms_norm_backward": "brpc_tpu_torch/csrc/rms_norm_backward.cu",
+    "add_rms_norm_backward": "brpc_tpu_torch/csrc/rms_norm_backward.cu",
+    "ring_attention_fold_backward":
+        "brpc_tpu_torch/csrc/ring_attention_backward.cu",
 }
 
 
@@ -144,9 +159,12 @@ def bound_ms(nbytes: float, flops: float, dtype) -> tuple:
 
 
 def compare(name: str, got: torch.Tensor, want: torch.Tensor, dtype,
-            rows: bool = False) -> tuple:
+            rows: bool = False, floor: float = 0.0,
+            row_tol: float = None) -> tuple:
     """-> (max abs err, max row relative err or None). Raises outside TOL
-    and, with ``rows`` (an attention output), outside ROW_TOL."""
+    and, with ``rows`` (an attention output or gradient), outside
+    ``row_tol`` (default ROW_TOL), each row held relative to at least
+    ``floor`` times the largest."""
     from brpc_tpu_torch.ops import attention
 
     atol, rtol = TOL[dtype]
@@ -159,11 +177,12 @@ def compare(name: str, got: torch.Tensor, want: torch.Tensor, dtype,
         raise AssertionError(
             f"{name}: {int(bad.sum())} elements outside atol {atol} rtol "
             f"{rtol}; max abs err {float(err.max()):.3e}")
-    row_err = attention.max_row_rel_err(g, w) if rows else None
-    if rows and not row_err <= ROW_TOL[dtype]:
+    row_err = attention.max_row_rel_err(g, w, floor) if rows else None
+    row_tol = ROW_TOL[dtype] if row_tol is None else row_tol
+    if rows and not row_err <= row_tol:
         raise AssertionError(
             f"{name}: a row's relative error {row_err:.3e} is above "
-            f"{ROW_TOL[dtype]}")
+            f"{row_tol}")
     return float(err.max()), row_err
 
 
@@ -191,12 +210,18 @@ def ptxas_summary(path: str) -> list:
 # Kernels on the shared attention tile core (K1, K2, K4, K5, and the
 # merges).
 TILE_KERNEL = re.compile(r"prefill|paged_decode|ring_attention")
+# The passes of the backward core (K2b, K5b), on the tensor cores in bf16.
+BACKWARD_KERNELS = ("attention_backward_kv_kernel",
+                    "attention_backward_q_kernel",
+                    "ring_fold_backward_kv_kernel",
+                    "ring_fold_backward_q_kernel")
 
 
 def sass_mma_counts(build) -> dict:
     """Tensor-core instructions (HMMA/HGMMA) per compiled attention kernel
-    of the built library, from cuobjdump -sass; fails if a bf16 K1, K2 or
-    K4 kernel has none, or if the decode kernel K1 is missing."""
+    of the built library, from cuobjdump -sass; fails if a bf16 K1, K2, K4
+    or K5 kernel, or a pass of K2b or K5b, has none, or if the decode
+    kernel K1 is missing."""
     tool = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
     sass = subprocess.run([tool, "-sass", build.LIB_PATH],
                           capture_output=True, text=True, check=True).stdout
@@ -208,13 +233,24 @@ def sass_mma_counts(build) -> dict:
         elif name is not None and ("HMMA" in line or "HGMMA" in line):
             counts[name] += 1
     for name, n in counts.items():
-        if TILE_KERNEL.search(name) and "bfloat16" in name:
+        # The kernel's own name: the mangled one also holds its source
+        # file's (csrc/ring_attention_backward.cu's kernels are not K5).
+        own = re.search(r"\d([a-z_]+_kernel)I", name)
+        if (TILE_KERNEL.search(own.group(1) if own else name)
+                and "bfloat16" in name):
             log(f"[sass] {name}: {n} HMMA/HGMMA")
             if "merge" not in name and n == 0:
                 raise AssertionError(f"{name} has no tensor-core instruction")
     for kind in ("prefill", "paged_decode_kernel", "ring_attention_fold"):
         if not any(kind in k and "bfloat16" in k for k in counts):
             raise AssertionError(f"no bf16 {kind} kernel in the SASS")
+    for kind in BACKWARD_KERNELS:
+        found = [k for k in counts if kind in k and "bfloat16" in k]
+        if not found or any(counts[k] == 0 for k in found):
+            raise AssertionError(f"no bf16 {kind} with tensor-core "
+                                 f"instructions in the SASS")
+        for k in found:
+            log(f"[sass] {k}: {counts[k]} HMMA/HGMMA")
     return counts
 
 
@@ -503,7 +539,7 @@ def fmt_ms(x) -> str:
 
 def phase_kernels() -> dict:
     gen = torch.Generator(device="cuda").manual_seed(0)
-    cases = {name: [] for name in SOURCES}
+    cases = {name: [] for name in REPLACES if "backward" not in name}
     for dtype in (torch.bfloat16, torch.float32):
         tag = str(dtype).replace("torch.", "")
         runs = [("paged_decode_attention", check_paged_decode(
@@ -644,6 +680,9 @@ def time_ring_fold(dtype, gen) -> dict:
     def lib():
         return F.scaled_dot_product_attention(q4, k4, v4)
 
+    def lib_diag():
+        return F.scaled_dot_product_attention(q4, k4, v4, is_causal=True)
+
     itemsize = torch.empty((), dtype=dtype).element_size()
     # q, k, v read; the state (o and (m, l), f32) read and written.
     nbytes = 3 * s * H * D * itemsize + 2 * s * H * (D + 2) * 4
@@ -651,7 +690,10 @@ def time_ring_fold(dtype, gen) -> dict:
     b_diag, _ = bound_ms(nbytes, 4.0 * H * D * s * (s + 1) / 2, dtype)
     return {"shape": f"q,k,v[1,{s},{H},{D}] one block, every key visible",
             "ms": time_ms(kern), "device_ms": device_ms(kern),
-            "diag_ms": time_ms(diag), "diag_bound_ms": b_diag,
+            "diag_ms": time_ms(diag), "diag_device_ms": device_ms(diag),
+            "diag_library_ms": time_ms(lib_diag),
+            "diag_library_device_ms": device_ms(lib_diag),
+            "diag_bound_ms": b_diag,
             "plain_ms": time_ms(plain, iters=5), "bound_ms": b,
             "bound_by": by, "library_ms": time_ms(lib),
             "library_device_ms": device_ms(lib)}
@@ -718,6 +760,10 @@ def phase_world(gen) -> dict:
             want = stage(w[i], want)
         res["pipeline_err"] = compare("pipeline_forward", ys, want,
                                       torch.float32)[0]
+        # 4 stages x 8 microbatches of a [512, 4096] x [4096, 4096] product.
+        res["pipeline_bound_ms"] = bound_ms(
+            (4 * 4096 * 4096 + 2 * 8 * 512 * 4096) * 4,
+            4 * 8 * 2.0 * 512 * 4096 * 4096, torch.float32)[0]
         del w, xs, ys, want
         # MoE at Llama-3-8B's MLP width, 8 experts, f32: ample capacity
         # (512 tokens, no drop) and capacity 16 (drops).
@@ -732,10 +778,15 @@ def phase_world(gen) -> dict:
             want = moe.moe_reference(p, xm, cap)
             kept = int(moe._route(xm.reshape(-1, 4096), p["router"], cap,
                                   8)[0].sum())
+            # Each kept token through its one expert's two products; the
+            # experts' weights read once.
             res[f"moe_cap{cap}"] = {
                 "max_abs_err": compare(f"moe_forward capacity {cap}", got,
                                        want, torch.float32)[0],
-                "tokens_kept": kept, "ms": ms}
+                "tokens_kept": kept, "ms": ms,
+                "bound_ms": bound_ms(8 * 2 * 4096 * 14336 * 4,
+                                     kept * 2 * 2.0 * 4096 * 14336,
+                                     torch.float32)[0]}
         if res["moe_cap512"]["tokens_kept"] != 512 or \
                 res["moe_cap16"]["tokens_kept"] >= 512:
             raise AssertionError(f"MoE capacities did not keep all tokens "
@@ -786,22 +837,30 @@ def phase_parallel() -> dict:
             f"{t['plain_ms']:.4f} bound_ms {t['bound_ms']:.5f} "
             f"({t['bound_by']}) library_ms {t['library_ms']:.4f} "
             f"library_device_ms {fmt_ms(t['library_device_ms'])}; diagonal "
-            f"block ms {t['diag_ms']:.4f} bound_ms {t['diag_bound_ms']:.5f}")
+            f"block ms {t['diag_ms']:.4f} device_ms "
+            f"{fmt_ms(t['diag_device_ms'])} bound_ms "
+            f"{t['diag_bound_ms']:.5f} causal SDPA over the block ms "
+            f"{t['diag_library_ms']:.4f} device_ms "
+            f"{fmt_ms(t['diag_library_device_ms'])}")
     # The whole causal ring against one causal SDPA over S 32768 (bf16).
     qs, ks, vs = main_in
     F = torch.nn.functional
     Q, K, V = (torch.cat(b, dim=1).transpose(1, 2) for b in (qs, ks, vs))
     ring_ms = time_ms(lambda: ra.ring_attention_local(qs, ks, vs, True),
                       iters=3, warmup=1)
+    ring_dev = device_ms(lambda: ra.ring_attention_local(qs, ks, vs, True),
+                         iters=3)
     sdpa_ms = time_ms(lambda: F.scaled_dot_product_attention(
         Q, K, V, is_causal=True), iters=3, warmup=1)
     ring_bound, _ = bound_ms(
         4 * RING_S * RING_H * RING_DH * 2,
         4.0 * RING_H * RING_DH * RING_S * (RING_S + 1) / 2, torch.bfloat16)
     res["ring_bf16_causal"] = {"ring_ms": ring_ms, "sdpa_causal_ms": sdpa_ms,
-                               "bound_ms": ring_bound}
+                               "bound_ms": ring_bound,
+                               "ring_device_ms": ring_dev}
     log(f"[parallel] causal ring, S {RING_S} bf16, {RING_RANKS} in-process "
-        f"ranks: {ring_ms:.3f} ms ({ring_launches(RING_RANKS, True)} K5 "
+        f"ranks: {ring_ms:.3f} ms, device {fmt_ms(ring_dev)} ms "
+        f"({ring_launches(RING_RANKS, True)} K5 "
         f"launches); one causal SDPA over S {RING_S}: {sdpa_ms:.3f} ms; "
         f"bound {ring_bound:.3f} ms (operations)")
     del Q, K, V
@@ -824,15 +883,590 @@ def phase_parallel() -> dict:
         f"collectives exact; ring_attention S 4096 vs dense max_abs_err "
         f"{w['ring_err'][0]:.3e} row_rel_err {w['ring_err'][1]:.3e}; "
         f"pipeline (4 stages x 4096, 8 x 512 rows) {w['pipeline_ms']:.1f} ms"
-        f" max_abs_err {w['pipeline_err']:.3e}; MoE (4096 x 14336, 8 "
+        f" (bound {w['pipeline_bound_ms']:.3f} ms, f32 operations) "
+        f"max_abs_err {w['pipeline_err']:.3e}; MoE (4096 x 14336, 8 "
         f"experts, 512 tokens, f32) capacity 512 kept "
         f"{w['moe_cap512']['tokens_kept']} in "
-        f"{w['moe_cap512']['ms']:.1f} ms max_abs_err "
+        f"{w['moe_cap512']['ms']:.1f} ms (bound "
+        f"{w['moe_cap512']['bound_ms']:.3f} ms) max_abs_err "
         f"{w['moe_cap512']['max_abs_err']:.3e}, capacity 16 kept "
         f"{w['moe_cap16']['tokens_kept']} max_abs_err "
         f"{w['moe_cap16']['max_abs_err']:.3e}; K5 launches {launches}; "
         f"phase {time.monotonic() - t_phase:.1f} s")
     del main_in, main_out, outs, qs, ks, vs
+    torch.cuda.empty_cache()
+    return res
+
+
+# ---- the training phase: K2b, K3b, K5b, the ring's backward, the step -------
+
+# The f32 exactness step: Llama-3-8B width, 2 layers, one sequence of 513
+# tokens (512 predicted). Its tolerances: the loss within 1e-5 relative
+# (f32 on both sides, sums in another order), every gradient and every
+# updated parameter within 1e-4 in the relative 2-norm over the tensor
+# (the kernels' f32 cores sum in another order than cuBLAS and torch's
+# reductions; 1e-4 leaves room for 2 layers of that).
+TRAIN_EXACT_LAYERS, TRAIN_EXACT_TOKENS = 2, (1, 513)
+TRAIN_EXACT_TOL = {"loss": 1e-5, "tensor": 1e-4}
+# The bf16 step at width: 4 layers, tokens [2, max_seq // 4 + 1] as the dry
+# run takes them. The kernel path and the plain path round to bf16 at
+# different points (the kernels round P and dS to bf16 as tensor-core
+# operands, the plain softmax rounds after the division), and each layer's
+# difference feeds the next: every gradient tensor is held to 5e-2 in the
+# relative 2-norm.
+TRAIN_STEP_LAYERS, TRAIN_STEP_TOKENS = 4, (2, 2049)
+TRAIN_BF16_TOL = 5e-2
+# Phase 3's backward cases: K2b at (B, S) with Llama-3-8B's heads, K3b and
+# its fused form at these rows x 4096, K5b on one 4096-row block.
+K2B_CASES = [(2, 2048), (1, 4096)]
+K3B_ROWS = (8, 4096)
+# The ring's backward: S 8192 as 4 in-process ranks against dense
+# attention's autograd, and S 32768 as 8 ranks, timed.
+RING_BWD_DENSE_S, RING_BWD_DENSE_RANKS = 8192, 4
+
+
+def fmt_errs(errs: dict) -> str:
+    """{name: error} as compact JSON, 3 significant digits."""
+    return json.dumps({k: float(f"{v:.2e}") for k, v in errs.items()})
+
+
+def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    """|got - want| / |want| in the 2-norm over the whole tensor, in f32."""
+    g, w = got.float(), want.float()
+    return float((g - w).norm() / w.norm().clamp_min(1e-30))
+
+
+def check_attention_backward(dtype, gen, B: int, S: int) -> dict:
+    """K2's training forward (o and its LSE) against causal_attention_plain,
+    and K2b against its plain backward on K2's own o and LSE, at
+    Llama-3-8B's heads; SDPA's causal GQA backward as the library
+    yardstick."""
+    from brpc_tpu_torch.ops import attention
+
+    dev = torch.device("cuda")
+    H, KV, Dh = 32, 8, 128
+    q = torch.randn((B, S, H, Dh), generator=gen, device=dev).to(dtype)
+    k, v = (torch.randn((B, S, KV, Dh), generator=gen, device=dev).to(dtype)
+            for _ in range(2))
+    do = torch.randn((B, S, H, Dh), generator=gen, device=dev).to(dtype)
+    o, lse = attention.causal_attention_forward(q, k, v)
+    tag = f"attention_backward B={B} S={S} {str(dtype)[6:]}"
+    o_p, lse_p = attention.causal_attention_plain(q, k, v)
+    fwd_err = compare(f"{tag} forward o", o, o_p, dtype, rows=True)
+    lse_err = compare(f"{tag} forward lse", lse, lse_p, torch.float32)[0]
+    del o_p, lse_p
+
+    def kern():
+        return attention.attention_backward(q, k, v, o, lse, do)
+
+    def plain():
+        return attention.prefill_attention_backward_plain(q, k, v, o, lse,
+                                                          do)
+
+    errs = [compare(f"{tag} d{n}", g, w, dtype, rows=True,
+                    floor=attention.GRAD_ROW_FLOOR)
+            for n, g, w in zip("qkv", kern(), plain())]
+    F = torch.nn.functional
+    q4, k4, v4 = (t.transpose(1, 2).detach().requires_grad_(True)
+                  for t in (q, k, v))
+    out = F.scaled_dot_product_attention(q4, k4, v4, is_causal=True,
+                                         enable_gqa=True)
+    do4 = do.transpose(1, 2)
+
+    def lib():
+        return torch.autograd.grad(out, (q4, k4, v4), do4, retain_graph=True)
+
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    pairs = B * S * (S + 1) / 2
+    # q, o, dO read and dq written; k, v read and dk, dv written; the LSE.
+    nbytes = (4 * B * S * H * Dh + 4 * B * S * KV * Dh) * itemsize \
+        + B * S * H * 4
+    b, by = bound_ms(nbytes, 10.0 * pairs * H * Dh, dtype)
+    return {"shape": f"q,o,dO[{B},{S},{H},{Dh}] k,v[{B},{S},{KV},{Dh}]",
+            "max_abs_err": max(e[0] for e in errs),
+            "row_rel_err": max(e[1] for e in errs),
+            "ms": time_ms(kern), "device_ms": device_ms(kern),
+            "plain_ms": time_ms(plain, iters=3), "bound_ms": b,
+            "bound_by": by, "library_ms": time_ms(lib),
+            "library_device_ms": device_ms(lib),
+            "forward": {"max_abs_err": fwd_err[0], "row_rel_err": fwd_err[1],
+                        "lse_max_abs_err": lse_err}}
+
+
+def check_norm_backward(dtype, gen, rows: int, fused: bool) -> dict:
+    """K3b (with ``fused``, its form with the stream's gradient) against
+    its plain backward; the autograd backward of F.rms_norm (after x +
+    delta when fused) as the library yardstick."""
+    from brpc_tpu_torch.ops import norm
+
+    dev = torch.device("cuda")
+    D, eps = 4096, 1e-5
+    x, dy, ds_out = (torch.randn((rows, D), generator=gen, device=dev)
+                     .to(dtype) for _ in range(3))
+    g = 1.0 + 0.1 * torch.randn((D,), generator=gen, device=dev)
+    if fused:
+        def kern():
+            return norm.add_rms_norm_backward(x, g, dy, ds_out, eps)
+
+        def plain():
+            return norm.add_rms_norm_backward_plain(x, g, dy, ds_out, eps)
+    else:
+        def kern():
+            return norm.rms_norm_backward(x, g, dy, eps)
+
+        def plain():
+            return norm.rms_norm_backward_plain(x, g, dy, eps)
+
+    name = "add_rms_norm_backward" if fused else "rms_norm_backward"
+    (dx, dg), (dx_p, dg_p) = kern(), plain()
+    err = compare(f"{name} rows={rows} {str(dtype)[6:]} dx", dx, dx_p,
+                  dtype)[0]
+    err_g = compare(f"{name} rows={rows} {str(dtype)[6:]} dgain", dg, dg_p,
+                    torch.float32)[0]
+    F = torch.nn.functional
+    xr = x.detach().requires_grad_(True)
+    dr = torch.zeros_like(x).requires_grad_(True)
+    w = g.to(dtype).requires_grad_(True)
+    s = xr + dr
+    out = F.rms_norm(s, (D,), weight=w, eps=eps)
+
+    def lib():
+        if fused:
+            return torch.autograd.grad((out, s), (xr, dr, w), (dy, ds_out),
+                                       retain_graph=True)
+        return torch.autograd.grad(out, (xr, w), dy, retain_graph=True)
+
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    nbytes = (4 if fused else 3) * rows * D * itemsize + 2 * D * 4
+    b, by = bound_ms(nbytes, 10.0 * rows * D, dtype)
+    return {"shape": f"x,dy[{rows},{D}]" + (" + ds_out" if fused else ""),
+            "max_abs_err": err, "dgain_max_abs_err": err_g,
+            "ms": time_ms(kern), "device_ms": device_ms(kern),
+            "plain_ms": time_ms(plain, iters=5), "bound_ms": b,
+            "bound_by": by, "library_ms": time_ms(lib),
+            "library_device_ms": device_ms(lib)}
+
+
+def check_ring_fold_backward(dtype, gen, diagonal: bool) -> dict:
+    """K5b on one block at s 4096, H 32, Dh 128 (rank 1 of a causal ring:
+    its o and LSE from K5 over rank 0's block and its own), for rank 0's
+    block (every key visible) or, with ``diagonal``, its own; against the
+    plain block backward, and SDPA's backward over the same block (causal
+    on the diagonal) as the library yardstick."""
+    from brpc_tpu_torch.ops import attention
+    from brpc_tpu_torch.ops import ring_attention as ra
+
+    s, H, D = RING_S // RING_RANKS, RING_H, RING_DH
+    q, k0, v0, k1, v1, do = (torch.randn((1, s, H, D), generator=gen,
+                                         device="cuda").to(dtype)
+                             for _ in range(6))
+    lse = torch.empty((1, s, H), dtype=torch.float32, device="cuda")
+    st = ra.ring_attention_fold(q, k0, v0, ra.fold_state(q), s, 0, True)
+    o = ra.ring_attention_fold(q, k1, v1, st, s, s, True, final=True,
+                               lse=lse)
+    kb, vb, k_start = (k1, v1, s) if diagonal else (k0, v0, 0)
+    grads = ra.grad_buffers(q, kb)
+
+    def kern():
+        return ra.ring_attention_fold_backward(q, kb, vb, o, lse, do, grads,
+                                               s, k_start, True, True)
+
+    def plain():
+        return ra.ring_attention_fold_backward_plain(q, kb, vb, o, lse, do,
+                                                     s, k_start, True)
+
+    kern()
+    tag = (f"ring_attention_fold_backward {'diagonal' if diagonal else 'full'}"
+           f" block {str(dtype)[6:]}")
+    errs = [compare(f"{tag} d{n}", g, w, dtype, rows=True,
+                    floor=attention.GRAD_ROW_FLOOR)
+            for n, g, w in zip("qkv", grads[:3], plain())]
+    F = torch.nn.functional
+    q4, k4, v4 = (t.transpose(1, 2).detach().requires_grad_(True)
+                  for t in (q, kb, vb))
+    out = F.scaled_dot_product_attention(q4, k4, v4, is_causal=diagonal)
+    do4 = do.transpose(1, 2)
+
+    def lib():
+        return torch.autograd.grad(out, (q4, k4, v4), do4, retain_graph=True)
+
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    pairs = s * (s + 1) / 2 if diagonal else s * s
+    # q, o, dO, k, v read; the LSE read; dq, dk, dv read and written (f32).
+    nbytes = 5 * s * H * D * itemsize + s * H * 4 + 6 * s * H * D * 4
+    b, by = bound_ms(nbytes, 10.0 * pairs * H * D, dtype)
+    return {"shape": f"q,k,v,o,dO[1,{s},{H},{D}] "
+                     f"{'diagonal block' if diagonal else 'every key visible'}",
+            "max_abs_err": max(e[0] for e in errs),
+            "row_rel_err": max(e[1] for e in errs),
+            "ms": time_ms(kern), "device_ms": device_ms(kern),
+            "plain_ms": time_ms(plain, iters=3), "bound_ms": b,
+            "bound_by": by, "library_ms": time_ms(lib),
+            "library_device_ms": device_ms(lib)}
+
+
+def log_case(name: str, tag: str, r: dict) -> None:
+    row = ("" if r.get("row_rel_err") is None else
+           f" row_rel_err {r['row_rel_err']:.3e}")
+    log(f"[kernel] {name} {tag} {r['shape']}: max_abs_err "
+        f"{r['max_abs_err']:.3e}{row} ms {r['ms']:.4f} device_ms "
+        f"{fmt_ms(r['device_ms'])} plain_ms {r['plain_ms']:.4f} bound_ms "
+        f"{r['bound_ms']:.5f} ({r['bound_by']}) library_ms "
+        f"{r['library_ms']:.4f} library_device_ms "
+        f"{fmt_ms(r['library_device_ms'])}")
+    if "forward" in r:
+        f = r["forward"]
+        log(f"[kernel] {name} {tag}: K2's training forward against "
+            f"causal_attention_plain: o max_abs_err {f['max_abs_err']:.3e} "
+            f"row_rel_err {f['row_rel_err']:.3e}; lse max_abs_err "
+            f"{f['lse_max_abs_err']:.3e}")
+
+
+def phase_backward_kernels() -> dict:
+    """Phase 3's backward cases: K2b, K3b (alone and fused) and K5b (a
+    full block and the diagonal block), bf16 and f32, each against its
+    plain backward, timed beside its bound and library call."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    cases = {name: [] for name in ("attention_backward", "rms_norm_backward",
+                                   "add_rms_norm_backward",
+                                   "ring_attention_fold_backward")}
+    for dtype in (torch.bfloat16, torch.float32):
+        tag = str(dtype)[6:]
+        runs = [("attention_backward", check_attention_backward(
+            dtype, gen, B, S)) for B, S in K2B_CASES]
+        for rows in K3B_ROWS:
+            runs.append(("rms_norm_backward",
+                         check_norm_backward(dtype, gen, rows, False)))
+            runs.append(("add_rms_norm_backward",
+                         check_norm_backward(dtype, gen, rows, True)))
+        for diagonal in (False, True):
+            runs.append(("ring_attention_fold_backward",
+                         check_ring_fold_backward(dtype, gen, diagonal)))
+        for name, r in runs:
+            r["dtype"] = tag
+            cases[name].append(r)
+            log_case(name, tag, r)
+            torch.cuda.empty_cache()
+    return cases
+
+
+def ring_grads(qs, ks, vs, do_blocks, causal: bool) -> tuple:
+    """The in-process ring's output blocks and, for the output gradient
+    ``do_blocks``, its gradient in every block -> (outputs, [dq blocks,
+    dk blocks, dv blocks])."""
+    from brpc_tpu_torch.ops import ring_attention as ra
+
+    leaves = [[b.detach().requires_grad_(True) for b in t]
+              for t in (qs, ks, vs)]
+    outs = ra.ring_attention_local(*leaves, causal)
+    torch.autograd.backward(outs, do_blocks)
+    return [o.detach() for o in outs], [[b.grad for b in t] for t in leaves]
+
+
+def check_ring_backward_dense(dtype, gen) -> dict:
+    """The in-process causal ring's gradient at S 8192 as 4 ranks against
+    dense attention, 8 heads at a time: in f32 row by row against dense
+    autograd; in bf16 row by row against the same backward over one dense
+    block (ring_attention_fold_backward_plain on the ring's own output),
+    and each gradient tensor against dense autograd in the relative
+    2-norm (attention.RING_BF16_GRAD_TOL)."""
+    from brpc_tpu_torch.ops import attention
+    from brpc_tpu_torch.ops import ring_attention as ra
+
+    S, n = RING_BWD_DENSE_S, RING_BWD_DENSE_RANKS
+    full = [torch.randn((1, S, RING_H, RING_DH), generator=gen,
+                        device="cuda").to(dtype) for _ in range(4)]
+    outs, got = ring_grads(*(list(t.split(S // n, dim=1)) for t in full[:3]),
+                           list(full[3].split(S // n, dim=1)), True)
+    out = torch.cat(outs, dim=1)
+    got = [torch.cat(blocks, dim=1) for blocks in got]
+    tag = f"ring backward S={S} {str(dtype)[6:]}"
+    res = {"max_abs_err": 0.0, "row_rel_err": 0.0}
+    sq_diff = [0.0] * 3
+    sq_ref = [0.0] * 3
+    autograd_row = 0.0
+    for h0 in range(0, RING_H, 8):
+        hs = slice(h0, h0 + 8)
+        q, k, v, do = (t[:, :, hs] for t in full)
+        leaves = [t.float().clone().requires_grad_(True) for t in (q, k, v)]
+        ra.attention_reference(*leaves, True).backward(do.float())
+        dense = [leaf.grad for leaf in leaves]
+        del leaves
+        if dtype == torch.float32:
+            want = dense
+        else:
+            lse = ra.fold_lse(ra.ring_attention_fold_plain(
+                q, k, v, ra.fold_state(q), 0, 0, True))
+            want = ra.ring_attention_fold_backward_plain(
+                q, k, v, out[:, :, hs], lse, do, 0, 0, True)
+            del lse
+        for i, name in enumerate("qkv"):
+            g = got[i][:, :, hs]
+            e = compare(f"{tag} d{name} heads {h0}..", g, want[i], dtype,
+                        rows=True, floor=attention.GRAD_ROW_FLOOR)
+            res["max_abs_err"] = max(res["max_abs_err"], e[0])
+            res["row_rel_err"] = max(res["row_rel_err"], e[1])
+            sq_diff[i] += float((g.float() - dense[i]).norm()) ** 2
+            sq_ref[i] += float(dense[i].norm()) ** 2
+            autograd_row = max(autograd_row, attention.max_row_rel_err(
+                g, dense[i], attention.GRAD_ROW_FLOOR))
+        del want, dense
+    res["autograd_rel_err"] = {name: (d / r) ** 0.5 for name, d, r in
+                               zip("qkv", sq_diff, sq_ref)}
+    res["autograd_row_rel_err"] = autograd_row
+    worst = max(res["autograd_rel_err"].values())
+    if dtype == torch.bfloat16 and not worst <= attention.RING_BF16_GRAD_TOL:
+        raise AssertionError(f"{tag}: a gradient's relative 2-norm error "
+                             f"against dense autograd is {worst:.3e}")
+    return res
+
+
+def train_params(cfg, seed: int) -> dict:
+    """f32 master parameters of the reference's shapes and scales
+    (``init_params`` in f32) from a seeded generator on the card."""
+    from brpc_tpu_torch.models import transformer
+
+    return transformer.init_params(
+        dataclasses.replace(cfg, dtype=torch.float32),
+        torch.Generator(device="cuda").manual_seed(seed), device="cuda")
+
+
+def leaf_names(params: dict) -> list:
+    return (["embed"] + sorted(params["layers"]) + ["ln_out", "w_out"])
+
+
+def step_exactness(cfg) -> dict:
+    """One f32 train_step on the kernels against one step through
+    loss_fn_plain's autograd, TF32 off: the loss, every gradient and every
+    updated parameter, held to TRAIN_EXACT_TOL."""
+    from brpc_tpu_torch import train
+    from brpc_tpu_torch.models import transformer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    params = train_params(cfg, 21)
+    tokens = torch.randint(0, cfg.vocab, TRAIN_EXACT_TOKENS, device="cuda",
+                           generator=torch.Generator(device="cuda")
+                           .manual_seed(22))
+    loss, grads = train.value_and_grad(transformer.loss_fn, params, tokens,
+                                       cfg, device="cuda")
+    loss_p, grads_p = train.value_and_grad(transformer.loss_fn_plain, params,
+                                           tokens, cfg, device="cuda")
+    loss_err = abs(float(loss) - float(loss_p)) / abs(float(loss_p))
+    if not loss_err <= TRAIN_EXACT_TOL["loss"]:
+        raise AssertionError(f"f32 step: loss {float(loss)} vs plain "
+                             f"{float(loss_p)}")
+    worst = {}
+    names = leaf_names(params)
+    for name, g, gp in zip(names, grads, grads_p):
+        worst[name] = rel_err(g, gp)
+        if not (torch.isfinite(g).all()
+                and worst[name] <= TRAIN_EXACT_TOL["tensor"]):
+            raise AssertionError(f"f32 step: d/d{name} relative error "
+                                 f"{worst[name]:.3e}")
+    new = train.sgd_update(params, grads, 1e-3)
+    new_p = train.sgd_update(params, grads_p, 1e-3)
+    upd = max(rel_err(a, b) for a, b in zip(train.flatten(new),
+                                            train.flatten(new_p)))
+    if not upd <= TRAIN_EXACT_TOL["tensor"]:
+        raise AssertionError(f"f32 step: updated parameters differ by "
+                             f"{upd:.3e}")
+    return {"loss": float(loss), "loss_plain": float(loss_p),
+            "loss_rel_err": loss_err, "grad_rel_err": worst,
+            "update_rel_err": upd}
+
+
+def timed(fn) -> tuple:
+    """fn() between synchronisations -> (result, ms on the host clock)."""
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.monotonic() - t0) * 1e3
+
+
+def step_at_width(cfg) -> dict:
+    """The bf16 train_step at Llama-3-8B width and TRAIN_STEP_LAYERS layers
+    on tokens TRAIN_STEP_TOKENS: the main run of the training path (counts
+    zeroed just before, read just after), timed, beside the plain autograd
+    step; every gradient held to TRAIN_BF16_TOL of the plain step's."""
+    from brpc_tpu_torch import ops, train
+    from brpc_tpu_torch.models import transformer
+
+    params = train_params(cfg, 31)
+    tokens = torch.randint(0, cfg.vocab, TRAIN_STEP_TOKENS, device="cuda",
+                           generator=torch.Generator(device="cuda")
+                           .manual_seed(32))
+    n_tok = TRAIN_STEP_TOKENS[0] * (TRAIN_STEP_TOKENS[1] - 1)
+    train.train_step(params, tokens, cfg)  # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    (new, loss), step_ms = timed(lambda: train.train_step(params, tokens,
+                                                          cfg))
+    launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    del new
+    L = cfg.n_layers
+    want = {"prefill_attention": L, "attention_backward": L, "rms_norm": 1,
+            "add_rms_norm": 2 * L, "rms_norm_backward": 1,
+            "add_rms_norm_backward": 2 * L}
+    for name, n in want.items():
+        if launches[name] != n:
+            raise AssertionError(f"the training step launched {name} "
+                                 f"{launches[name]} times, want {n}")
+    torch.cuda.empty_cache()
+
+    def plain_step():
+        lp, gp = train.value_and_grad(transformer.loss_fn_plain, params,
+                                      tokens, cfg)
+        return train.sgd_update(params, gp, 1e-3), lp
+
+    plain_step()  # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    (new_p, loss_p), plain_ms = timed(plain_step)
+    plain_peak = torch.cuda.max_memory_allocated() / 2**30
+    del new_p
+    torch.cuda.empty_cache()
+    if not (torch.isfinite(loss) and torch.isfinite(loss_p)):
+        raise AssertionError(f"bf16 step: losses {float(loss)}, plain "
+                             f"{float(loss_p)}")
+    loss_k, grads = train.value_and_grad(transformer.loss_fn, params, tokens,
+                                         cfg)
+    _, grads_p = train.value_and_grad(transformer.loss_fn_plain, params,
+                                      tokens, cfg)
+    errs = {}
+    for name, g, gp in zip(leaf_names(params), grads, grads_p):
+        errs[name] = rel_err(g, gp)
+        if not (torch.isfinite(g).all() and errs[name] <= TRAIN_BF16_TOL):
+            raise AssertionError(f"bf16 step: d/d{name} relative error "
+                                 f"{errs[name]:.3e} vs the plain step")
+    del grads, grads_p, params
+    torch.cuda.empty_cache()
+    return {"tokens": list(TRAIN_STEP_TOKENS), "layers": L,
+            "loss": float(loss), "loss_plain": float(loss_p),
+            "step_ms": step_ms, "tokens_per_s": n_tok / step_ms * 1e3,
+            "peak_mem_gib": peak, "plain_step_ms": plain_ms,
+            "plain_tokens_per_s": n_tok / plain_ms * 1e3,
+            "plain_peak_mem_gib": plain_peak, "grad_rel_err": errs,
+            "launches": launches}
+
+
+def ring_backward_at_length(gen) -> dict:
+    """The causal bf16 in-process ring at S 32768 as 8 ranks, forward and
+    backward: the main run of the ring's backward (counts zeroed just
+    before, read just after), timed, beside one causal SDPA forward and
+    backward over the whole sequence."""
+    from brpc_tpu_torch import ops
+
+    S, n = RING_S, RING_RANKS
+    full = [torch.randn((1, S, RING_H, RING_DH), generator=gen,
+                        device="cuda").to(torch.bfloat16) for _ in range(4)]
+    blocks = [list(t.split(S // n, dim=1)) for t in full]
+
+    def run():
+        return ring_grads(*blocks[:3], blocks[3], True)[1]
+
+    run()  # warm-up
+    ops.reset_launch_counts()
+    grads, ms = timed(run)
+    launches = ops.launch_counts()
+    skipped_above = n * (n - 1) // 2
+    if launches["ring_attention_fold_backward"] != n * n - skipped_above or \
+            launches["ring_attention_fold"] != ring_launches(n, True):
+        raise AssertionError(f"the ring's backward launched {launches}")
+    for t in grads:
+        for g in t:
+            if not torch.isfinite(g).all():
+                raise AssertionError("the ring's gradient is not finite")
+    F = torch.nn.functional
+    Q, K, V = (torch.cat(b, dim=1).transpose(1, 2).detach()
+               .requires_grad_(True) for b in blocks[:3])
+    dO = full[3].transpose(1, 2)
+
+    def lib():
+        out = F.scaled_dot_product_attention(Q, K, V, is_causal=True)
+        return torch.autograd.grad(out, (Q, K, V), dO)
+
+    lib()
+    _, lib_ms = timed(lib)
+    # Forward (4 D flops per visible pair) and backward (10 D).
+    b, _ = bound_ms(9 * S * RING_H * RING_DH * 2,
+                    14.0 * RING_H * RING_DH * S * (S + 1) / 2,
+                    torch.bfloat16)
+    return {"ms": ms, "device_ms": device_ms(run, iters=2),
+            "sdpa_ms": lib_ms, "bound_ms": b, "launches": launches}
+
+
+def phase_train() -> dict:
+    """The training path: phase 3's backward cases, the ring's backward
+    against dense and at S 32768, the f32 exactness step, the bf16 step at
+    width, and the dry-run twin in an NCCL world of one."""
+    import socket
+
+    import torch.distributed as dist
+    from brpc_tpu_torch import dryrun
+    from brpc_tpu_torch.models import transformer
+
+    t_phase = time.monotonic()
+    res = {"kernels": phase_backward_kernels()}
+    gen = torch.Generator(device="cuda").manual_seed(41)
+    for dtype in (torch.bfloat16, torch.float32):
+        res[f"ring_dense_{str(dtype)[6:]}"] = d = check_ring_backward_dense(
+            dtype, gen)
+        log(f"[train] ring backward, causal S {RING_BWD_DENSE_S} as "
+            f"{RING_BWD_DENSE_RANKS} in-process ranks, {str(dtype)[6:]}: vs "
+            f"{'dense autograd' if dtype == torch.float32 else 'one block'}"
+            f" max_abs_err {d['max_abs_err']:.3e} row_rel_err "
+            f"{d['row_rel_err']:.3e}; vs dense autograd relative 2-norm "
+            f"error {fmt_errs(d['autograd_rel_err'])}, worst row "
+            f"{d['autograd_row_rel_err']:.3e}")
+        torch.cuda.empty_cache()
+    res["ring"] = r = ring_backward_at_length(gen)
+    log(f"[train] causal ring forward + backward, S {RING_S} bf16 as "
+        f"{RING_RANKS} in-process ranks: {r['ms']:.3f} ms (device "
+        f"{fmt_ms(r['device_ms'])} ms; K5 "
+        f"{r['launches']['ring_attention_fold']} launches, K5b "
+        f"{r['launches']['ring_attention_fold_backward']}); one causal SDPA "
+        f"forward + backward over S {RING_S}: {r['sdpa_ms']:.3f} ms; bound "
+        f"{r['bound_ms']:.3f} ms (operations)")
+    torch.cuda.empty_cache()
+    base = transformer.TransformerConfig.llama3_8b()
+    res["exact"] = e = step_exactness(dataclasses.replace(
+        base, n_layers=TRAIN_EXACT_LAYERS, dtype=torch.float32))
+    log(f"[train] f32 step, Llama-3-8B width, {TRAIN_EXACT_LAYERS} layers, "
+        f"tokens {list(TRAIN_EXACT_TOKENS)}, TF32 off: loss {e['loss']:.6f} "
+        f"vs plain {e['loss_plain']:.6f} (rel {e['loss_rel_err']:.2e}); "
+        f"gradients' relative 2-norm error max "
+        f"{max(e['grad_rel_err'].values()):.2e} "
+        f"({fmt_errs(e['grad_rel_err'])}); "
+        f"updated parameters {e['update_rel_err']:.2e}")
+    torch.cuda.empty_cache()
+    res["step"] = s = step_at_width(dataclasses.replace(
+        base, n_layers=TRAIN_STEP_LAYERS))
+    log(f"[train] bf16 train_step, Llama-3-8B width, {TRAIN_STEP_LAYERS} "
+        f"layers, tokens {list(TRAIN_STEP_TOKENS)}: {s['step_ms']:.1f} ms = "
+        f"{s['tokens_per_s']:.0f} tokens/s, peak {s['peak_mem_gib']:.2f} GiB,"
+        f" loss {s['loss']:.5f}; the plain autograd step "
+        f"{s['plain_step_ms']:.1f} ms = {s['plain_tokens_per_s']:.0f} "
+        f"tokens/s, peak {s['plain_peak_mem_gib']:.2f} GiB, loss "
+        f"{s['loss_plain']:.5f}; gradients' relative 2-norm error vs plain "
+        f"max {max(s['grad_rel_err'].values()):.2e} "
+        f"({fmt_errs(s['grad_rel_err'])}); "
+        f"launches {s['launches']}")
+    with socket.socket() as so:
+        so.bind(("localhost", 0))
+        port = so.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            world_size=1, rank=0)
+    try:
+        twin = dryrun.dryrun_rank(0, 1, device="cuda")
+    finally:
+        dist.destroy_process_group()
+    res["dryrun"] = {k: v for k, v in twin.items() if k != "params"}
+    log(f"[train] dry-run twin, NCCL world of one (dp 1 x tp 1), tiny bf16:"
+        f" loss {twin['loss']:.5f}; sp {twin['sp']['max_abs_err']:.2e}, ep "
+        f"{twin['ep']['max_abs_err']:.2e}, pp {twin['pp']['max_abs_err']:.2e};"
+        f" phase {time.monotonic() - t_phase:.1f} s")
     torch.cuda.empty_cache()
     return res
 
@@ -1783,6 +2417,7 @@ def main() -> int:
     report["sass_mma"] = sass_mma_counts(_build)
     cases = phase_kernels()
     report["parallel"] = parallel = phase_parallel()
+    report["train"] = trained = phase_train()
     from brpc_tpu_torch import runtime
     from brpc_tpu_torch.models import transformer
 
@@ -1842,6 +2477,21 @@ def main() -> int:
         "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"], "library_ms": t["library_ms"],
     })
+    # The backward kernels: the bf16 case at the training step's shapes
+    # (K2b at (2, 2048), K3b at 4096 rows, K5b on a full block), launches
+    # from the bf16 step (K5b: from the ring's backward at S 32768).
+    pick = {"attention_backward": 0, "rms_norm_backward": 1,
+            "add_rms_norm_backward": 1, "ring_attention_fold_backward": 0}
+    for name, i in pick.items():
+        r = trained["kernels"][name][i]
+        run = trained["ring" if name.startswith("ring") else "step"]
+        rows.append({
+            "name": name, "route": "cuda", "source": SOURCES[name],
+            "replaces": REPLACES[name], "launches": run["launches"][name],
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+        })
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -46,8 +46,8 @@ def _assert_close(got, want, dtype, case):
                                rtol=rtol, msg=lambda m: f"{case}: {m}")
 
 
-def _assert_rows_close(got, want, dtype, case):
-    err = attention.max_row_rel_err(got, want)
+def _assert_rows_close(got, want, dtype, case, floor=0.0):
+    err = attention.max_row_rel_err(got, want, floor)
     assert err <= ROW_TOL[dtype], (
         f"{case}: a row's relative error {err:.3e} is above {ROW_TOL[dtype]}")
 
@@ -406,8 +406,131 @@ def test_ring_attention_fold_matches_plain_on_card(cuda_device):
     x = torch.zeros((1, 64, 2, 16), device=cuda_device)
     with pytest.raises(ValueError, match="D in"):
         ra.ring_attention_fold(x, x, x, ra.fold_state(x), 0, 0, False)
-    # K5 has no backward fold yet: differentiating through it raises.
-    q = torch.randn((1, 64, 2, 32), device=cuda_device, requires_grad=True)
-    out = ra.ring_attention_local([q], [q.detach()], [q.detach()])[0]
-    with pytest.raises(NotImplementedError, match="no backward"):
-        out.sum().backward()
+    # The ring's gradient (K5b's backward pass round the in-process ring):
+    # in f32 against dense attention's autograd; in bf16 against the same
+    # backward over one dense block on the ring's own output, and against
+    # dense autograd in the relative 2-norm.
+    for dtype in DTYPES:
+        for causal in (True, False):
+            case = f"ring gradient {dtype} causal={causal}"
+            full = [torch.randn((2, 4 * 48, 2, 32), generator=gen,
+                                device=cuda_device).to(dtype)
+                    for _ in range(4)]
+            do = full.pop()
+            blocks = [[b.clone().requires_grad_(True) for b in t.split(48, 1)]
+                      for t in full]
+            before = ra.ring_attention_fold_backward.launches
+            out = torch.cat(ra.ring_attention_local(*blocks, causal), 1)
+            out.backward(do)
+            assert ra.ring_attention_fold_backward.launches == before + (
+                10 if causal else 16), case
+            dense = [t.float().clone().requires_grad_(True) for t in full]
+            ra.attention_reference(*dense, causal).backward(do.float())
+            dense = [d.grad for d in dense]
+            want = dense
+            if dtype == torch.bfloat16:
+                lse = ra.fold_lse(ra.ring_attention_fold_plain(
+                    *full, ra.fold_state(full[0]), 0, 0, causal))
+                want = ra.ring_attention_fold_backward_plain(
+                    *full, out.detach(), lse, do, 0, 0, causal)
+            for name, bl, w, d in zip("qkv", blocks, want, dense):
+                got = torch.cat([b.grad for b in bl], 1)
+                _assert_close(got, w, dtype, f"{case} d/d{name}")
+                _assert_rows_close(got, w, dtype, f"{case} d/d{name}",
+                                   attention.GRAD_ROW_FLOOR)
+                rel = float((got.float() - d).norm() / d.norm())
+                assert rel <= attention.RING_BF16_GRAD_TOL, (case, name, rel)
+
+
+def _rnd(gen, dtype, *shape):
+    return torch.randn(shape, generator=gen, device=gen.device).to(dtype)
+
+
+# K5b cases: (B, block length s, H, D); the other block's start is s below
+# the queries' (every key visible), equal (the diagonal block), s above
+# (nothing visible: no launch) and, without the mask, s above.
+RING_BWD_CASES = [(2, 48, 4, 32), (1, 130, 2, 64), (1, 100, 2, 128)]
+
+
+@pytest.mark.cuda
+def test_backward_kernels_match_plain_on_card(cuda_device):
+    """K2b (attention_backward), K3b (rms_norm_backward, and the fused
+    add_rms_norm_backward with and without the stream's gradient) and K5b
+    (ring_attention_fold_backward) against their plain backward versions
+    on the same inputs, every head layout and dtype, ragged lengths; K2's
+    training forward (with its LSE) against causal_attention_plain; each
+    wrapper launches once per call; a head dim the kernels lack raises."""
+    gen = torch.Generator(device=cuda_device).manual_seed(9)
+    for dtype in DTYPES:
+        for H, KV, Dh in HEADS:
+            for B, S in ((2, 70), (1, 130)):
+                case = f"K2b {dtype} H={H} KV={KV} Dh={Dh} B={B} S={S}"
+                q = _rnd(gen, dtype, B, S, H, Dh)
+                k, v = (_rnd(gen, dtype, B, S, KV, Dh) for _ in range(2))
+                o, lse = attention.causal_attention_forward(q, k, v)
+                o_p, lse_p = attention.causal_attention_plain(q, k, v)
+                _assert_close(o, o_p, dtype, f"{case} forward")
+                _assert_rows_close(o, o_p, dtype, f"{case} forward")
+                _assert_close(lse, lse_p, torch.float32, f"{case} lse")
+                do = _rnd(gen, dtype, B, S, H, Dh)
+                n = attention.attention_backward.launches
+                got = attention.attention_backward(q, k, v, o, lse, do)
+                assert attention.attention_backward.launches == n + 1, case
+                want = attention.prefill_attention_backward_plain(
+                    q, k, v, o, lse, do)
+                for name, g, w in zip("qkv", got, want):
+                    _assert_close(g, w, dtype, f"{case} d{name}")
+                    _assert_rows_close(g, w, dtype, f"{case} d{name}",
+                                       attention.GRAD_ROW_FLOOR)
+            D = H * Dh
+            case = f"K3b {dtype} rows=70 D={D}"
+            x, dy, ds_out = (_rnd(gen, dtype, 70, D) for _ in range(3))
+            g = torch.rand(D, generator=gen, device=cuda_device) + 0.5
+            n = norm.rms_norm_backward.launches
+            dx, dg = norm.rms_norm_backward(x, g, dy, 1e-5)
+            assert norm.rms_norm_backward.launches == n + 1, case
+            dx_p, dg_p = norm.rms_norm_backward_plain(x, g, dy, 1e-5)
+            _assert_close(dx, dx_p, dtype, f"{case} dx")
+            _assert_close(dg, dg_p, torch.float32, f"{case} dgain")
+            for ds in (ds_out, None):
+                fcase = f"{case} fused, ds_out {ds is not None}"
+                n = norm.add_rms_norm_backward.launches
+                got = norm.add_rms_norm_backward(x, g, dy, ds, 1e-5)
+                assert norm.add_rms_norm_backward.launches == n + 1, fcase
+                want = norm.add_rms_norm_backward_plain(x, g, dy, ds, 1e-5)
+                _assert_close(got[0], want[0], dtype, f"{fcase} ds")
+                _assert_close(got[1], want[1], torch.float32,
+                              f"{fcase} dgain")
+        for B, s, H, D in RING_BWD_CASES:
+            q, k2, v2, kb, vb = (_rnd(gen, dtype, B, s, H, D)
+                                 for _ in range(5))
+            for causal, k_start in ((True, 0), (True, s), (True, 2 * s),
+                                    (False, 2 * s)):
+                case = (f"K5b {dtype} B={B} s={s} H={H} D={D} causal="
+                        f"{causal} k_start={k_start}")
+                st = ra.fold_state(q)
+                for kk, vv, ks in ((k2, v2, s), (kb, vb, k_start)):
+                    st = ra.ring_attention_fold_plain(q, kk, vv, st, s, ks,
+                                                      causal)
+                o = ra.fold_output(st, dtype)
+                lse = ra.fold_lse(st)
+                do = _rnd(gen, dtype, B, s, H, D)
+                grads = ra.grad_buffers(q, kb)
+                n = ra.ring_attention_fold_backward.launches
+                ra.ring_attention_fold_backward(q, kb, vb, o, lse, do, grads,
+                                                s, k_start, causal, True)
+                above = causal and k_start > s + s - 1
+                assert ra.ring_attention_fold_backward.launches == \
+                    n + (not above), case
+                want = ra.ring_attention_fold_backward_plain(
+                    q, kb, vb, o, lse, do, s, k_start, causal)
+                for name, g_, w in zip("qkv", grads[:3], want):
+                    if above:
+                        assert not g_.any(), f"{case} d{name}"
+                        continue
+                    _assert_close(g_, w, dtype, f"{case} d{name}")
+                    _assert_rows_close(g_, w, dtype, f"{case} d{name}",
+                                       attention.GRAD_ROW_FLOOR)
+    x = torch.zeros((1, 64, 2, 16), device=cuda_device)
+    with pytest.raises(ValueError, match="Dh must be one of"):
+        attention.causal_attention_forward(x, x, x)

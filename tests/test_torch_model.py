@@ -20,6 +20,7 @@ import torch
 from brpc_tpu.models import transformer as jt
 from brpc_tpu_torch import kv_cache as tkv
 from brpc_tpu_torch import serving as ts
+from brpc_tpu_torch import train as ttrain
 from brpc_tpu_torch.models import transformer as tt
 
 TOL = dict(rtol=1e-4, atol=1e-4)
@@ -158,7 +159,9 @@ def test_decode_step_matches_jax(models):
 
 
 @pytest.mark.parametrize("entry", ["init_params", "params_from_numpy",
-                                   "greedy_reference", "pool", "engine"])
+                                   "greedy_reference", "pool", "engine",
+                                   "loss_fn", "train_step",
+                                   "train_params_from_numpy"])
 def test_entry_points_raise_without_cuda(entry):
     """No card and no explicit device="cpu": every entry point raises; none
     falls back to the CPU."""
@@ -177,6 +180,15 @@ def test_entry_points_raise_without_cuda(entry):
             tt.greedy_reference({}, tcfg, [1], 1)
         elif entry == "pool":
             tkv.PagedKvPool(tcfg, 9, 16)
+        elif entry == "loss_fn":
+            tt.loss_fn({}, [[1, 2, 3]], tcfg)
+        elif entry == "train_step":
+            ttrain.train_step({}, [[1, 2, 3]], tcfg)
+        elif entry == "train_params_from_numpy":
+            jcfg, _ = _configs(4)
+            tt.train_params_from_numpy(jax.tree.map(
+                np.asarray, jt.init_params(jcfg, jax.random.PRNGKey(0))),
+                tcfg)
         else:
             ts.ServingEngine({}, tcfg, autostart=False)
 
@@ -197,7 +209,14 @@ def test_port_sources_import_no_jax_and_no_library_attention():
                 "brpc_tpu_torch/parallel/world.py",
                 "brpc_tpu_torch/ops/ring_attention.py",
                 "brpc_tpu_torch/models/moe.py",
-                "brpc_tpu_torch/csrc/ring_attention.cu"):
+                "brpc_tpu_torch/csrc/ring_attention.cu",
+                "brpc_tpu_torch/train.py",
+                "brpc_tpu_torch/dryrun.py",
+                "brpc_tpu_torch/csrc/attention_backward.cuh",
+                "brpc_tpu_torch/csrc/attention_backward.cu",
+                "brpc_tpu_torch/csrc/ring_attention_backward.cu",
+                "brpc_tpu_torch/csrc/rms_norm.cuh",
+                "brpc_tpu_torch/csrc/rms_norm_backward.cu"):
         assert rel in scanned, f"the scan misses {rel}"
     imported = {}
     for path in _port_sources():

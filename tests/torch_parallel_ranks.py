@@ -83,3 +83,25 @@ def misbehave(rank, n):
         os._exit(3)
     import time
     time.sleep(600)
+
+
+def ring_grads(rank, n, cases):
+    """For each (q, k, v, causal) case: this rank's gradient blocks of
+    sum(ring_attention(q, k, v) ** 2) in q, k and v."""
+    out = []
+    for q, k, v, causal in cases:
+        blocks = [_block(a, rank, n, 1).requires_grad_(True)
+                  for a in (q, k, v)]
+        (ra.ring_attention(*blocks, causal) ** 2).sum().backward()
+        out.append([b.grad.numpy() for b in blocks])
+    return out
+
+
+def dryrun_twin(rank, n, cfg, params, tokens):
+    """The dry run's twin on ``params`` with the reference's zero tokens
+    (the step and the sp, ep and pp legs), then the step alone on
+    ``tokens``: -> the two steps' results."""
+    from brpc_tpu_torch import dryrun
+    first = dryrun.dryrun_rank(rank, n, cfg, params, device="cpu")
+    second = dryrun.train_twin(rank, n, cfg, params, tokens, "cpu")
+    return first, second
