@@ -13,13 +13,15 @@
 // f32 (data sheet, 700 W power limit); q, k, v, o, dO read once and dq, dk,
 // dv written once are far below that line at a few thousand tokens.
 // Design: the two-pass backward core of csrc/attention_backward.cuh (bf16
-// on the tensor cores with mma.sync, exact f32 on the CUDA cores): a delta
-// pre-pass, the dK/dV pass (one block per (batch, KV head, 64 keys), over
-// the query tiles of the KV head's query heads at or below the diagonal)
-// and the dQ pass (one block per (batch, head, 64 queries), over the key
-// tiles up to its diagonal), each block writing its own rows once, so no
-// atomics and the same sums on every run. The probabilities come back from
-// the LSE that K2 (csrc/prefill_attention.cu) writes in its training form.
+// on Hopper's wgmma, fed by TMA through a ring of column tiles with a
+// producer warp and two consumer warpgroups; exact f32 on the CUDA cores):
+// a delta pre-pass, the dK/dV pass (one block per (batch, KV head, 128
+// keys), over the query tiles of the KV head's query heads at or below the
+// diagonal) and the dQ pass (one block per (batch, head, 128 queries),
+// over the key tiles up to its diagonal; 64 own rows a block in f32), each
+// block writing its own rows once, so no atomics and the same sums on
+// every run. The probabilities come back from the LSE that K2
+// (csrc/prefill_attention.cu) writes in its training form.
 #include "attention_backward.cuh"
 
 namespace brpc_tpu_torch {
@@ -29,15 +31,17 @@ using attn_bwd::Args;
 using attn_bwd::Core;
 
 template <typename T, int DH>
-__global__ void __launch_bounds__(Core<T>::kThreads)
-    attention_backward_kv_kernel(const Args<T> a) {
-  Core<T>::template run<DH, true, false>(a);
+__global__ void __launch_bounds__(Core<T>::kThreads, 1)
+    attention_backward_kv_kernel(const Args<T> a,
+                                 const __grid_constant__ attn_bwd::Maps maps) {
+  Core<T>::template run<DH, true, false>(a, maps);
 }
 
 template <typename T, int DH>
-__global__ void __launch_bounds__(Core<T>::kThreads)
-    attention_backward_q_kernel(const Args<T> a) {
-  Core<T>::template run<DH, false, false>(a);
+__global__ void __launch_bounds__(Core<T>::kThreads, 1)
+    attention_backward_q_kernel(const Args<T> a,
+                                const __grid_constant__ attn_bwd::Maps maps) {
+  Core<T>::template run<DH, false, false>(a, maps);
 }
 
 template <typename T>

@@ -15,43 +15,74 @@
 // kernel's own source.
 //
 // Two passes, neither with atomics, so every run sums in the same order:
-// - the dK/dV pass: one block per (batch, KV head, 64 keys) owns the
+// - the dK/dV pass: one block per (batch, KV head, own keys) owns the
 //   keys' dk and dv and walks the query tiles that can see them (causal:
 //   from the first query at or past the block's first key), for each of
-//   the KV head's query heads;
-// - the dQ pass: one block per (batch, head, 64 queries) owns their dq and
-//   walks the key tiles up to its causal edge, heaviest tiles first.
+//   the KV head's query heads, early keys (the most queries) first;
+// - the dQ pass: one block per (batch, head, own queries) owns their dq
+//   and walks the key tiles up to its causal edge, heaviest blocks first.
 // The same body serves both: a block's "own" rows (keys, or queries) stay
 // in shared memory while "column" tiles of the other side stream past.
+// Own X and Y are K and V (dK/dV pass) or Q and dO (dQ pass), column X and
+// Y the other two: S = X_own . X_col^T, dP = Y_own . Y_col^T, then
+// acc1 += dS . X_col (dk or dq) and acc2 += P . Y_col (dv).
 //
-// bf16 (`mma_bwd`): tensor cores, mma.sync.m16n8k16 with f32 accumulation,
-// 4 warps of 16 own rows; operands come from shared memory through
-// ldmatrix (non-transposed for the two logit-like products, S = X_own .
-// X_col^T and dP = Y_own . Y_col^T, transposed for the two accumulations),
-// 16 columns at a time, so the S and dP fragments stay 8 registers each and
-// the accumulators (dk and dv: 2 x Dh/2 f32 a thread) fit at Dh 128 without
-// spilling. P (as the forward rounds it before P.V) and dS are rounded to
-// bf16 as the A operands of the accumulations straight from the S and dP
-// fragments (the C layout of two 8-column tiles is the A layout of one
-// 16-column step, as in the forward core).
-// f32 (`f32_bwd`): exact f32 on the CUDA cores, 8 warps of 8 own rows;
-// lane j takes column j of a 32-column tile for the logit-like products,
-// then every lane owns Dh / 32 output columns for the accumulations,
-// with P and dS broadcast by shuffles.
+// bf16 (`wgmma_bwd`, Hopper only): a block of 3 warpgroups owns 128 rows.
+// Warpgroup 0 is the producer (24 registers a thread, setmaxnreg): one warp
+// loads the two own tiles once and then every column tile (X and Y, 64 rows
+// each) with TMA into a ring of kBwdStages stages in shared memory,
+// 128-byte swizzled (64-byte at Dh 32). A stage's "full" mbarrier counts
+// the TMA bytes and the warp's 32 arrivals (in the dK/dV pass the warp
+// also writes the tile's LSE, pre-scaled by log2 e, and delta rows); its
+// "empty" one an arrival from each consumer warp. Warpgroups 1 and 2 are
+// the consumers (240 registers: dk and dv are 2 x Dh / 2 f32 a thread at
+// Dh 128, S and dP 32 each), 64 own rows each. Per column tile, four
+// wgmma groups run in turn: S and dP (m64n64k16, both operands K-major in
+// shared memory), then P = exp2(S scale log2e - lse log2e) is formed while
+// dP runs, dv += P . Y_col runs while dS = P (dP - delta) is formed, and
+// dk (or dq) += dS . X_col ends the tile. P (as the forward rounds it
+// before P.V) and dS are rounded to bf16 straight into the A fragments of
+// those register-sourced products (a 16-bit accumulator fragment repacks
+// into the A layout without a shuffle); their B is the same stage read as
+// an MN-major tile. Once the last group retires the warp releases the
+// stage, so the producer's next copies overlap the products. The causal
+// test runs only on tiles that cross the diagonal; a warpgroup skips a
+// tile its rows see nothing of, and the block's tile list holds none that
+// both skip.
+// f32 (`f32_bwd`): exact f32 on the CUDA cores, 8 warps of 8 own rows, 64
+// own rows a block; lane j takes column j of a 32-column tile for the
+// logit-like products, then every lane owns Dh / 32 output columns for the
+// accumulations, with P and dS broadcast by shuffles.
 //
 // Outputs: a kernel writes its rows either rounded to T (K2b: dq, dk, dv in
 // the model dtype) or added to f32 accumulators (K5b: a ring block's
 // contributions, `kAcc`).
 #pragma once
 
+#include <cuda.h>
+
 #include "attention_tile.cuh"
 
 namespace brpc_tpu_torch {
 namespace attn_bwd {
 
-using attn::kTileRows;             // own rows of a block, both cores
-constexpr int kMmaCols = 64;       // columns of a staged tile, bf16 core
+using attn::kTileRows;             // own rows of an f32 block
 constexpr int kF32Cols = 32;       // columns of a staged tile, f32 core
+
+// The bf16 core (ops/attention.py reads these from this file).
+constexpr int kBwdWgRows = 64;     // own rows of one consumer warpgroup
+constexpr int kBwdConsumers = 2;   // consumer warpgroups of a block
+constexpr int kBwdOwnRows = 128;   // own rows of a block
+constexpr int kBwdCols = 64;       // rows of a column tile
+constexpr int kBwdStages = 3;      // column tiles in flight
+constexpr int kBwdThreads = 384;   // the producer warpgroup and consumers
+constexpr int kBwdProducerRegs = 24;
+constexpr int kBwdConsumerRegs = 240;
+static_assert(kBwdOwnRows == kBwdConsumers * kBwdWgRows, "own rows");
+static_assert(kBwdThreads == 128 * (kBwdConsumers + 1), "warpgroups");
+static_assert(kBwdProducerRegs + kBwdConsumers * kBwdConsumerRegs <=
+                  65536 / 128,
+              "setmaxnreg budget");
 
 // q, dout: [B, sq, H, Dh]; k, v: [B, sk, KV, Dh]; lse, delta: [B, sq, H]
 // f32. dq is laid out as q, dk and dv as k. Key j is visible to query i
@@ -71,11 +102,16 @@ struct Args {
   float scale;
 };
 
-// Which rows a block owns and which column tiles it walks. kKv: own rows
-// are keys j of KV head `own_head`, columns the queries of its `rep` query
-// heads; else own rows are queries of head `own_head`, columns the keys of
-// its KV head.
-template <bool kKv>
+// The bf16 core's TMA maps of q, k, v and dout (unused by the f32 core).
+struct Maps {
+  CUtensorMap q, k, v, dout;
+};
+
+// Which rows a block of kOwn own rows owns and which column tiles it walks.
+// kKv: own rows are keys j of KV head `own_head`, columns the queries of
+// its `rep` query heads; else own rows are queries of head `own_head`,
+// columns the keys of its KV head.
+template <bool kKv, int kOwn>
 struct Geom {
   int b, own_head, col_head0, n_col_heads, own0, col_begin, col_end;
 
@@ -85,7 +121,7 @@ struct Geom {
     if (kKv) {
       b = blockIdx.x / a.n_kv_heads;
       own_head = blockIdx.x - b * a.n_kv_heads;
-      own0 = blockIdx.y * kTileRows;  // early keys see the most queries
+      own0 = blockIdx.y * kOwn;  // early keys see the most queries
       col_head0 = own_head * rep;
       n_col_heads = rep;
       col_begin = a.causal ? max(0, own0 - a.diag) : 0;
@@ -93,12 +129,11 @@ struct Geom {
     } else {
       b = blockIdx.x / a.n_heads;
       own_head = blockIdx.x - b * a.n_heads;
-      own0 = (gridDim.y - 1 - blockIdx.y) * kTileRows;  // heaviest first
+      own0 = (gridDim.y - 1 - blockIdx.y) * kOwn;  // heaviest first
       col_head0 = own_head / rep;
       n_col_heads = 1;
       col_begin = 0;
-      col_end = a.causal ? max(0, min(a.sk, a.diag + own0 + kTileRows))
-                         : a.sk;
+      col_end = a.causal ? max(0, min(a.sk, a.diag + own0 + kOwn)) : a.sk;
     }
     if (col_begin > col_end) col_begin = col_end;
   }
@@ -173,195 +208,515 @@ __device__ __forceinline__ void put1(void* out, long long off, float v) {
     static_cast<T*>(out)[off] = from_f32<T>(v);
 }
 
-// ---- bf16 on the tensor cores ----------------------------------------------
+// ---- bf16 on Hopper: wgmma fed by TMA ---------------------------------------
 
+// A 64-row tile of a [B, S, heads, DH] bf16 array as TMA lays it out in
+// shared memory: DH / kSw regions of 64 rows x kSw columns, each row kSw x
+// 2 bytes with its 16-byte chunks swizzled (128-byte swizzle for DH >= 64,
+// 64-byte at DH 32), the layout the wgmma descriptors below name.
 template <int DH>
-constexpr size_t mma_smem_bytes() {
-  return static_cast<size_t>(2 * kTileRows + 2 * kMmaCols) * (DH + 8) *
-             sizeof(__nv_bfloat16) +
-         2 * kMmaCols * sizeof(float);
+struct Tile {
+  static constexpr int kSw = DH < 64 ? DH : 64;
+  static constexpr int kRowBytes = kSw * 2;
+  static constexpr int kRegionBytes = kBwdWgRows * kRowBytes;
+  static constexpr int kBytes = kBwdWgRows * DH * 2;
+  static constexpr int kRegions = DH / kSw;
+  static_assert(kBwdCols == kBwdWgRows, "column and own tiles share a map");
+
+  // Shared-memory matrix descriptor: start address, leading and stride
+  // byte offsets (16-byte units), swizzle mode (1: 128 bytes, 2: 64).
+  static __device__ uint64_t desc(uint32_t addr, uint32_t lbo,
+                                  uint32_t sbo) {
+    constexpr uint64_t kMode = kSw == 64 ? 1 : 2;
+    return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+           static_cast<uint64_t>(lbo >> 4) << 16 |
+           static_cast<uint64_t>(sbo >> 4) << 32 | kMode << 62;
+  }
+  // The tile as a K-major operand (its rows the operand's M or N, its
+  // columns K), k step kk: columns 16 kk .. 16 kk + 15. 8-row groups are
+  // 8 rows apart; the swizzle is applied on the address, so a step inside
+  // a region only moves the start.
+  static __device__ uint64_t kmajor(uint32_t tile, int kk) {
+    return desc(tile + (kk * 16 / kSw) * kRegionBytes + (kk * 16 % kSw) * 2,
+                16, 8 * kRowBytes);
+  }
+  // The tile as an MN-major operand (its rows K, its columns N), k step
+  // kk: rows 16 kk .. 16 kk + 15; N crosses regions at the leading offset.
+  static __device__ uint64_t mnmajor(uint32_t tile, int kk) {
+    return desc(tile + kk * 16 * kRowBytes, kRegionBytes, 8 * kRowBytes);
+  }
+};
+
+// Byte offsets in a block's shared memory (aligned to 1024, the swizzle's
+// period): the consumers' own X and Y tiles, each stage's column X and Y
+// tiles, each stage's LSE (times log2 e) and delta rows, the barriers.
+template <int DH>
+struct Smem {
+  static constexpr int kTile = Tile<DH>::kBytes;
+  static constexpr int kOwnX = 0;
+  static constexpr int kOwnY = kOwnX + kBwdConsumers * kTile;
+  static constexpr int kColX = kOwnY + kBwdConsumers * kTile;
+  static constexpr int kColY = kColX + kBwdStages * kTile;
+  static constexpr int kLse = kColY + kBwdStages * kTile;
+  static constexpr int kDelta = kLse + kBwdStages * kBwdCols * 4;
+  static constexpr int kFull = kDelta + kBwdStages * kBwdCols * 4;
+  static constexpr int kEmpty = kFull + kBwdStages * 8;
+  static constexpr int kOwnBar = kEmpty + kBwdStages * 8;
+  static constexpr size_t kAlloc = kOwnBar + 8 + 1024;  // + base alignment
+};
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+// Adds `bytes` to the transaction count that TMA loads complete.
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.expect_tx.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+// Waits for the phase of parity `parity` to complete.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
 }
 
-// c = A . B^T for the warp's 16 own rows of `own` and the 16 rows c16.. of
-// `col` (both [rows][DH + 8] bf16 in shared memory): c[nt][e] is own row
-// lane / 4 + 8 (e / 2), column nt * 8 + 2 (lane % 4) + e % 2.
-template <int DH>
-__device__ __forceinline__ void mma_abt(float (&c)[2][4],
-                                        const __nv_bfloat16* own,
-                                        const __nv_bfloat16* col, int warp,
-                                        int lane, int c16) {
-  constexpr int kStride = DH + 8;
-  const int ar = warp * 16 + (lane % 8) + ((lane / 8) % 2) * 8;
-  const int ac = (lane / 16) * 8;
-  const int br = c16 + (lane % 8) + (lane / 16) * 8;
-  const int bc = ((lane / 8) % 2) * 8;
+// One box of a 4-D map (coordinates innermost first) into shared memory,
+// completing on `bar`; rows out of the array's bounds arrive as zeros.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int c0, int c1,
+                                         int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3), "r"(bar)
+      : "memory");
+}
+
+template <int kRegs>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kRegs));
+}
+template <int kRegs>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kRegs));
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// Waits until at most N committed groups are still running.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// Keeps the compiler from moving reads of a wgmma's registers above the
+// wait that retires it, or reusing its A registers before then.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
 #pragma unroll
-  for (int nt = 0; nt < 2; ++nt)
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
 #pragma unroll
-    for (int e = 0; e < 4; ++e) c[nt][e] = 0.f;
+  for (int i = 0; i < N; ++i)
 #pragma unroll
-  for (int kk = 0; kk < DH / 16; ++kk) {
-    uint32_t a[4], b[4];
-    attn::ldmatrix_x4(a, attn::smem_addr(own + ar * kStride + kk * 16 + ac));
-    attn::ldmatrix_x4(b, attn::smem_addr(col + br * kStride + kk * 16 + bc));
-    attn::mma_bf16(c[0], a, b[0], b[1]);
-    attn::mma_bf16(c[1], a, b[2], b[3]);
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
+}
+
+// d (64 x 64) = A . B^T, or += with `accumulate`: A 64 x 16 and B 64 x 16,
+// both K-major in shared memory.
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
+                                             uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31 "
+      "}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d (64 x 32) += A . B: A 64 x 16 in registers, B 16 x 32 MN-major in shared
+// memory.
+__device__ __forceinline__ void wgmma_rs_n32(float (&d)[16],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15 "
+      "}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d (64 x 64) += A . B: A 64 x 16 in registers, B 16 x 64 MN-major in shared
+// memory.
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31 "
+      "}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d (64 x 128) += A . B: A 64 x 16 in registers, B 16 x 128 MN-major in shared
+// memory.
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
+      "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
+      "%62, %63 "
+      "}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
+                                         const uint32_t (&a)[4],
+                                         uint64_t db) {
+  if constexpr (N == 32)
+    wgmma_rs_n32(d, a, db);
+  else if constexpr (N == 64)
+    wgmma_rs_n64(d, a, db);
+  else
+    wgmma_rs_n128(d, a, db);
+}
+
+// The producer warp: the own tiles once, then every column tile of the
+// block's list into the stage ring, with its LSE and delta rows in the
+// dK/dV pass (+inf and 0 past the last query, so those columns get P = 0).
+template <int DH, bool kKv>
+__device__ __forceinline__ void bwd_produce(
+    const Args<__nv_bfloat16>& a, const Maps& maps,
+    const Geom<kKv, kBwdOwnRows>& g, uint32_t base, float* lse_s,
+    float* del_s) {
+  using L = Tile<DH>;
+  using S = Smem<DH>;
+  const int lane = threadIdx.x;
+  const CUtensorMap* own_x = kKv ? &maps.k : &maps.q;
+  const CUtensorMap* own_y = kKv ? &maps.v : &maps.dout;
+  const CUtensorMap* col_x = kKv ? &maps.q : &maps.k;
+  const CUtensorMap* col_y = kKv ? &maps.dout : &maps.v;
+  if (lane == 0) {
+    mbar_expect_tx(base + S::kOwnBar, 2 * kBwdConsumers * L::kBytes);
+    mbar_arrive(base + S::kOwnBar);
+    for (int w = 0; w < kBwdConsumers; ++w)
+      for (int r = 0; r < L::kRegions; ++r) {
+        const uint32_t off = w * L::kBytes + r * L::kRegionBytes;
+        const int row = g.own0 + w * kBwdWgRows;
+        tma_load(base + S::kOwnX + off, own_x, base + S::kOwnBar,
+                 r * L::kSw, g.own_head, row, g.b);
+        tma_load(base + S::kOwnY + off, own_y, base + S::kOwnBar,
+                 r * L::kSw, g.own_head, row, g.b);
+      }
+  }
+  const int n_tiles = g.n_tiles(kBwdCols);
+  int stage = 0, phase = 0;
+  for (int t = 0; t < n_tiles; ++t) {
+    int hh, c0;
+    g.tile(t, kBwdCols, hh, c0);
+    const uint32_t full = base + S::kFull + 8 * stage;
+    mbar_wait(base + S::kEmpty + 8 * stage, phase ^ 1);
+    if (lane == 0) {
+      mbar_expect_tx(full, 2 * L::kBytes);
+      for (int r = 0; r < L::kRegions; ++r) {
+        const uint32_t off = stage * L::kBytes + r * L::kRegionBytes;
+        tma_load(base + S::kColX + off, col_x, full, r * L::kSw, hh, c0,
+                 g.b);
+        tma_load(base + S::kColY + off, col_y, full, r * L::kSw, hh, c0,
+                 g.b);
+      }
+    }
+    if (kKv) {
+      // Every load in flight at once, while the copies run.
+      float l[kBwdCols / 32], d[kBwdCols / 32];
+#pragma unroll
+      for (int k = 0; k < kBwdCols / 32; ++k) {
+        const int c = c0 + lane + 32 * k;
+        const bool ok = c < g.col_end;
+        const long long idx = ok ? g.stat_idx(a, c, hh) : 0;
+        l[k] = ok ? __ldg(a.lse + idx) * attn::kLog2e : INFINITY;
+        d[k] = ok ? __ldg(a.delta + idx) : 0.f;
+      }
+#pragma unroll
+      for (int k = 0; k < kBwdCols / 32; ++k) {
+        lse_s[stage * kBwdCols + lane + 32 * k] = l[k];
+        del_s[stage * kBwdCols + lane + 32 * k] = d[k];
+      }
+    }
+    mbar_arrive(full);
+    if (++stage == kBwdStages) {
+      stage = 0;
+      phase ^= 1;
+    }
   }
 }
 
-// acc (16 own rows x DH) += w (16 x 16, a C fragment pair from mma_abt,
-// rounded to bf16) . rows c16..c16+15 of `col` ([rows][DH + 8] bf16).
-template <int DH>
-__device__ __forceinline__ void mma_acc(float (&acc)[DH / 8][4],
-                                        const float (&w)[2][4],
-                                        const __nv_bfloat16* col, int lane,
-                                        int c16) {
-  constexpr int kStride = DH + 8;
-  uint32_t a[4];
-  a[0] = attn::pack_bf16(w[0][0], w[0][1]);
-  a[1] = attn::pack_bf16(w[0][2], w[0][3]);
-  a[2] = attn::pack_bf16(w[1][0], w[1][1]);
-  a[3] = attn::pack_bf16(w[1][2], w[1][3]);
-  const int vr = (lane % 8) + ((lane / 8) % 2) * 8;
-  const int vc = (lane / 16) * 8;
+// A consumer warpgroup: 64 own rows against every column tile of the
+// block's list (waiting and releasing each stage even where it skips the
+// tile), then its rows of the outputs.
+template <int DH, bool kKv, bool kAcc>
+__device__ __forceinline__ void bwd_consume(const Args<__nv_bfloat16>& a,
+                                            const Geom<kKv, kBwdOwnRows>& g,
+                                            uint32_t base,
+                                            const float* lse_s,
+                                            const float* del_s) {
+  using L = Tile<DH>;
+  using S = Smem<DH>;
+  const int wg = threadIdx.x / 128 - 1;
+  const int warp = (threadIdx.x / 32) % 4;
+  const int lane = threadIdx.x % 32;
+  const int own_n = kKv ? a.sk : a.sq;
+  const int own_lo = g.own0 + wg * kBwdWgRows;
+  const bool live = own_lo < own_n;
+  // This thread's accumulator rows: row0 and row0 + 8 (the wgmma layout).
+  const int row0 = own_lo + warp * 16 + lane / 4;
+  const float scale2 = a.scale * attn::kLog2e;
+  float lse_r[2], del_r[2];  // the dQ pass: the rows' LSE x log2 e, delta
 #pragma unroll
-  for (int dp = 0; dp < DH / 16; ++dp) {
-    uint32_t b[4];
-    attn::ldmatrix_x4_trans(
-        b, attn::smem_addr(col + (c16 + vr) * kStride + dp * 16 + vc));
-    attn::mma_bf16(acc[2 * dp], a, b[0], b[1]);
-    attn::mma_bf16(acc[2 * dp + 1], a, b[2], b[3]);
+  for (int h = 0; h < 2; ++h) {
+    const bool ok = !kKv && row0 + 8 * h < own_n;
+    const long long idx = ok ? g.stat_idx(a, row0 + 8 * h, g.own_head) : 0;
+    lse_r[h] = ok ? a.lse[idx] * attn::kLog2e : INFINITY;
+    del_r[h] = ok ? a.delta[idx] : 0.f;
   }
-}
-
-template <typename T, int DH, bool kAcc>
-__device__ __forceinline__ void mma_store(void* out, long long off,
-                                          const float (&acc)[DH / 8][4],
-                                          int h, int lane, float mul) {
-  const int col = 2 * (lane % 4);
+  float acc1[DH / 2];  // dk (kv) or dq
+  float acc2[DH / 2];  // dv (kv only)
 #pragma unroll
-  for (int j = 0; j < DH / 8; ++j)
-    put2<T, kAcc>(out, off + j * 8 + col, acc[j][2 * h] * mul,
-                  acc[j][2 * h + 1] * mul);
+  for (int i = 0; i < DH / 2; ++i) acc1[i] = acc2[i] = 0.f;
+  const uint32_t own_x = base + S::kOwnX + wg * L::kBytes;
+  const uint32_t own_y = base + S::kOwnY + wg * L::kBytes;
+  mbar_wait(base + S::kOwnBar, 0);
+
+  const int n_tiles = g.n_tiles(kBwdCols);
+  int stage = 0, phase = 0;
+  for (int t = 0; t < n_tiles; ++t) {
+    int hh, c0;
+    g.tile(t, kBwdCols, hh, c0);
+    mbar_wait(base + S::kFull + 8 * stage, phase);
+    // Any visible element in this warpgroup's rows x the tile, and does
+    // the tile cross the diagonal (the causal test needed at all)?
+    const int c_last = min(c0 + kBwdCols, g.col_end) - 1;
+    bool any, cross;
+    if (kKv) {
+      any = !a.causal || own_lo <= a.diag + c_last;
+      cross = a.causal && own_lo + kBwdWgRows - 1 > a.diag + c0;
+    } else {
+      any = !a.causal ||
+            c0 <= a.diag + min(own_lo + kBwdWgRows, own_n) - 1;
+      cross = a.causal && c0 + kBwdCols - 1 > a.diag + own_lo;
+    }
+    if (live && any) {
+      const uint32_t col_x = base + S::kColX + stage * L::kBytes;
+      const uint32_t col_y = base + S::kColY + stage * L::kBytes;
+      // Four groups in flight in turn: S, then dP while P is formed, then
+      // dv += P . Y_col while dS is formed, then dk (or dq) += dS . X_col.
+      float s[kBwdCols / 2], dp[kBwdCols / 2];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < DH / 16; ++kk)
+        wgmma_ss_n64(s, L::kmajor(own_x, kk), L::kmajor(col_x, kk), kk);
+      wgmma_commit();
+#pragma unroll
+      for (int kk = 0; kk < DH / 16; ++kk)
+        wgmma_ss_n64(dp, L::kmajor(own_y, kk), L::kmajor(col_y, kk), kk);
+      wgmma_commit();
+      wgmma_wait<1>();
+      fence_regs(s);
+      // s[4j + e]: row row0 + 8 (e / 2), column 8j + 2 (lane % 4) + e % 2;
+      // P overwrites S in f32 (dS needs it) and, rounded, fills pa.
+      const float* ls = lse_s + stage * kBwdCols;
+      const float* ds = del_s + stage * kBwdCols;
+#pragma unroll
+      for (int j = 0; j < kBwdCols / 8; ++j) {
+        const int cc = 8 * j + 2 * (lane % 4);
+        const float2 l2 = kKv ? *reinterpret_cast<const float2*>(ls + cc)
+                              : make_float2(lse_r[0], lse_r[1]);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          // The LSE of the element's column (dK/dV) or row (dQ).
+          const float l = kKv ? (e % 2 ? l2.y : l2.x) : (e / 2 ? l2.y : l2.x);
+          float p = exp2f(fmaf(s[4 * j + e], scale2, -l));
+          if (cross) {
+            const int i = row0 + 8 * (e / 2);
+            const int c = c0 + cc + e % 2;
+            if (kKv ? i > a.diag + c : c > a.diag + i) p = 0.f;
+          }
+          s[4 * j + e] = p;
+        }
+      }
+      // Columns 16 kk .. 16 kk + 15 of P and dS as wgmma A fragments.
+      uint32_t pa[kBwdCols / 16][4], da[kBwdCols / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < kBwdCols / 16; ++kk)
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+          pa[kk][r] = attn::pack_bf16(s[8 * kk + 2 * r],
+                                      s[8 * kk + 2 * r + 1]);
+      if constexpr (kKv) {
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kBwdCols / 16; ++kk)
+          wgmma_rs<DH>(acc2, pa[kk], L::mnmajor(col_y, kk));
+        wgmma_commit();
+        wgmma_wait<1>();
+      } else {
+        wgmma_wait<0>();
+      }
+      fence_regs(dp);
+#pragma unroll
+      for (int j = 0; j < kBwdCols / 8; ++j) {
+        const int cc = 8 * j + 2 * (lane % 4);
+        const float2 d2 = kKv ? *reinterpret_cast<const float2*>(ds + cc)
+                              : make_float2(del_r[0], del_r[1]);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float dl = kKv ? (e % 2 ? d2.y : d2.x) : (e / 2 ? d2.y : d2.x);
+          dp[4 * j + e] = s[4 * j + e] * (dp[4 * j + e] - dl);
+        }
+      }
+#pragma unroll
+      for (int kk = 0; kk < kBwdCols / 16; ++kk)
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+          da[kk][r] = attn::pack_bf16(dp[8 * kk + 2 * r],
+                                      dp[8 * kk + 2 * r + 1]);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kBwdCols / 16; ++kk)
+        wgmma_rs<DH>(acc1, da[kk], L::mnmajor(col_x, kk));
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc1);
+      if constexpr (kKv) fence_regs(acc2);
+      fence_regs(pa);
+      fence_regs(da);
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(base + S::kEmpty + 8 * stage);
+    if (++stage == kBwdStages) {
+      stage = 0;
+      phase ^= 1;
+    }
+  }
+
+  if (!live) return;
+  using bf16 = __nv_bfloat16;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int i = row0 + 8 * h;
+    if (i >= own_n) continue;
+    const long long off = g.own_off(a, i, DH) + 2 * (lane % 4);
+#pragma unroll
+    for (int j = 0; j < DH / 8; ++j) {
+      put2<bf16, kAcc>(kKv ? a.dk : a.dq, off + 8 * j,
+                       acc1[4 * j + 2 * h] * a.scale,
+                       acc1[4 * j + 2 * h + 1] * a.scale);
+      if constexpr (kKv)
+        put2<bf16, kAcc>(a.dv, off + 8 * j, acc2[4 * j + 2 * h],
+                         acc2[4 * j + 2 * h + 1]);
+    }
+  }
 }
 
 template <int DH, bool kKv, bool kAcc>
-__device__ void mma_bwd(const Args<__nv_bfloat16>& a) {
-  using bf16 = __nv_bfloat16;
-  constexpr int kStride = DH + 8;
-  constexpr int kChunks = DH / 8;  // 16-byte chunks per row
-  constexpr int kThreads = attn::kMmaThreads;
-  const Geom<kKv> g(a);
+__device__ void wgmma_bwd(const Args<__nv_bfloat16>& a, const Maps& maps) {
+  using S = Smem<DH>;
+  const Geom<kKv, kBwdOwnRows> g(a);
   extern __shared__ float4 smem_f4[];
-  bf16* xo = reinterpret_cast<bf16*>(smem_f4);  // own K (kv) or Q
-  bf16* yo = xo + kTileRows * kStride;          // own V or dO
-  bf16* xc = yo + kTileRows * kStride;          // column Q (kv) or K
-  bf16* yc = xc + kMmaCols * kStride;           // column dO or V
-  float* lse_s = reinterpret_cast<float*>(yc + kMmaCols * kStride);
-  float* del_s = lse_s + kMmaCols;
-  const bf16* own_x = kKv ? a.k : a.q;
-  const bf16* own_y = kKv ? a.v : a.dout;
-  const bf16* col_x = kKv ? a.q : a.k;
-  const bf16* col_y = kKv ? a.dout : a.v;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-
-  for (int c = threadIdx.x; c < kTileRows * kChunks; c += kThreads) {
-    const int r = c / kChunks;
-    const int ch = (c - r * kChunks) * 8;
-    const bool ok = g.own_valid(a, g.own0 + r);
-    const long long off = ok ? g.own_off(a, g.own0 + r, DH) : 0;
-    attn::cp_async16(xo + r * kStride + ch, own_x + off + ch, ok);
-    attn::cp_async16(yo + r * kStride + ch, own_y + off + ch, ok);
+  const uint32_t raw = attn::smem_addr(smem_f4);
+  const uint32_t pad = (1024 - (raw & 1023)) & 1023;
+  unsigned char* sm = reinterpret_cast<unsigned char*>(smem_f4) + pad;
+  const uint32_t base = raw + pad;
+  float* lse_s = reinterpret_cast<float*>(sm + S::kLse);
+  float* del_s = reinterpret_cast<float*>(sm + S::kDelta);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kBwdStages; ++s) {
+      mbar_init(base + S::kFull + 8 * s, 32);
+      mbar_init(base + S::kEmpty + 8 * s, 4 * kBwdConsumers);
+    }
+    mbar_init(base + S::kOwnBar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  attn::cp_async_commit();
-
-  // Own rows are numbered from the tile's start, so a warp whose first row
-  // is past the end has nothing to compute; it still loads and meets every
-  // barrier.
-  const bool active = g.own_valid(a, g.own0 + warp * 16);
-  int own_i[2];
-  float lse_r[2], del_r[2];  // the dQ pass: this lane's two query rows
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    own_i[h] = g.own0 + warp * 16 + lane / 4 + 8 * h;
-    const bool ok = !kKv && g.own_valid(a, own_i[h]);
-    lse_r[h] = ok ? a.lse[g.stat_idx(a, own_i[h], g.own_head)] : INFINITY;
-    del_r[h] = ok ? a.delta[g.stat_idx(a, own_i[h], g.own_head)] : 0.f;
-  }
-  float acc1[DH / 8][4];  // dk (kv) or dq
-  float acc2[DH / 8][4];  // dv (kv only)
-#pragma unroll
-  for (int j = 0; j < DH / 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc1[j][e] = acc2[j][e] = 0.f;
-
-  const int n_tiles = g.n_tiles(kMmaCols);
-  for (int t = 0; t < n_tiles; ++t) {
-    int hh, c0;
-    g.tile(t, kMmaCols, hh, c0);
-    __syncthreads();  // the previous tile is consumed
-    for (int c = threadIdx.x; c < kMmaCols * kChunks; c += kThreads) {
-      const int r = c / kChunks;
-      const int ch = (c - r * kChunks) * 8;
-      const bool ok = c0 + r < g.col_end;
-      const long long off = ok ? g.col_off(a, c0 + r, hh, DH) : 0;
-      attn::cp_async16(xc + r * kStride + ch, col_x + off + ch, ok);
-      attn::cp_async16(yc + r * kStride + ch, col_y + off + ch, ok);
-    }
-    if (kKv) {
-      for (int r = threadIdx.x; r < kMmaCols; r += kThreads) {
-        const bool ok = c0 + r < g.col_end;
-        const long long idx = ok ? g.stat_idx(a, c0 + r, hh) : 0;
-        lse_s[r] = ok ? a.lse[idx] : INFINITY;
-        del_s[r] = ok ? a.delta[idx] : 0.f;
-      }
-    }
-    attn::cp_async_commit();
-    attn::cp_async_wait<0>();
-    __syncthreads();
-    if (!active) continue;
-    for (int c16 = 0; c16 < kMmaCols; c16 += 16) {
-      if (c0 + c16 >= g.col_end) break;  // the same for the whole block
-      float s[2][4], dp[2][4];
-      mma_abt<DH>(s, xo, xc, warp, lane, c16);
-      mma_abt<DH>(dp, yo, yc, warp, lane, c16);
-#pragma unroll
-      for (int nt = 0; nt < 2; ++nt) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int h = e / 2;
-          const int cc = c16 + nt * 8 + 2 * (lane % 4) + (e % 2);
-          const int ci = c0 + cc;
-          const float l = kKv ? lse_s[cc] : lse_r[h];
-          const float dl = kKv ? del_s[cc] : del_r[h];
-          const bool vis = ci < g.col_end && g.own_valid(a, own_i[h]) &&
-                           g.visible(a, own_i[h], ci);
-          const float pr = vis ? expf(s[nt][e] * a.scale - l) : 0.f;
-          s[nt][e] = pr;
-          dp[nt][e] = pr * (dp[nt][e] - dl);
-        }
-      }
-      if (kKv) {
-        mma_acc<DH>(acc2, s, yc, lane, c16);   // dv += P^T . dO
-        mma_acc<DH>(acc1, dp, xc, lane, c16);  // dk += dS^T . Q
-      } else {
-        mma_acc<DH>(acc1, dp, xc, lane, c16);  // dq += dS . K
-      }
-    }
-  }
-
-  if (!active) return;
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    if (!g.own_valid(a, own_i[h])) continue;
-    const long long off = g.own_off(a, own_i[h], DH);
-    if (kKv) {
-      mma_store<bf16, DH, kAcc>(a.dk, off, acc1, h, lane, a.scale);
-      mma_store<bf16, DH, kAcc>(a.dv, off, acc2, h, lane, 1.f);
-    } else {
-      mma_store<bf16, DH, kAcc>(a.dq, off, acc1, h, lane, a.scale);
-    }
+  __syncthreads();
+  if (threadIdx.x < 128) {
+    setmaxnreg_dec<kBwdProducerRegs>();
+    if (threadIdx.x < 32) bwd_produce<DH, kKv>(a, maps, g, base, lse_s, del_s);
+  } else {
+    setmaxnreg_inc<kBwdConsumerRegs>();
+    bwd_consume<DH, kKv, kAcc>(a, g, base, lse_s, del_s);
   }
 }
 
@@ -380,7 +735,7 @@ __device__ void f32_bwd(const Args<float>& a) {
   constexpr int kRows = kTileRows / (kThreads / 32);  // own rows per warp
   constexpr int kVpt = DH / 32;
   constexpr int kStrideC = DH + 4;  // keeps float4 rows 16-byte aligned
-  const Geom<kKv> g(a);
+  const Geom<kKv, kTileRows> g(a);
   extern __shared__ float4 smem_f4[];
   float* xo = reinterpret_cast<float*>(smem_f4);  // [kTileRows][DH]
   float* yo = xo + kTileRows * DH;
@@ -538,29 +893,93 @@ template <typename T>
 struct Core;
 template <>
 struct Core<__nv_bfloat16> {
-  static constexpr int kThreads = attn::kMmaThreads;
+  static constexpr int kThreads = kBwdThreads;
+  static constexpr int kOwnRows = kBwdOwnRows;
   template <int DH>
-  static constexpr size_t smem() { return mma_smem_bytes<DH>(); }
+  static constexpr size_t smem() { return Smem<DH>::kAlloc; }
   template <int DH, bool kKv, bool kAcc>
-  static __device__ void run(const Args<__nv_bfloat16>& a) {
-    mma_bwd<DH, kKv, kAcc>(a);
+  static __device__ void run(const Args<__nv_bfloat16>& a, const Maps& m) {
+    wgmma_bwd<DH, kKv, kAcc>(a, m);
   }
 };
 template <>
 struct Core<float> {
   static constexpr int kThreads = attn::kF32Threads;
+  static constexpr int kOwnRows = kTileRows;
   template <int DH>
   static constexpr size_t smem() { return f32_smem_bytes<DH>(); }
   template <int DH, bool kKv, bool kAcc>
-  static __device__ void run(const Args<float>& a) {
+  static __device__ void run(const Args<float>& a, const Maps&) {
     f32_bwd<DH, kKv, kAcc>(a);
   }
 };
 
+// cuTensorMapEncodeTiled, a driver call, reached through the runtime so
+// that the library needs no -lcuda.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+inline EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = []() -> EncodeTiled {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found{};
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return e == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// [batch, rows, heads, DH] bf16 as a 4-D map (DH, heads, rows, batch) whose
+// box is 64 rows of one head by Tile<DH>::kSw columns.
+template <int DH>
+int encode_rows(CUtensorMap* map, const void* ptr, int batch, int rows,
+                int heads) {
+  using L = Tile<DH>;
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(DH),
+                              static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(rows),
+                              static_cast<cuuint64_t>(batch)};
+  const cuuint64_t row = static_cast<cuuint64_t>(DH) * 2;
+  const cuuint64_t strides[3] = {row, row * heads, row * heads * rows};
+  const cuuint32_t box[4] = {L::kSw, 1, kBwdWgRows, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
+      strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      L::kSw == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+template <int DH>
+int encode_maps(Maps& m, const Args<__nv_bfloat16>& a, int batch) {
+  if (int e = encode_rows<DH>(&m.q, a.q, batch, a.sq, a.n_heads)) return e;
+  if (int e = encode_rows<DH>(&m.k, a.k, batch, a.sk, a.n_kv_heads))
+    return e;
+  if (int e = encode_rows<DH>(&m.v, a.v, batch, a.sk, a.n_kv_heads))
+    return e;
+  return encode_rows<DH>(&m.dout, a.dout, batch, a.sq, a.n_heads);
+}
+
 // Launches the delta pre-pass (with `fill_delta`; else `delta` already
 // holds it) and the two passes on `stream`: kv_kernel over (B x KV, key
-// tiles), q_kernel over (B x H, query tiles). `smem_set` holds each pass's
-// per-device bits for attn::allow_smem. Returns the first launch error.
+// tiles), q_kernel over (B x H, query tiles), both given the TMA maps in
+// bf16. `smem_set` holds each pass's per-device bits for attn::allow_smem.
+// Returns the first launch error.
 template <typename T, int DH, typename DeltaKernel, typename KvKernel,
           typename QKernel>
 int launch_passes(DeltaKernel delta_kernel, KvKernel kv_kernel,
@@ -569,8 +988,13 @@ int launch_passes(DeltaKernel delta_kernel, KvKernel kv_kernel,
                   std::atomic<unsigned long long> (&smem_set)[2],
                   cudaStream_t stream) {
   constexpr size_t smem = Core<T>::template smem<DH>();
+  constexpr int kOwn = Core<T>::kOwnRows;
   if (int e = attn::allow_smem(kv_kernel, smem, smem_set[0])) return e;
   if (int e = attn::allow_smem(q_kernel, smem, smem_set[1])) return e;
+  Maps maps{};
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    if (int e = encode_maps<DH>(maps, a, batch)) return e;
+  }
   if (fill_delta) {
     const long long rows = static_cast<long long>(batch) * a.sq * a.n_heads;
     const unsigned blocks =
@@ -579,12 +1003,11 @@ int launch_passes(DeltaKernel delta_kernel, KvKernel kv_kernel,
                                                           rows, DH);
     if (cudaError_t e = cudaGetLastError()) return static_cast<int>(e);
   }
-  const dim3 kv_grid(batch * a.n_kv_heads,
-                     (a.sk + kTileRows - 1) / kTileRows);
-  kv_kernel<<<kv_grid, Core<T>::kThreads, smem, stream>>>(a);
+  const dim3 kv_grid(batch * a.n_kv_heads, (a.sk + kOwn - 1) / kOwn);
+  kv_kernel<<<kv_grid, Core<T>::kThreads, smem, stream>>>(a, maps);
   if (cudaError_t e = cudaGetLastError()) return static_cast<int>(e);
-  const dim3 q_grid(batch * a.n_heads, (a.sq + kTileRows - 1) / kTileRows);
-  q_kernel<<<q_grid, Core<T>::kThreads, smem, stream>>>(a);
+  const dim3 q_grid(batch * a.n_heads, (a.sq + kOwn - 1) / kOwn);
+  q_kernel<<<q_grid, Core<T>::kThreads, smem, stream>>>(a, maps);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -16,9 +16,11 @@
 // (query, key, head) triple, against the H100 SXM's 989 TFLOP/s in bf16 and
 // 67 in f32); a block is read once and the accumulators read and written
 // once, far below that line at D 128.
-// Design: K2b's two-pass core (csrc/attention_backward.cuh) with the ring's
-// loader: global key offsets (diag = q_start - k_start) and the f32
-// accumulating epilogue; the dK/dV pass owns the block's keys and the dQ
+// Design: K2b's two-pass core (csrc/attention_backward.cuh; bf16 on
+// wgmma fed by TMA) with the ring's geometry: global key offsets (diag =
+// q_start - k_start) and the f32 accumulating epilogue (a tile of the
+// block wholly above the diagonal is neither fetched nor computed); the
+// dK/dV pass owns the block's keys and the dQ
 // pass the rank's queries, so each accumulator row has one writer per
 // launch and needs no atomics. bf16 inputs round P and dS to bf16 as the
 // tensor cores' operands, where the reference differentiates in f32: the
@@ -35,15 +37,17 @@ using attn_bwd::Args;
 using attn_bwd::Core;
 
 template <typename T, int DH>
-__global__ void __launch_bounds__(Core<T>::kThreads)
-    ring_fold_backward_kv_kernel(const Args<T> a) {
-  Core<T>::template run<DH, true, true>(a);
+__global__ void __launch_bounds__(Core<T>::kThreads, 1)
+    ring_fold_backward_kv_kernel(const Args<T> a,
+                                 const __grid_constant__ attn_bwd::Maps maps) {
+  Core<T>::template run<DH, true, true>(a, maps);
 }
 
 template <typename T, int DH>
-__global__ void __launch_bounds__(Core<T>::kThreads)
-    ring_fold_backward_q_kernel(const Args<T> a) {
-  Core<T>::template run<DH, false, true>(a);
+__global__ void __launch_bounds__(Core<T>::kThreads, 1)
+    ring_fold_backward_q_kernel(const Args<T> a,
+                                const __grid_constant__ attn_bwd::Maps maps) {
+  Core<T>::template run<DH, false, true>(a, maps);
 }
 
 template <typename T>

@@ -342,6 +342,114 @@ def prefill_attention_backward_plain(q, k, v, o, lse, do) -> tuple:
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+# From csrc/attention_backward.cuh: a block of the bf16 backward core owns
+# BWD_OWN_ROWS rows (keys in the dK/dV pass, queries in the dQ pass), each
+# consumer warpgroup BWD_WG_ROWS of them, and column tiles of BWD_COLS
+# rows stream past them through BWD_STAGES stages.
+_BWD = _build.header_constants("attention_backward.cuh")
+BWD_OWN_ROWS = _BWD["kBwdOwnRows"]
+BWD_WG_ROWS = _BWD["kBwdWgRows"]
+BWD_COLS = _BWD["kBwdCols"]
+BWD_STAGES = _BWD["kBwdStages"]
+
+
+def backward_tile_plan(sq: int, sk: int, n_heads: int, n_kv_heads: int,
+                       diag: int, causal: bool) -> dict:
+    """The (own tile, column tile) pairs that each pass of the bf16
+    backward core (K2b, K5b) computes, as its blocks walk them: {"kv":
+    [...], "q": [...]}, each pair (own head, column head, own rows [lo,
+    hi), columns [c0, c1), crosses) for every batch entry alike. Key j is
+    visible to query i when j <= diag + i (or always without ``causal``).
+    A dK/dV block owns BWD_OWN_ROWS keys of one KV head and walks, for each
+    of its query heads, BWD_COLS-query tiles from max(0, first key - diag);
+    a dQ block owns BWD_OWN_ROWS queries and walks key tiles from 0 up to
+    its causal edge. Each warpgroup skips the tiles in which its
+    BWD_WG_ROWS rows see no key; ``crosses`` marks the tiles on which it
+    applies the causal test. Columns past the array's end arrive as zeros
+    and are left out of [c0, c1)."""
+    rep = n_heads // n_kv_heads
+    plan = {"kv": [], "q": []}
+    for kv in (True, False):
+        own_n, own_heads = (sk, n_kv_heads) if kv else (sq, n_heads)
+        for head in range(own_heads):
+            for own0 in range(0, own_n, BWD_OWN_ROWS):
+                if kv:
+                    col_heads = range(head * rep, (head + 1) * rep)
+                    end = sq
+                    begin = max(0, own0 - diag) if causal else 0
+                else:
+                    col_heads = (head // rep,)
+                    end = (max(0, min(sk, diag + own0 + BWD_OWN_ROWS))
+                           if causal else sk)
+                    begin = 0
+                for ch in col_heads:
+                    for c0 in range(min(begin, end), end, BWD_COLS):
+                        c1 = min(c0 + BWD_COLS, end)
+                        for lo in range(own0, min(own0 + BWD_OWN_ROWS,
+                                                  own_n), BWD_WG_ROWS):
+                            hi = min(lo + BWD_WG_ROWS, own_n)
+                            if kv:
+                                seen = not causal or lo <= diag + c1 - 1
+                                cross = causal and (
+                                    lo + BWD_WG_ROWS - 1 > diag + c0)
+                            else:
+                                seen = not causal or c0 <= diag + hi - 1
+                                cross = causal and (
+                                    c0 + BWD_COLS - 1 > diag + lo)
+                            if seen:
+                                plan["kv" if kv else "q"].append(
+                                    (head, ch, lo, hi, c0, c1, cross))
+    return plan
+
+
+def attention_backward_tiles_plain(q, k, v, o, lse, do, diag: int = 0,
+                                   causal: bool = True) -> tuple:
+    """The backward of causal (or, for a ring block, offset) attention
+    computed tile by tile along ``backward_tile_plan``, as the bf16 core's
+    two passes compute it: P = exp(logit - lse) and dS = P (dO.V - delta)
+    per tile, the causal test only on tiles that cross the diagonal, dv +=
+    round(P)^T.dO, dk += scale dS^T.Q (dK/dV pass) and dq += scale dS.K
+    (dQ pass). q, o, do: [B, sq, H, Dh]; k, v: [B, sk, KV, Dh]; lse [B, sq,
+    H] f32 -> (dq, dk, dv) in f32. For the tests: the main path never
+    calls it."""
+    B, sq, H, Dh = q.shape
+    sk, KV = k.shape[1], k.shape[2]
+    scale = softmax_scale(Dh)
+    qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
+    delta = (dof * o.float()).sum(-1)                        # [B, sq, H]
+    dq = torch.zeros(qf.shape, dtype=torch.float32, device=q.device)
+    dk = torch.zeros(kf.shape, dtype=torch.float32, device=q.device)
+    dv = torch.zeros_like(dk)
+    plan = backward_tile_plan(sq, sk, H, KV, diag, causal)
+
+    def tile(xo, yo, xc, yc, l, dl, cross, keys, queries):
+        s = torch.einsum("brd,bcd->brc", xo, xc) * scale
+        p = torch.exp(s - l)
+        if cross:
+            p = torch.where(keys <= diag + queries, p, 0.0)
+        ds = p * (torch.einsum("brd,bcd->brc", yo, yc) - dl)
+        return p, ds
+
+    rows = torch.arange(max(sq, sk), device=q.device)
+    for kvh, h, lo, hi, c0, c1, cross in plan["kv"]:
+        p, ds = tile(kf[:, lo:hi, kvh], vf[:, lo:hi, kvh], qf[:, c0:c1, h],
+                     dof[:, c0:c1, h], lse[:, None, c0:c1, h],
+                     delta[:, None, c0:c1, h], cross, rows[lo:hi, None],
+                     rows[None, c0:c1])
+        dv[:, lo:hi, kvh] += torch.einsum(
+            "brc,bcd->brd", p.to(q.dtype).float(), dof[:, c0:c1, h])
+        dk[:, lo:hi, kvh] += torch.einsum(
+            "brc,bcd->brd", ds, qf[:, c0:c1, h]) * scale
+    for h, kvh, lo, hi, c0, c1, cross in plan["q"]:
+        _, ds = tile(qf[:, lo:hi, h], dof[:, lo:hi, h], kf[:, c0:c1, kvh],
+                     vf[:, c0:c1, kvh], lse[:, lo:hi, h, None],
+                     delta[:, lo:hi, h, None], cross, rows[None, c0:c1],
+                     rows[lo:hi, None])
+        dq[:, lo:hi, h] += torch.einsum(
+            "brc,bcd->brd", ds, kf[:, c0:c1, kvh]) * scale
+    return dq, dk, dv
+
+
 def causal_attention_forward(q, k, v) -> tuple:
     """The training forward of causal attention -> (o, lse), as
     ``causal_attention_plain`` gives them. On a CUDA tensor launches K2

@@ -210,7 +210,8 @@ def ptxas_summary(path: str) -> list:
 # Kernels on the shared attention tile core (K1, K2, K4, K5, and the
 # merges).
 TILE_KERNEL = re.compile(r"prefill|paged_decode|ring_attention")
-# The passes of the backward core (K2b, K5b), on the tensor cores in bf16.
+# The passes of the backward core (K2b, K5b): wgmma (HGMMA in the SASS) in
+# bf16.
 BACKWARD_KERNELS = ("attention_backward_kv_kernel",
                     "attention_backward_q_kernel",
                     "ring_fold_backward_kv_kernel",
@@ -218,9 +219,10 @@ BACKWARD_KERNELS = ("attention_backward_kv_kernel",
 
 
 def sass_mma_counts(build) -> dict:
-    """Tensor-core instructions (HMMA/HGMMA) per compiled attention kernel
-    of the built library, from cuobjdump -sass; fails if a bf16 K1, K2, K4
-    or K5 kernel, or a pass of K2b or K5b, has none, or if the decode
+    """Tensor-core instructions per compiled attention kernel of the built
+    library, from cuobjdump -sass: {kernel: {"HMMA": n, "HGMMA": m}}
+    (mma.sync and wgmma). Fails if a bf16 K1, K2, K4 or K5 kernel has
+    none, if a bf16 pass of K2b or K5b has no HGMMA, or if the decode
     kernel K1 is missing."""
     tool = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
     sass = subprocess.run([tool, "-sass", build.LIB_PATH],
@@ -229,28 +231,34 @@ def sass_mma_counts(build) -> dict:
     for line in sass.splitlines():
         if "Function :" in line:
             name = line.split("Function :", 1)[1].strip()
-            counts[name] = 0
-        elif name is not None and ("HMMA" in line or "HGMMA" in line):
-            counts[name] += 1
-    for name, n in counts.items():
+            counts[name] = {"HMMA": 0, "HGMMA": 0}
+        elif name is not None:
+            for op in ("HMMA", "HGMMA"):
+                if op in line:
+                    counts[name][op] += 1
+
+    def fmt(c):
+        return f"{c['HMMA']} HMMA, {c['HGMMA']} HGMMA"
+
+    for name, c in counts.items():
         # The kernel's own name: the mangled one also holds its source
         # file's (csrc/ring_attention_backward.cu's kernels are not K5).
         own = re.search(r"\d([a-z_]+_kernel)I", name)
         if (TILE_KERNEL.search(own.group(1) if own else name)
                 and "bfloat16" in name):
-            log(f"[sass] {name}: {n} HMMA/HGMMA")
-            if "merge" not in name and n == 0:
+            log(f"[sass] {name}: {fmt(c)}")
+            if "merge" not in name and c["HMMA"] + c["HGMMA"] == 0:
                 raise AssertionError(f"{name} has no tensor-core instruction")
     for kind in ("prefill", "paged_decode_kernel", "ring_attention_fold"):
         if not any(kind in k and "bfloat16" in k for k in counts):
             raise AssertionError(f"no bf16 {kind} kernel in the SASS")
     for kind in BACKWARD_KERNELS:
         found = [k for k in counts if kind in k and "bfloat16" in k]
-        if not found or any(counts[k] == 0 for k in found):
-            raise AssertionError(f"no bf16 {kind} with tensor-core "
-                                 f"instructions in the SASS")
+        if not found or any(counts[k]["HGMMA"] == 0 for k in found):
+            raise AssertionError(f"no bf16 {kind} with wgmma (HGMMA) in "
+                                 f"the SASS")
         for k in found:
-            log(f"[sass] {k}: {counts[k]} HMMA/HGMMA")
+            log(f"[sass] {k}: {fmt(counts[k])}")
     return counts
 
 
@@ -963,9 +971,13 @@ def check_attention_backward(dtype, gen, B: int, S: int) -> dict:
         return attention.prefill_attention_backward_plain(q, k, v, o, lse,
                                                           do)
 
+    got = kern()
     errs = [compare(f"{tag} d{n}", g, w, dtype, rows=True,
                     floor=attention.GRAD_ROW_FLOOR)
-            for n, g, w in zip("qkv", kern(), plain())]
+            for n, g, w in zip("qkv", got, plain())]
+    if not all(torch.equal(a, b) for a, b in zip(got, kern())):
+        raise AssertionError(f"{tag}: two runs on the same inputs differ")
+    del got
     F = torch.nn.functional
     q4, k4, v4 = (t.transpose(1, 2).detach().requires_grad_(True)
                   for t in (q, k, v))
@@ -985,6 +997,7 @@ def check_attention_backward(dtype, gen, B: int, S: int) -> dict:
     return {"shape": f"q,o,dO[{B},{S},{H},{Dh}] k,v[{B},{S},{KV},{Dh}]",
             "max_abs_err": max(e[0] for e in errs),
             "row_rel_err": max(e[1] for e in errs),
+            "tiles": backward_tiles(dtype),
             "ms": time_ms(kern), "device_ms": device_ms(kern),
             "plain_ms": time_ms(plain, iters=3), "bound_ms": b,
             "bound_by": by, "library_ms": time_ms(lib),
@@ -1081,6 +1094,12 @@ def check_ring_fold_backward(dtype, gen, diagonal: bool) -> dict:
     errs = [compare(f"{tag} d{n}", g, w, dtype, rows=True,
                     floor=attention.GRAD_ROW_FLOOR)
             for n, g, w in zip("qkv", grads[:3], plain())]
+    again = ra.grad_buffers(q, kb)
+    ra.ring_attention_fold_backward(q, kb, vb, o, lse, do, again, s, k_start,
+                                    True, True)
+    if not all(torch.equal(a, b) for a, b in zip(grads[:3], again[:3])):
+        raise AssertionError(f"{tag}: two runs on the same inputs differ")
+    del again
     F = torch.nn.functional
     q4, k4, v4 = (t.transpose(1, 2).detach().requires_grad_(True)
                   for t in (q, kb, vb))
@@ -1099,10 +1118,26 @@ def check_ring_fold_backward(dtype, gen, diagonal: bool) -> dict:
                      f"{'diagonal block' if diagonal else 'every key visible'}",
             "max_abs_err": max(e[0] for e in errs),
             "row_rel_err": max(e[1] for e in errs),
+            "tiles": backward_tiles(dtype),
             "ms": time_ms(kern), "device_ms": device_ms(kern),
             "plain_ms": time_ms(plain, iters=3), "bound_ms": b,
             "bound_by": by, "library_ms": time_ms(lib),
             "library_device_ms": device_ms(lib)}
+
+
+def backward_tiles(dtype) -> str:
+    """The backward core's tiles and pipeline in ``dtype``, as
+    csrc/attention_backward.cuh sets them."""
+    from brpc_tpu_torch.ops import _build, attention
+
+    if dtype == torch.bfloat16:
+        own, cols = attention.BWD_OWN_ROWS, attention.BWD_COLS
+        return (f"dK/dV pass {own} keys x {cols}-query tiles, dQ pass {own} "
+                f"queries x {cols}-key tiles, {own // attention.BWD_WG_ROWS}"
+                f" consumer warpgroups, {attention.BWD_STAGES} TMA stages")
+    cols = _build.header_constants("attention_backward.cuh")["kF32Cols"]
+    return (f"both passes {attention.TILE_ROWS} own rows x {cols}-column "
+            f"tiles, one stage")
 
 
 def log_case(name: str, tag: str, r: dict) -> None:
@@ -1114,6 +1149,8 @@ def log_case(name: str, tag: str, r: dict) -> None:
         f"{r['bound_ms']:.5f} ({r['bound_by']}) library_ms "
         f"{r['library_ms']:.4f} library_device_ms "
         f"{fmt_ms(r['library_device_ms'])}")
+    if "tiles" in r:
+        log(f"[kernel] {name} {tag}: {r['tiles']}; two runs bit-identical")
     if "forward" in r:
         f = r["forward"]
         log(f"[kernel] {name} {tag}: K2's training forward against "
@@ -1342,7 +1379,21 @@ def step_at_width(cfg) -> dict:
                                  f"{errs[name]:.3e} vs the plain step")
     del grads, grads_p, params
     torch.cuda.empty_cache()
+    # The step's least time: 6 flops per matmul parameter and token
+    # (forward, and the two backward products), and causal attention's
+    # forward (4 Dh flops per visible pair and head) and backward (10 Dh),
+    # at the bf16 peak; the embedding, norms, RoPE and update are far below
+    # the matmuls.
+    D, Dh = cfg.d_model, cfg.d_head
+    per_layer = D * Dh * (2 * cfg.n_heads + 2 * cfg.n_kv_heads) \
+        + 3 * D * cfg.d_ff
+    n_matmul = L * per_layer + D * cfg.vocab
+    B, T = TRAIN_STEP_TOKENS[0], TRAIN_STEP_TOKENS[1] - 1
+    flops = 6.0 * n_matmul * n_tok \
+        + 14.0 * L * B * T * (T + 1) / 2 * cfg.n_heads * Dh
+    bound, _ = bound_ms(0.0, flops, torch.bfloat16)
     return {"tokens": list(TRAIN_STEP_TOKENS), "layers": L,
+            "flops": flops, "bound_ms": bound,
             "loss": float(loss), "loss_plain": float(loss_p),
             "step_ms": step_ms, "tokens_per_s": n_tok / step_ms * 1e3,
             "peak_mem_gib": peak, "plain_step_ms": plain_ms,
@@ -1446,7 +1497,9 @@ def phase_train() -> dict:
     log(f"[train] bf16 train_step, Llama-3-8B width, {TRAIN_STEP_LAYERS} "
         f"layers, tokens {list(TRAIN_STEP_TOKENS)}: {s['step_ms']:.1f} ms = "
         f"{s['tokens_per_s']:.0f} tokens/s, peak {s['peak_mem_gib']:.2f} GiB,"
-        f" loss {s['loss']:.5f}; the plain autograd step "
+        f" loss {s['loss']:.5f}; bound {s['bound_ms']:.2f} ms "
+        f"({s['flops'] / 1e12:.2f} TFLOP at the bf16 peak); the plain "
+        f"autograd step "
         f"{s['plain_step_ms']:.1f} ms = {s['plain_tokens_per_s']:.0f} "
         f"tokens/s, peak {s['plain_peak_mem_gib']:.2f} GiB, loss "
         f"{s['loss_plain']:.5f}; gradients' relative 2-norm error vs plain "
@@ -2410,7 +2463,9 @@ def main() -> int:
         f"{t_kernels:.1f} s")
     for line in ptxas_summary(_build.PTXAS_LOG):
         log("[ptxas] " + line)
-        if (TILE_KERNEL.search(line) and "<bf16, 128>" in line
+        if ((TILE_KERNEL.search(line) or any(
+                k in line for k in BACKWARD_KERNELS))
+                and "<bf16, 128>" in line
                 and " 0 bytes spill stores" not in line):
             raise AssertionError(f"a Llama-width tile spills: {line}")
     report["build_s"] = {"native": t_native, "kernels": t_kernels}

@@ -446,10 +446,15 @@ def _rnd(gen, dtype, *shape):
     return torch.randn(shape, generator=gen, device=gen.device).to(dtype)
 
 
+# K2b lengths (B, S): none a multiple of the bf16 core's 128-row own tiles,
+# and 70, 130 and 300 not of its 64-row column tiles either.
+K2B_CASES = [(2, 70), (1, 130), (2, 200), (1, 300)]
 # K5b cases: (B, block length s, H, D); the other block's start is s below
 # the queries' (every key visible), equal (the diagonal block), s above
-# (nothing visible: no launch) and, without the mask, s above.
-RING_BWD_CASES = [(2, 48, 4, 32), (1, 130, 2, 64), (1, 100, 2, 128)]
+# (nothing visible: no launch) and, without the mask, s above. No s is a
+# multiple of the own or column tiles.
+RING_BWD_CASES = [(2, 48, 4, 32), (1, 130, 2, 64), (1, 100, 2, 128),
+                  (1, 300, 4, 128)]
 
 
 @pytest.mark.cuda
@@ -459,11 +464,12 @@ def test_backward_kernels_match_plain_on_card(cuda_device):
     (ring_attention_fold_backward) against their plain backward versions
     on the same inputs, every head layout and dtype, ragged lengths; K2's
     training forward (with its LSE) against causal_attention_plain; each
-    wrapper launches once per call; a head dim the kernels lack raises."""
+    wrapper launches once per call; K2b and K5b give bit-identical
+    gradients on a second run; a head dim the kernels lack raises."""
     gen = torch.Generator(device=cuda_device).manual_seed(9)
     for dtype in DTYPES:
         for H, KV, Dh in HEADS:
-            for B, S in ((2, 70), (1, 130)):
+            for B, S in K2B_CASES:
                 case = f"K2b {dtype} H={H} KV={KV} Dh={Dh} B={B} S={S}"
                 q = _rnd(gen, dtype, B, S, H, Dh)
                 k, v = (_rnd(gen, dtype, B, S, KV, Dh) for _ in range(2))
@@ -482,6 +488,9 @@ def test_backward_kernels_match_plain_on_card(cuda_device):
                     _assert_close(g, w, dtype, f"{case} d{name}")
                     _assert_rows_close(g, w, dtype, f"{case} d{name}",
                                        attention.GRAD_ROW_FLOOR)
+                again = attention.attention_backward(q, k, v, o, lse, do)
+                for name, g, g2 in zip("qkv", got, again):
+                    assert torch.equal(g, g2), f"{case} d{name} rerun"
             D = H * Dh
             case = f"K3b {dtype} rows=70 D={D}"
             x, dy, ds_out = (_rnd(gen, dtype, 70, D) for _ in range(3))
@@ -524,7 +533,11 @@ def test_backward_kernels_match_plain_on_card(cuda_device):
                     n + (not above), case
                 want = ra.ring_attention_fold_backward_plain(
                     q, kb, vb, o, lse, do, s, k_start, causal)
-                for name, g_, w in zip("qkv", grads[:3], want):
+                again = ra.grad_buffers(q, kb)
+                ra.ring_attention_fold_backward(q, kb, vb, o, lse, do, again,
+                                                s, k_start, causal, True)
+                for name, g_, w, g2 in zip("qkv", grads[:3], want, again):
+                    assert torch.equal(g_, g2), f"{case} d{name} rerun"
                     if above:
                         assert not g_.any(), f"{case} d{name}"
                         continue
