@@ -27,28 +27,29 @@
 // Y the other two: S = X_own . X_col^T, dP = Y_own . Y_col^T, then
 // acc1 += dS . X_col (dk or dq) and acc2 += P . Y_col (dv).
 //
-// bf16 (`wgmma_bwd`, Hopper only): a block of 3 warpgroups owns 128 rows.
-// Warpgroup 0 is the producer (24 registers a thread, setmaxnreg): one warp
-// loads the two own tiles once and then every column tile (X and Y, 64 rows
-// each) with TMA into a ring of kBwdStages stages in shared memory,
-// 128-byte swizzled (64-byte at Dh 32). A stage's "full" mbarrier counts
-// the TMA bytes and the warp's 32 arrivals (in the dK/dV pass the warp
-// also writes the tile's LSE, pre-scaled by log2 e, and delta rows); its
-// "empty" one an arrival from each consumer warp. Warpgroups 1 and 2 are
-// the consumers (240 registers: dk and dv are 2 x Dh / 2 f32 a thread at
-// Dh 128, S and dP 32 each), 64 own rows each. Per column tile, four
-// wgmma groups run in turn: S and dP (m64n64k16, both operands K-major in
-// shared memory), then P = exp2(S scale log2e - lse log2e) is formed while
-// dP runs, dv += P . Y_col runs while dS = P (dP - delta) is formed, and
-// dk (or dq) += dS . X_col ends the tile. P (as the forward rounds it
-// before P.V) and dS are rounded to bf16 straight into the A fragments of
-// those register-sourced products (a 16-bit accumulator fragment repacks
-// into the A layout without a shuffle); their B is the same stage read as
-// an MN-major tile. Once the last group retires the warp releases the
-// stage, so the producer's next copies overlap the products. The causal
-// test runs only on tiles that cross the diagonal; a warpgroup skips a
-// tile its rows see nothing of, and the block's tile list holds none that
-// both skip.
+// bf16 (`wgmma_bwd`, Hopper only; building blocks from csrc/hopper.cuh,
+// which the forward core csrc/attention_forward.cuh shares): a block of 3
+// warpgroups owns 128 rows. Warpgroup 0 is the producer (24 registers a
+// thread, setmaxnreg): one warp loads the two own tiles once and then every
+// column tile (X and Y, 64 rows each) with TMA into a ring of kBwdStages
+// stages in shared memory, 128-byte swizzled (64-byte at Dh 32). A stage's
+// "full" mbarrier counts the TMA bytes and the warp's 32 arrivals (in the
+// dK/dV pass the warp also writes the tile's LSE, pre-scaled by log2 e, and
+// delta rows); its "empty" one an arrival from each consumer warp.
+// Warpgroups 1 and 2 are the consumers (240 registers: dk and dv are 2 x Dh
+// / 2 f32 a thread at Dh 128, S and dP 32 each), 64 own rows each. Per
+// column tile, four wgmma groups run in turn: S and dP (m64n64k16, both
+// operands K-major in shared memory), then P = exp2(S scale log2e - lse
+// log2e) is formed while dP runs, dv += P . Y_col runs while dS = P (dP -
+// delta) is formed, and dk (or dq) += dS . X_col ends the tile. P (as the
+// forward rounds it before P.V) and dS are rounded to bf16 straight into the
+// A fragments of those register-sourced products (a 16-bit accumulator
+// fragment repacks into the A layout without a shuffle); their B is the same
+// stage read as an MN-major tile. Once the last group retires the warp
+// releases the stage, so the producer's next copies overlap the products.
+// The causal test runs only on tiles that cross the diagonal; a warpgroup
+// skips a tile its rows see nothing of, and the block's tile list holds none
+// that both skip.
 // f32 (`f32_bwd`): exact f32 on the CUDA cores, 8 warps of 8 own rows, 64
 // own rows a block; lane j takes column j of a 32-column tile for the
 // logit-like products, then every lane owns Dh / 32 output columns for the
@@ -59,9 +60,8 @@
 // contributions, `kAcc`).
 #pragma once
 
-#include <cuda.h>
-
 #include "attention_tile.cuh"
+#include "hopper.cuh"
 
 namespace brpc_tpu_torch {
 namespace attn_bwd {
@@ -83,6 +83,8 @@ static_assert(kBwdThreads == 128 * (kBwdConsumers + 1), "warpgroups");
 static_assert(kBwdProducerRegs + kBwdConsumers * kBwdConsumerRegs <=
                   65536 / 128,
               "setmaxnreg budget");
+static_assert(kBwdWgRows == hopper::kBoxRows && kBwdCols == hopper::kBoxRows,
+              "own and column tiles are TMA boxes");
 
 // q, dout: [B, sq, H, Dh]; k, v: [B, sk, KV, Dh]; lse, delta: [B, sq, H]
 // f32. dq is laid out as q, dk and dv as k. Key j is visible to query i
@@ -210,42 +212,7 @@ __device__ __forceinline__ void put1(void* out, long long off, float v) {
 
 // ---- bf16 on Hopper: wgmma fed by TMA ---------------------------------------
 
-// A 64-row tile of a [B, S, heads, DH] bf16 array as TMA lays it out in
-// shared memory: DH / kSw regions of 64 rows x kSw columns, each row kSw x
-// 2 bytes with its 16-byte chunks swizzled (128-byte swizzle for DH >= 64,
-// 64-byte at DH 32), the layout the wgmma descriptors below name.
-template <int DH>
-struct Tile {
-  static constexpr int kSw = DH < 64 ? DH : 64;
-  static constexpr int kRowBytes = kSw * 2;
-  static constexpr int kRegionBytes = kBwdWgRows * kRowBytes;
-  static constexpr int kBytes = kBwdWgRows * DH * 2;
-  static constexpr int kRegions = DH / kSw;
-  static_assert(kBwdCols == kBwdWgRows, "column and own tiles share a map");
-
-  // Shared-memory matrix descriptor: start address, leading and stride
-  // byte offsets (16-byte units), swizzle mode (1: 128 bytes, 2: 64).
-  static __device__ uint64_t desc(uint32_t addr, uint32_t lbo,
-                                  uint32_t sbo) {
-    constexpr uint64_t kMode = kSw == 64 ? 1 : 2;
-    return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-           static_cast<uint64_t>(lbo >> 4) << 16 |
-           static_cast<uint64_t>(sbo >> 4) << 32 | kMode << 62;
-  }
-  // The tile as a K-major operand (its rows the operand's M or N, its
-  // columns K), k step kk: columns 16 kk .. 16 kk + 15. 8-row groups are
-  // 8 rows apart; the swizzle is applied on the address, so a step inside
-  // a region only moves the start.
-  static __device__ uint64_t kmajor(uint32_t tile, int kk) {
-    return desc(tile + (kk * 16 / kSw) * kRegionBytes + (kk * 16 % kSw) * 2,
-                16, 8 * kRowBytes);
-  }
-  // The tile as an MN-major operand (its rows K, its columns N), k step
-  // kk: rows 16 kk .. 16 kk + 15; N crosses regions at the leading offset.
-  static __device__ uint64_t mnmajor(uint32_t tile, int kk) {
-    return desc(tile + kk * 16 * kRowBytes, kRegionBytes, 8 * kRowBytes);
-  }
-};
+using namespace hopper;
 
 // Byte offsets in a block's shared memory (aligned to 1024, the swizzle's
 // period): the consumers' own X and Y tiles, each stage's column X and Y
@@ -264,195 +231,6 @@ struct Smem {
   static constexpr int kOwnBar = kEmpty + kBwdStages * 8;
   static constexpr size_t kAlloc = kOwnBar + 8 + 1024;  // + base alignment
 };
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-// Adds `bytes` to the transaction count that TMA loads complete.
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.expect_tx.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(bytes)
-               : "memory");
-}
-// Waits for the phase of parity `parity` to complete.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// One box of a 4-D map (coordinates innermost first) into shared memory,
-// completing on `bar`; rows out of the array's bounds arrive as zeros.
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int c0, int c1,
-                                         int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
-      "r"(c3), "r"(bar)
-      : "memory");
-}
-
-template <int kRegs>
-__device__ __forceinline__ void setmaxnreg_dec() {
-  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kRegs));
-}
-template <int kRegs>
-__device__ __forceinline__ void setmaxnreg_inc() {
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kRegs));
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-// Waits until at most N committed groups are still running.
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-// Keeps the compiler from moving reads of a wgmma's registers above the
-// wait that retires it, or reusing its A registers before then.
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-template <int N>
-__device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
-}
-
-// d (64 x 64) = A . B^T, or += with `accumulate`: A 64 x 16 and B 64 x 16,
-// both K-major in shared memory.
-__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
-                                             uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
-      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
-      "%26, %27, %28, %29, %30, %31 "
-      "}, "
-      "%32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-
-// d (64 x 32) += A . B: A 64 x 16 in registers, B 16 x 32 MN-major in shared
-// memory.
-__device__ __forceinline__ void wgmma_rs_n32(float (&d)[16],
-                                             const uint32_t (&a)[4],
-                                             uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
-      "%14, %15 "
-      "}, "
-      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// d (64 x 64) += A . B: A 64 x 16 in registers, B 16 x 64 MN-major in shared
-// memory.
-__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
-                                             const uint32_t (&a)[4],
-                                             uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
-      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
-      "%26, %27, %28, %29, %30, %31 "
-      "}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// d (64 x 128) += A . B: A 64 x 16 in registers, B 16 x 128 MN-major in shared
-// memory.
-__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
-                                             const uint32_t (&a)[4],
-                                             uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
-      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
-      "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
-      "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
-      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
-      "%62, %63 "
-      "}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-template <int N>
-__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
-                                         const uint32_t (&a)[4],
-                                         uint64_t db) {
-  if constexpr (N == 32)
-    wgmma_rs_n32(d, a, db);
-  else if constexpr (N == 64)
-    wgmma_rs_n64(d, a, db);
-  else
-    wgmma_rs_n128(d, a, db);
-}
 
 // The producer warp: the own tiles once, then every column tile of the
 // block's list into the stage ring, with its LSE and delta rows in the
@@ -913,57 +691,6 @@ struct Core<float> {
     f32_bwd<DH, kKv, kAcc>(a);
   }
 };
-
-// cuTensorMapEncodeTiled, a driver call, reached through the runtime so
-// that the library needs no -lcuda.
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                 cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-inline EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = []() -> EncodeTiled {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found{};
-#if CUDART_VERSION >= 12050
-    const cudaError_t e = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t e = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    return e == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(p)
-               : nullptr;
-  }();
-  return fn;
-}
-
-// [batch, rows, heads, DH] bf16 as a 4-D map (DH, heads, rows, batch) whose
-// box is 64 rows of one head by Tile<DH>::kSw columns.
-template <int DH>
-int encode_rows(CUtensorMap* map, const void* ptr, int batch, int rows,
-                int heads) {
-  using L = Tile<DH>;
-  const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return cudaErrorNotSupported;
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(DH),
-                              static_cast<cuuint64_t>(heads),
-                              static_cast<cuuint64_t>(rows),
-                              static_cast<cuuint64_t>(batch)};
-  const cuuint64_t row = static_cast<cuuint64_t>(DH) * 2;
-  const cuuint64_t strides[3] = {row, row * heads, row * heads * rows};
-  const cuuint32_t box[4] = {L::kSw, 1, kBwdWgRows, 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  const CUresult r = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
-      strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      L::kSw == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
-      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
-}
 
 template <int DH>
 int encode_maps(Maps& m, const Args<__nv_bfloat16>& a, int batch) {

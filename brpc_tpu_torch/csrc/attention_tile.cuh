@@ -48,12 +48,13 @@
 // so every gradient of the row, is then 0. Null: no LSE (the serving
 // path).
 //
-// A problem that declares `static constexpr bool kFolds = true` (K5, the
-// ring's block fold, csrc/ring_attention.cu) does neither: the block's
-// (O, m, l) is folded into a running f32 state of its rows by merge_row's
-// rule (`fold_row`), which then stays in place or, on the ring's last step,
-// is written out as O / l rounded to T. Its key range may be empty: the
-// block then only writes the state out.
+// A problem that declares `static constexpr bool kFolds = true` (K5's f32
+// route, the ring's block fold, csrc/ring_attention.cu; the f32 core only:
+// K5's bf16 route runs csrc/attention_forward.cuh) does neither: the
+// block's (O, m, l) is folded into a running f32 state of its rows by
+// merge_row's rule (`fold_row`), which then stays in place or, on the
+// ring's last step, is written out as O / l rounded to T. Its key range may
+// be empty: the block then only writes the state out.
 #pragma once
 
 #include <stdint.h>
@@ -241,7 +242,8 @@ __device__ void mma_tile(const Problem& p, const __nv_bfloat16* __restrict__ q,
   constexpr int kStride = DH + 8;
   constexpr int kChunks = DH / 8;
   constexpr int kDSteps = DH / 16;  // k-steps of Q.K^T, n-tile pairs of P.V
-  if (!Folds<Problem>::value && p.key_begin >= p.key_end) {
+  static_assert(!Folds<Problem>::value, "the bf16 core does not fold");
+  if (p.key_begin >= p.key_end) {
     write_empty(p, sink);
     return;
   }
@@ -412,63 +414,34 @@ __device__ void mma_tile(const Problem& p, const __nv_bfloat16* __restrict__ q,
     l_b += __shfl_xor_sync(0xffffffffu, l_b, off);
   }
   const int col = 2 * (lane % 4);
-  if constexpr (Folds<Problem>::value) {
-    // This lane's columns of its two rows, then the fold of each row.
-    const int rid[2] = {p.row_id(row_a), p.row_id(row_a + 8)};
-    const float mb[2] = {m_a, m_b}, lb[2] = {l_a, l_b};
-    float ms[2], ls[2];
+  // Row row_a + 8 h of this lane: o[.][2 h], o[.][2 h + 1].
+  auto store = [&](int rid, float m, float l, int h) {
+    if (rid < 0) return;
+    if (!sink.partial) {
+      const float inv = 1.0f / l;
+      if (sink.lse != nullptr && lane % 4 == 0) sink.lse[rid] = row_lse(m, l);
+      bf16* orow = sink.out + static_cast<long long>(rid) * DH;
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      ms[h] = rid[h] < 0 ? -INFINITY
-                         : sink.ml_part[static_cast<long long>(rid[h]) * 2];
-      ls[h] = rid[h] < 0 ? 0.f
-                         : sink.ml_part[static_cast<long long>(rid[h]) * 2 + 1];
-    }
-    __syncwarp();  // every lane has read m and l before one writes them
+      for (int j = 0; j < DH / 8; ++j)
+        *reinterpret_cast<__nv_bfloat162*>(orow + j * 8 + col) =
+            __floats2bfloat162_rn(o[j][2 * h] * inv,
+                                  o[j][2 * h + 1] * inv);
+    } else {
+      const long long prow =
+          static_cast<long long>(sink.split) * sink.n_rows + rid;
+      float* orow = sink.o_part + prow * DH;
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      if (rid[h] < 0) continue;
-      float ov[DH / 4];
-#pragma unroll
-      for (int j = 0; j < DH / 8; ++j) {
-        ov[2 * j] = o[j][2 * h];
-        ov[2 * j + 1] = o[j][2 * h + 1];
+      for (int j = 0; j < DH / 8; ++j)
+        *reinterpret_cast<float2*>(orow + j * 8 + col) =
+            make_float2(o[j][2 * h], o[j][2 * h + 1]);
+      if (lane % 4 == 0) {
+        sink.ml_part[prow * 2] = m;
+        sink.ml_part[prow * 2 + 1] = l;
       }
-      fold_row<bf16, DH / 4>(sink, rid[h], DH, ov, mb[h], lb[h], ms[h], ls[h],
-                             lane % 4 == 0, [&](int j) {
-                               return (j / 2) * 8 + col + (j % 2);
-                             });
     }
-  } else {
-    // Row row_a + 8 h of this lane: o[.][2 h], o[.][2 h + 1].
-    auto store = [&](int rid, float m, float l, int h) {
-      if (rid < 0) return;
-      if (!sink.partial) {
-        const float inv = 1.0f / l;
-        if (sink.lse != nullptr && lane % 4 == 0) sink.lse[rid] = row_lse(m, l);
-        bf16* orow = sink.out + static_cast<long long>(rid) * DH;
-#pragma unroll
-        for (int j = 0; j < DH / 8; ++j)
-          *reinterpret_cast<__nv_bfloat162*>(orow + j * 8 + col) =
-              __floats2bfloat162_rn(o[j][2 * h] * inv,
-                                    o[j][2 * h + 1] * inv);
-      } else {
-        const long long prow =
-            static_cast<long long>(sink.split) * sink.n_rows + rid;
-        float* orow = sink.o_part + prow * DH;
-#pragma unroll
-        for (int j = 0; j < DH / 8; ++j)
-          *reinterpret_cast<float2*>(orow + j * 8 + col) =
-              make_float2(o[j][2 * h], o[j][2 * h + 1]);
-        if (lane % 4 == 0) {
-          sink.ml_part[prow * 2] = m;
-          sink.ml_part[prow * 2 + 1] = l;
-        }
-      }
-    };
-    store(p.row_id(row_a), m_a, l_a, 0);
-    store(p.row_id(row_a + 8), m_b, l_b, 1);
-  }
+  };
+  store(p.row_id(row_a), m_a, l_a, 0);
+  store(p.row_id(row_a + 8), m_b, l_b, 1);
 }
 
 // ---- f32 on the CUDA cores ------------------------------------------------

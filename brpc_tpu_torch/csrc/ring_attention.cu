@@ -14,22 +14,27 @@
 // Bound on the card: operations (4 x D flops per visible (query, key, head)
 // triple, against the H100 SXM's 989 TFLOP/s in bf16 and 67 in f32); a
 // block is read once, and at D 128 its bytes are far below that line.
-// Design: the fourth loader of the shared tile core (csrc/attention_tile.cuh:
-// bf16 on the tensor cores with mma.sync, exact f32 on the CUDA cores).
-// One block per (batch, head, tile of 64 queries) over the resident block's
-// keys; the core's fold epilogue merges the tile's (o, m, l) into the state
-// by merge_row's rule, so the state stays O(1) in the ring's length and no
-// partial goes through device memory. Under the causal mask a key tile
-// wholly past a query tile's last row is never read, and tiles run heaviest
-// first; a block wholly above the diagonal changes nothing (the reference
-// keeps m and its alpha is 1), so the wrapper skips it, and on the last
-// step launches with no keys to write the state out. bf16 inputs round the
-// probabilities to bf16 before P.V (the tensor cores' operand), where the
-// reference folds in f32: the bf16 kernel is held to the row tolerance.
-// With `lse` the last step also writes each row's log-sum-exp over the
-// whole ring (f32, +inf for a row that saw no key), from which K5b
+// Design, bf16: the Hopper forward core (csrc/attention_forward.cuh): a TMA
+// producer thread and two consumer warpgroups on wgmma, 128 query rows of
+// one (batch, head) a block, K/V tiles of 128 keys through a 3-stage
+// mbarrier ring; each consumer issues a tile's S with the previous tile's
+// P.V, and the two take turns. The consumers seed their registers with the
+// rows' state, fold every tile into it, and write it back (or, on the last
+// step, o / l and the LSE), so the state stays O(1) in the ring's length and
+// no partial goes through device memory. f32: the exact f32 twin of the
+// shared tile core (csrc/attention_tile.cuh `f32_tile`, the CUDA cores), one
+// block per (batch, head, tile of 64 queries), whose fold epilogue merges
+// the tile's (o, m, l) into the state by merge_row's rule. Under the causal
+// mask a key tile wholly past a block's last row is never read, and blocks
+// run heaviest first; a block wholly above the diagonal changes nothing (the
+// reference keeps m and its alpha is 1), so the wrapper skips it, and on the
+// last step launches with no keys to write the state out. bf16 inputs round
+// the probabilities to bf16 before P.V (the tensor cores' operand), where
+// the reference folds in f32: the bf16 kernel is held to the row tolerance.
+// With `lse` the last step also writes each row's log-sum-exp over the whole
+// ring (f32, natural units, +inf for a row that saw no key), from which K5b
 // (csrc/ring_attention_backward.cu) recomputes the probabilities.
-#include "attention_tile.cuh"
+#include "attention_forward.cuh"
 
 namespace brpc_tpu_torch {
 namespace {
@@ -71,6 +76,7 @@ struct RingProblem {
   }
 };
 
+// The f32 route: the shared tile core's exact twin.
 template <typename T, int DH>
 __global__ void __launch_bounds__(attn::Core<T>::kThreads,
                                   attn::Core<T>::kMinBlocks)
@@ -86,42 +92,76 @@ __global__ void __launch_bounds__(attn::Core<T>::kThreads,
   attn::Core<T>::template run<DH>(p, q, scale, sink);
 }
 
+// The bf16 route: the Hopper forward core (T is bf16 only).
 template <typename T, int DH>
-int launch(const void* q, const void* k, const void* v, void* o, void* ml,
-           void* out, float* lse, int batch, int sq, int sk, int n_keys,
-           int n_heads, int diag, int causal, float scale,
-           cudaStream_t stream) {
-  constexpr size_t smem = attn::Core<T>::template smem<DH>();
-  auto kernel = ring_attention_fold_kernel<T, DH>;
+__global__ void __launch_bounds__(attn_fwd::kFwdThreads, 1)
+    ring_attention_fold_wgmma_kernel(
+        const attn_fwd::Args a, const __grid_constant__ attn_fwd::Maps maps) {
+  attn_fwd::wgmma_fwd<DH>(a, maps);
+}
+
+template <int DH>
+int launch_f32(const void* q, const void* k, const void* v, void* o,
+               void* ml, void* out, float* lse, int batch, int sq, int sk,
+               int n_keys, int n_heads, int diag, int causal, float scale,
+               cudaStream_t stream) {
+  using Core = attn::Core<float>;
+  constexpr size_t smem = Core::template smem<DH>();
+  auto kernel = ring_attention_fold_kernel<float, DH>;
   static std::atomic<unsigned long long> smem_set{0};
   if (int e = attn::allow_smem(kernel, smem, smem_set)) return e;
   const dim3 grid(batch * n_heads, (sq + kTileRows - 1) / kTileRows);
-  kernel<<<grid, attn::Core<T>::kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<float*>(o),
-      static_cast<float*>(ml), static_cast<T*>(out), lse, sq, sk, n_keys,
+  kernel<<<grid, Core::kThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o),
+      static_cast<float*>(ml), static_cast<float*>(out), lse, sq, sk, n_keys,
       n_heads, diag, causal, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int dispatch_dh(int dh, const void* q, const void* k, const void* v, void* o,
+template <int DH>
+int launch_bf16(const void* q, const void* k, const void* v, void* o,
                 void* ml, void* out, float* lse, int batch, int sq, int sk,
                 int n_keys, int n_heads, int diag, int causal, float scale,
                 cudaStream_t stream) {
-  switch (dh) {
-    case 32:
-      return launch<T, 32>(q, k, v, o, ml, out, lse, batch, sq, sk, n_keys,
+  constexpr size_t smem = attn_fwd::Smem<DH>::kAlloc;
+  auto kernel = ring_attention_fold_wgmma_kernel<__nv_bfloat16, DH>;
+  static std::atomic<unsigned long long> smem_set{0};
+  if (int e = attn::allow_smem(kernel, smem, smem_set)) return e;
+  attn_fwd::Maps maps{};
+  if (int e = attn_fwd::encode_maps<DH>(maps, q, k, v, batch, sq, sk,
+                                        n_heads))
+    return e;
+  const attn_fwd::Args a{static_cast<float*>(o),
+                         static_cast<float*>(ml),
+                         static_cast<__nv_bfloat16*>(out),
+                         lse,
+                         batch,
+                         sq,
+                         sk,
+                         n_keys,
+                         n_heads,
+                         diag,
+                         causal,
+                         scale};
+  const unsigned grid = static_cast<unsigned>(batch) * n_heads *
+                        ((sq + attn_fwd::kFwdRows - 1) / attn_fwd::kFwdRows);
+  kernel<<<grid, attn_fwd::kFwdThreads, smem, stream>>>(a, maps);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int DH>
+int launch(int dtype, const void* q, const void* k, const void* v, void* o,
+           void* ml, void* out, float* lse, int batch, int sq, int sk,
+           int n_keys, int n_heads, int diag, int causal, float scale,
+           cudaStream_t stream) {
+  if (dtype == kDtypeFloat32)
+    return launch_f32<DH>(q, k, v, o, ml, out, lse, batch, sq, sk, n_keys,
+                          n_heads, diag, causal, scale, stream);
+  if (dtype == kDtypeBFloat16)
+    return launch_bf16<DH>(q, k, v, o, ml, out, lse, batch, sq, sk, n_keys,
                            n_heads, diag, causal, scale, stream);
-    case 64:
-      return launch<T, 64>(q, k, v, o, ml, out, lse, batch, sq, sk, n_keys,
-                           n_heads, diag, causal, scale, stream);
-    case 128:
-      return launch<T, 128>(q, k, v, o, ml, out, lse, batch, sq, sk, n_keys,
-                            n_heads, diag, causal, scale, stream);
-    default:
-      return cudaErrorInvalidValue;
-  }
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -147,12 +187,17 @@ extern "C" int brpc_ring_attention_fold(int dtype, const void* q,
       (out != nullptr && !aligned16(out)))
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == kDtypeFloat32)
-    return dispatch_dh<float>(dh, q, k, v, o, ml, out, lse, batch, sq, sk,
-                              n_keys, n_heads, diag, causal, scale, s);
-  if (dtype == kDtypeBFloat16)
-    return dispatch_dh<__nv_bfloat16>(dh, q, k, v, o, ml, out, lse, batch,
-                                      sq, sk, n_keys, n_heads, diag, causal,
-                                      scale, s);
-  return cudaErrorInvalidValue;
+  switch (dh) {
+    case 32:
+      return launch<32>(dtype, q, k, v, o, ml, out, lse, batch, sq, sk,
+                        n_keys, n_heads, diag, causal, scale, s);
+    case 64:
+      return launch<64>(dtype, q, k, v, o, ml, out, lse, batch, sq, sk,
+                        n_keys, n_heads, diag, causal, scale, s);
+    case 128:
+      return launch<128>(dtype, q, k, v, o, ml, out, lse, batch, sq, sk,
+                         n_keys, n_heads, diag, causal, scale, s);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }

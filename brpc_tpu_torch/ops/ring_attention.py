@@ -7,7 +7,9 @@ After n steps every query has attended to every key once.
 
 - ``ring_attention_fold``: one step, the K5 kernel's wrapper
   (csrc/ring_attention.cu); ``ring_attention_fold_plain`` is the
-  reference's ``step`` in PyTorch and runs for CPU tensors.
+  reference's ``step`` in PyTorch and runs for CPU tensors;
+  ``ring_fold_tiles_plain`` computes the same step tile by tile along
+  ``ring_fold_tile_plan``, as the bf16 kernel walks it (for the tests).
 - ``ring_attention_fold_backward``: one block's share of the gradient, the
   K5b kernel's wrapper (csrc/ring_attention_backward.cu);
   ``ring_attention_fold_backward_plain`` runs for CPU tensors.
@@ -31,6 +33,7 @@ from brpc_tpu_torch.parallel import rank_and_size, ring_shift_start
 
 __all__ = ["attention_reference", "fold_state", "fold_output", "fold_lse",
            "ring_attention_fold", "ring_attention_fold_plain",
+           "ring_fold_tile_plan", "ring_fold_tiles_plain",
            "ring_attention_fold_backward",
            "ring_attention_fold_backward_plain", "grad_buffers",
            "ring_attention", "ring_attention_local"]
@@ -91,6 +94,80 @@ def ring_attention_fold_plain(q, k, v, state: tuple, q_start: int,
     o_new = o * alpha[..., None] + torch.einsum("bqhk,bkhd->bqhd", p,
                                                 v.float())
     return o_new, torch.stack([m_new, l_new], dim=-1)
+
+
+# From csrc/attention_forward.cuh, K5's bf16 core: a block owns FWD_ROWS
+# query rows of one (batch, head), each consumer warpgroup FWD_WG_ROWS of
+# them, and K/V tiles of FWD_KEYS keys stream past them.
+_FWD = _build.header_constants("attention_forward.cuh")
+FWD_ROWS = _FWD["kFwdRows"]
+FWD_WG_ROWS = _FWD["kFwdWgRows"]
+FWD_KEYS = _FWD["kFwdKeys"]
+
+
+def ring_fold_tile_plan(sq: int, n_keys: int, diag: int,
+                        causal: bool) -> list:
+    """The (rows, key tile) pairs that K5's bf16 core computes for one
+    (batch, head), in the order each warpgroup meets them: [(lo, hi, c0,
+    c1, masked), ...] for query rows [lo, hi) and keys [c0, c1). Key j is
+    visible to row i when j < n_keys and, ``causal``, j <= diag + i. A
+    block of FWD_ROWS rows reads key tiles of FWD_KEYS from 0 up to its last
+    valid row's causal edge; each warpgroup of FWD_WG_ROWS rows skips the
+    tiles in which its rows see no key, and applies the mask only where
+    ``masked``: the tile crosses the diagonal or the keys' end. Keys past
+    n_keys arrive as zeros and are left out of [c0, c1)."""
+    plan = []
+    for q0 in range(0, sq, FWD_ROWS):
+        end = (max(0, min(n_keys, diag + min(q0 + FWD_ROWS, sq)))
+               if causal else n_keys)
+        for c0 in range(0, end, FWD_KEYS):
+            for lo in range(q0, min(q0 + FWD_ROWS, sq), FWD_WG_ROWS):
+                hi = min(lo + FWD_WG_ROWS, sq)
+                if causal and c0 > diag + hi - 1:
+                    continue
+                masked = (c0 + FWD_KEYS > n_keys
+                          or (causal and c0 + FWD_KEYS - 1 > diag + lo))
+                plan.append((lo, hi, c0, min(c0 + FWD_KEYS, n_keys),
+                             masked))
+    return plan
+
+
+def ring_fold_tiles_plain(q, k, v, state: tuple, q_start: int, k_start: int,
+                          causal: bool, n_keys: int = None) -> tuple:
+    """One fold computed tile by tile along ``ring_fold_tile_plan``, as K5's
+    bf16 core computes it: each warpgroup's rows start from the state (o,
+    m, l) and fold its tiles in order, the causal test only on tiles marked
+    ``masked``, p = exp(logit - m_new) summed into l unrounded and rounded
+    to q's dtype for P.V (the tensor cores' operand). ``n_keys``: the
+    block's keys the fold reads (k's length, or 0 as the wrapper launches a
+    block above the diagonal on the last step). -> the new state, in f32.
+    For the tests: the main path never calls it."""
+    o, ml = state
+    sq, sk = q.shape[1], k.shape[1]
+    n_keys = sk if n_keys is None else n_keys
+    diag = q_start - k_start
+    scale = softmax_scale(q.shape[-1])
+    qf, kf, vf = q.float(), k.float(), v.float()
+    o, m, l = o.clone(), ml[..., 0].clone(), ml[..., 1].clone()
+    rows = torch.arange(sq, device=q.device)
+    keys = torch.arange(sk, device=q.device)
+    for lo, hi, c0, c1, masked in ring_fold_tile_plan(sq, n_keys, diag,
+                                                      causal):
+        s = torch.einsum("bqhd,bkhd->bqhk", qf[:, lo:hi], kf[:, c0:c1]) \
+            * scale
+        if masked and causal:
+            vis = keys[None, c0:c1] <= diag + rows[lo:hi, None]
+            s = s.masked_fill(~vis[None, :, None, :], -float("inf"))
+        m_old = m[:, lo:hi]
+        m_new = torch.maximum(m_old, s.amax(dim=-1))
+        mu = torch.where(torch.isneginf(m_new), 0.0, m_new)
+        alpha = torch.exp(m_old - mu)
+        p = torch.exp(s - mu[..., None])
+        l[:, lo:hi] = l[:, lo:hi] * alpha + p.sum(dim=-1)
+        o[:, lo:hi] = o[:, lo:hi] * alpha[..., None] + torch.einsum(
+            "bqhk,bkhd->bqhd", p.to(q.dtype).float(), vf[:, c0:c1])
+        m[:, lo:hi] = m_new
+    return o, torch.stack([m, l], dim=-1)
 
 
 def fold_lse(state: tuple) -> torch.Tensor:

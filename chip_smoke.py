@@ -207,11 +207,15 @@ def ptxas_summary(path: str) -> list:
     return out
 
 
-# Kernels on the shared attention tile core (K1, K2, K4, K5, and the
-# merges).
+# The forward attention kernels (K1, K2, K4, their merges, K5): their SASS
+# counts are logged, and their bf16 Dh-128 instances must not spill. Those
+# of K1, K2 and K4 run the shared tile core: mma.sync (HMMA) in bf16.
 TILE_KERNEL = re.compile(r"prefill|paged_decode|ring_attention")
-# The passes of the backward core (K2b, K5b): wgmma (HGMMA in the SASS) in
-# bf16.
+TILE_BF16_KERNELS = ("prefill_attention_kernel", "paged_decode_kernel",
+                     "paged_prefill_kernel")
+# The Hopper cores: wgmma (HGMMA) and no mma.sync in bf16. K5's forward
+# core, and the passes of the backward core (K2b, K5b).
+WGMMA_KERNELS = ("ring_attention_fold_wgmma_kernel",)
 BACKWARD_KERNELS = ("attention_backward_kv_kernel",
                     "attention_backward_q_kernel",
                     "ring_fold_backward_kv_kernel",
@@ -221,9 +225,9 @@ BACKWARD_KERNELS = ("attention_backward_kv_kernel",
 def sass_mma_counts(build) -> dict:
     """Tensor-core instructions per compiled attention kernel of the built
     library, from cuobjdump -sass: {kernel: {"HMMA": n, "HGMMA": m}}
-    (mma.sync and wgmma). Fails if a bf16 K1, K2, K4 or K5 kernel has
-    none, if a bf16 pass of K2b or K5b has no HGMMA, or if the decode
-    kernel K1 is missing."""
+    (mma.sync and wgmma). Fails unless each bf16 K1, K2 and K4 kernel has
+    HMMA, each bf16 K5 kernel HGMMA and no HMMA, and each bf16 pass of K2b
+    and K5b HGMMA."""
     tool = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
     sass = subprocess.run([tool, "-sass", build.LIB_PATH],
                           capture_output=True, text=True, check=True).stdout
@@ -240,6 +244,9 @@ def sass_mma_counts(build) -> dict:
     def fmt(c):
         return f"{c['HMMA']} HMMA, {c['HGMMA']} HGMMA"
 
+    def bf16(kind):
+        return [k for k in counts if kind in k and "bfloat16" in k]
+
     for name, c in counts.items():
         # The kernel's own name: the mangled one also holds its source
         # file's (csrc/ring_attention_backward.cu's kernels are not K5).
@@ -247,18 +254,25 @@ def sass_mma_counts(build) -> dict:
         if (TILE_KERNEL.search(own.group(1) if own else name)
                 and "bfloat16" in name):
             log(f"[sass] {name}: {fmt(c)}")
-            if "merge" not in name and c["HMMA"] + c["HGMMA"] == 0:
-                raise AssertionError(f"{name} has no tensor-core instruction")
-    for kind in ("prefill", "paged_decode_kernel", "ring_attention_fold"):
-        if not any(kind in k and "bfloat16" in k for k in counts):
-            raise AssertionError(f"no bf16 {kind} kernel in the SASS")
-    for kind in BACKWARD_KERNELS:
-        found = [k for k in counts if kind in k and "bfloat16" in k]
+    for kind in TILE_BF16_KERNELS:
+        found = bf16(kind)
+        if not found or any(counts[k]["HMMA"] == 0 for k in found):
+            raise AssertionError(f"no bf16 {kind} with mma.sync (HMMA) in "
+                                 f"the SASS")
+    if any("ring_attention_fold_kernel" in k for k in bf16("")):
+        raise AssertionError("a bf16 instance of the mma.sync ring fold "
+                             "is still built")
+    for kind in WGMMA_KERNELS + BACKWARD_KERNELS:
+        found = bf16(kind)
         if not found or any(counts[k]["HGMMA"] == 0 for k in found):
             raise AssertionError(f"no bf16 {kind} with wgmma (HGMMA) in "
                                  f"the SASS")
+        if kind in WGMMA_KERNELS and any(counts[k]["HMMA"]
+                                         for k in found):
+            raise AssertionError(f"a bf16 {kind} has mma.sync (HMMA)")
         for k in found:
-            log(f"[sass] {k}: {fmt(counts[k])}")
+            if kind in BACKWARD_KERNELS:
+                log(f"[sass] {k}: {fmt(counts[k])}")
     return counts
 
 

@@ -358,18 +358,21 @@ def test_disagg_on_card_streams_plain_greedy(cuda_device):
 
 
 # K5 cases: (B, ranks, block length s, H, D, causal). Ragged blocks (s not
-# a multiple of the 64-row tile), every head dim the core has, and a
-# Llama-width one.
+# a multiple of the bf16 core's 128-row blocks or 64-key tiles), every head
+# dim the core has, causal and not, and a Llama-width one.
 RING_CASES = [(2, 4, 48, 4, 32, True), (1, 3, 130, 2, 64, False),
-              (1, 4, 100, 2, 128, True), (1, 2, 256, 32, 128, False)]
+              (1, 4, 100, 2, 128, True), (1, 2, 256, 32, 128, False),
+              (1, 3, 200, 2, 32, False), (2, 3, 130, 4, 64, True),
+              (1, 2, 330, 4, 128, True)]
 
 
 @pytest.mark.cuda
 def test_ring_attention_fold_matches_plain_on_card(cuda_device):
     """K5 against the plain fold, step by step through an in-process ring
     (each rank's state normalised after every step), and the ring's output
-    against dense attention; a block above the diagonal launches nothing
-    until the last step; a head dim the core lacks raises."""
+    against dense attention; bf16 reruns bit for bit; a block above the
+    diagonal launches nothing until the last step; a head dim the core
+    lacks raises."""
     gen = torch.Generator(device=cuda_device).manual_seed(5)
     for B, n, s, H, D, causal in RING_CASES:
         for dtype in DTYPES:
@@ -400,6 +403,8 @@ def test_ring_attention_fold_matches_plain_on_card(cuda_device):
                     _assert_rows_close(got, want, dtype, step)
             out = torch.cat(ra.ring_attention_local(qs, ks, vs, causal), 1)
             assert out.dtype == dtype, case
+            again = torch.cat(ra.ring_attention_local(qs, ks, vs, causal), 1)
+            assert torch.equal(out, again), f"{case}: a rerun differs"
             want = ra.attention_reference(q, k, v, causal)
             _assert_close(out, want, dtype, f"{case} vs dense")
             _assert_rows_close(out, want, dtype, f"{case} vs dense")

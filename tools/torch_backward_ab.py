@@ -1,11 +1,12 @@
-"""Time the port's attention backward kernels (K2b at chip_smoke.py's two
-training shapes, K5b on a full and on the diagonal block of s 4096) in bf16
-for one or more checkouts of this repository, in turns, in one process per
-checkout and round: each checkout's own chip_smoke.py checks its kernels
-against their plain versions and times them (CUDA events and
+"""Time the port's Hopper attention kernels in bf16 for one or more
+checkouts of this repository, in turns, in one process per checkout and
+round: K2b at chip_smoke.py's two training shapes, K5b and K5 on a full and
+on the diagonal block of s 4096, and the ring's forward (8 in-process
+ranks of K5 folds) at S 32768. Each checkout's own chip_smoke.py checks
+its kernels against their plain versions and times them (CUDA events and
 torch.profiler), so two versions compare on one card in one call. Each
-case's device time is also split by kernel (the delta pre-pass, the dK/dV
-pass, the dQ pass) from torch.profiler.
+case's device time is also split by kernel from torch.profiler (K2b and
+K5b: the delta pre-pass, the dK/dV pass, the dQ pass).
 
     python3 tools/torch_backward_ab.py PARENT_DIR . . PARENT_DIR
 
@@ -18,6 +19,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 
@@ -25,8 +27,9 @@ K2B_SHAPES = ((2, 2048), (1, 4096))
 
 
 def by_kernel(fn, iters: int = 20) -> dict:
-    """Device ms per call of fn's delta pre-pass, dK/dV pass and dQ pass,
-    from torch.profiler."""
+    """Device ms per call of each kernel fn launches, by the kernel's
+    name (the rest of PyTorch's own kernels as "other"), from
+    torch.profiler."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -41,10 +44,10 @@ def by_kernel(fn, iters: int = 20) -> dict:
     for e in prof.key_averages():
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
-        for k in ("delta_kernel", "kv_kernel", "q_kernel"):
-            if k in e.key:
-                out[k] = out.get(k, 0.0) + getattr(
-                    e, "self_device_time_total", 0.0) / 1e3 / iters
+        m = re.search(r"((?:ring|attention)\w*_kernel)", e.key)
+        k = m.group(1) if m else "other"
+        out[k] = out.get(k, 0.0) + getattr(
+            e, "self_device_time_total", 0.0) / 1e3 / iters
     return out
 
 
@@ -88,12 +91,69 @@ def one(root: str) -> None:
         split["K5b " + ("diagonal" if diagonal else "full")] = by_kernel(
             lambda: ra.ring_attention_fold_backward(
                 q, kb, vb, o, lse, do, grads, s, k_start, True, True))
-    for name, r in runs:
+    runs = [(name, r, "SDPA backward") for name, r in runs]
+    runs += k5_runs(chip_smoke, ra, gen, split)
+    for name, r, lib in runs:
         print("RESULT " + json.dumps({
             "case": name, "ms": r["ms"], "device_ms": r["device_ms"],
-            "row_rel_err": r["row_rel_err"],
+            "row_rel_err": r["row_rel_err"], "library": lib,
             "library_device_ms": r["library_device_ms"],
             "by_kernel": split[name]}), flush=True)
+
+
+def k5_runs(chip_smoke, ra, gen, split: dict) -> list:
+    """K5 on a full and on the diagonal block of s 4096 (one fold each,
+    checked against the plain fold, then chip_smoke.time_ring_fold), and
+    the causal ring's forward at S 32768 as 8 in-process ranks (its
+    outputs are checked by chip_smoke.py's parallel phase), each split by
+    kernel into ``split``: [(case, result, library call)]."""
+    import torch
+
+    bf16 = torch.bfloat16
+    s = chip_smoke.RING_S // chip_smoke.RING_RANKS
+    q, k, v = (torch.randn((1, s, chip_smoke.RING_H, chip_smoke.RING_DH),
+                           generator=gen, device="cuda").to(bf16)
+               for _ in range(3))
+    errs = {}
+    for name, k_start in (("K5 full", 0), ("K5 diagonal", s)):
+        got = ra.ring_attention_fold(q, k, v, ra.fold_state(q), s, k_start,
+                                     True)
+        want = ra.ring_attention_fold_plain(q, k, v, ra.fold_state(q), s,
+                                            k_start, True)
+        errs[name] = chip_smoke.compare(
+            name, ra.fold_output(got, torch.float32),
+            ra.fold_output(want, torch.float32), bf16, rows=True)[1]
+        state = ra.fold_state(q)
+        split[name] = by_kernel(lambda: ra.ring_attention_fold(
+            q, k, v, state, s, k_start, True))
+        del got, want
+    torch.cuda.empty_cache()
+    t = chip_smoke.time_ring_fold(bf16, gen)
+    out = [("K5 full", {"ms": t["ms"], "device_ms": t["device_ms"],
+                        "row_rel_err": errs["K5 full"],
+                        "library_device_ms": t["library_device_ms"]},
+            "SDPA"),
+           ("K5 diagonal", {"ms": t["diag_ms"],
+                            "device_ms": t["diag_device_ms"],
+                            "row_rel_err": errs["K5 diagonal"],
+                            "library_device_ms": t["diag_library_device_ms"]},
+            "causal SDPA")]
+    _, (qs, ks, vs) = chip_smoke.ring_blocks(gen, bf16, chip_smoke.RING_S)
+    name = f"ring forward S={chip_smoke.RING_S}"
+
+    def ring():
+        return ra.ring_attention_local(qs, ks, vs, True)
+
+    split[name] = by_kernel(ring, iters=3)
+    Q, K, V = (torch.cat(b, dim=1).transpose(1, 2) for b in (qs, ks, vs))
+    out.append((name, {
+        "ms": chip_smoke.time_ms(ring, iters=3, warmup=1),
+        "device_ms": sum(split[name].values()), "row_rel_err": None,
+        "library_device_ms": chip_smoke.device_ms(
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                Q, K, V, is_causal=True), iters=3)},
+        "causal SDPA over S"))
+    return out
 
 
 def main() -> int:
@@ -119,9 +179,11 @@ def main() -> int:
             r = json.loads(line[len("RESULT "):])
             split = ", ".join(f"{k} {v:.4f}"
                               for k, v in r["by_kernel"].items())
+            err = ("n/a" if r["row_rel_err"] is None
+                   else f"{r['row_rel_err']:.3e}")
             print(f"[ab] round {i} {root}: {r['case']} device_ms "
                   f"{r['device_ms']:.4f} ms {r['ms']:.4f} row_rel_err "
-                  f"{r['row_rel_err']:.3e} (SDPA backward device_ms "
+                  f"{err} ({r['library']} device_ms "
                   f"{r['library_device_ms']:.4f}); by kernel: {split}",
                   flush=True)
     return 0
