@@ -14,15 +14,16 @@
 // dv written once are far below that line at a few thousand tokens.
 // Design: the two-pass backward core of csrc/attention_backward.cuh (bf16
 // on Hopper's wgmma, fed by TMA through a ring of column tiles with a
-// producer warp and two consumer warpgroups; exact f32 on the CUDA cores):
+// producer warp and two consumer warpgroups; f32 on the CUDA cores'
+// register-tiled FFMA, csrc/attention_f32.cuh, no TF32):
 // a delta pre-pass, the dK/dV pass (one block per (batch, KV head, 128
 // keys), over the query tiles of the KV head's query heads at or below the
 // diagonal) and the dQ pass (one block per (batch, head, 128 queries),
-// over the key tiles up to its diagonal; 64 own rows a block in f32), each
+// over the key tiles up to its diagonal; 32-row column tiles in f32), each
 // block writing its own rows once, so no atomics and the same sums on
 // every run. The probabilities come back from the LSE that K2
 // (csrc/prefill_attention.cu) writes in its training form.
-#include "attention_backward.cuh"
+#include "attention_f32.cuh"
 
 namespace brpc_tpu_torch {
 namespace {

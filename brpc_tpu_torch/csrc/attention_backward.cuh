@@ -50,10 +50,9 @@
 // The causal test runs only on tiles that cross the diagonal; a warpgroup
 // skips a tile its rows see nothing of, and the block's tile list holds none
 // that both skip.
-// f32 (`f32_bwd`): exact f32 on the CUDA cores, 8 warps of 8 own rows, 64
-// own rows a block; lane j takes column j of a 32-column tile for the
-// logit-like products, then every lane owns Dh / 32 output columns for the
-// accumulations, with P and dS broadcast by shuffles.
+// f32: the SIMT core of csrc/attention_f32.cuh (`attn_f32::bwd`, plain FFMA
+// on the CUDA cores), 128 own rows a block and 32-row column tiles through
+// two cp.async stages, on the same geometry.
 //
 // Outputs: a kernel writes its rows either rounded to T (K2b: dq, dk, dv in
 // the model dtype) or added to f32 accumulators (K5b: a ring block's
@@ -65,9 +64,6 @@
 
 namespace brpc_tpu_torch {
 namespace attn_bwd {
-
-using attn::kTileRows;             // own rows of an f32 block
-constexpr int kF32Cols = 32;       // columns of a staged tile, f32 core
 
 // The bf16 core (ops/attention.py reads these from this file).
 constexpr int kBwdWgRows = 64;     // own rows of one consumer warpgroup
@@ -498,154 +494,6 @@ __device__ void wgmma_bwd(const Args<__nv_bfloat16>& a, const Maps& maps) {
   }
 }
 
-// ---- f32 on the CUDA cores ------------------------------------------------
-
-template <int DH>
-constexpr size_t f32_smem_bytes() {
-  return (static_cast<size_t>(2 * kTileRows) * DH +
-          static_cast<size_t>(2 * kF32Cols) * (DH + 4) + 2 * kF32Cols) *
-         sizeof(float);
-}
-
-template <int DH, bool kKv, bool kAcc>
-__device__ void f32_bwd(const Args<float>& a) {
-  constexpr int kThreads = attn::kF32Threads;
-  constexpr int kRows = kTileRows / (kThreads / 32);  // own rows per warp
-  constexpr int kVpt = DH / 32;
-  constexpr int kStrideC = DH + 4;  // keeps float4 rows 16-byte aligned
-  const Geom<kKv, kTileRows> g(a);
-  extern __shared__ float4 smem_f4[];
-  float* xo = reinterpret_cast<float*>(smem_f4);  // [kTileRows][DH]
-  float* yo = xo + kTileRows * DH;
-  float* xc = yo + kTileRows * DH;  // [kF32Cols][kStrideC]
-  float* yc = xc + kF32Cols * kStrideC;
-  float* lse_s = yc + kF32Cols * kStrideC;
-  float* del_s = lse_s + kF32Cols;
-  const float* own_x = kKv ? a.k : a.q;
-  const float* own_y = kKv ? a.v : a.dout;
-  const float* col_x = kKv ? a.q : a.k;
-  const float* col_y = kKv ? a.dout : a.v;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-
-  for (int i = threadIdx.x; i < kTileRows * DH; i += kThreads) {
-    const int r = i / DH;
-    const int d = i - r * DH;
-    const bool ok = g.own_valid(a, g.own0 + r);
-    const long long off = ok ? g.own_off(a, g.own0 + r, DH) + d : 0;
-    xo[i] = ok ? own_x[off] : 0.f;
-    yo[i] = ok ? own_y[off] : 0.f;
-  }
-  const bool active = g.own_valid(a, g.own0 + warp * kRows);
-  int own_i[kRows];
-  float lse_r[kRows], del_r[kRows];
-  float acc1[kRows][kVpt], acc2[kRows][kVpt];
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    own_i[r] = g.own0 + warp * kRows + r;
-    const bool ok = !kKv && g.own_valid(a, own_i[r]);
-    lse_r[r] = ok ? a.lse[g.stat_idx(a, own_i[r], g.own_head)] : INFINITY;
-    del_r[r] = ok ? a.delta[g.stat_idx(a, own_i[r], g.own_head)] : 0.f;
-#pragma unroll
-    for (int j = 0; j < kVpt; ++j) acc1[r][j] = acc2[r][j] = 0.f;
-  }
-
-  const int n_tiles = g.n_tiles(kF32Cols);
-  for (int t = 0; t < n_tiles; ++t) {
-    int hh, c0;
-    g.tile(t, kF32Cols, hh, c0);
-    __syncthreads();  // the previous tile is consumed (own rows written)
-    for (int i = threadIdx.x; i < kF32Cols * DH; i += kThreads) {
-      const int c = i / DH;
-      const int d = i - c * DH;
-      const bool ok = c0 + c < g.col_end;
-      const long long off = ok ? g.col_off(a, c0 + c, hh, DH) + d : 0;
-      xc[c * kStrideC + d] = ok ? col_x[off] : 0.f;
-      yc[c * kStrideC + d] = ok ? col_y[off] : 0.f;
-    }
-    if (kKv) {
-      for (int c = threadIdx.x; c < kF32Cols; c += kThreads) {
-        const bool ok = c0 + c < g.col_end;
-        const long long idx = ok ? g.stat_idx(a, c0 + c, hh) : 0;
-        lse_s[c] = ok ? a.lse[idx] : INFINITY;
-        del_s[c] = ok ? a.delta[idx] : 0.f;
-      }
-    }
-    __syncthreads();
-    if (!active) continue;
-
-    // Lane j <-> column c0 + j: its logit and dP for the warp's rows.
-    float s[kRows], dp[kRows];
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) s[r] = dp[r] = 0.f;
-    const float4* xrow = reinterpret_cast<const float4*>(xc + lane * kStrideC);
-    const float4* yrow = reinterpret_cast<const float4*>(yc + lane * kStrideC);
-#pragma unroll 4
-    for (int d4 = 0; d4 < DH / 4; ++d4) {
-      const float4 xx = xrow[d4];
-      const float4 yy = yrow[d4];
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        const float4 ox = reinterpret_cast<const float4*>(
-            xo + (warp * kRows + r) * DH)[d4];
-        const float4 oy = reinterpret_cast<const float4*>(
-            yo + (warp * kRows + r) * DH)[d4];
-        s[r] += ox.x * xx.x + ox.y * xx.y + ox.z * xx.z + ox.w * xx.w;
-        dp[r] += oy.x * yy.x + oy.y * yy.y + oy.z * yy.z + oy.w * yy.w;
-      }
-    }
-    const int ci = c0 + lane;
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      const float l = kKv ? lse_s[lane] : lse_r[r];
-      const float dl = kKv ? del_s[lane] : del_r[r];
-      const bool vis = ci < g.col_end && g.own_valid(a, own_i[r]) &&
-                       g.visible(a, own_i[r], ci);
-      const float pr = vis ? expf(s[r] * a.scale - l) : 0.f;
-      s[r] = pr;
-      dp[r] = pr * (dp[r] - dl);
-    }
-    // Accumulations: lane owns output columns lane + 32 j.
-    const int n_cols = min(kF32Cols, g.col_end - c0);
-    for (int tt = 0; tt < n_cols; ++tt) {
-      float xv[kVpt], yv[kVpt];
-#pragma unroll
-      for (int j = 0; j < kVpt; ++j) {
-        xv[j] = xc[tt * kStrideC + lane + 32 * j];
-        yv[j] = yc[tt * kStrideC + lane + 32 * j];
-      }
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        const float dst = __shfl_sync(0xffffffffu, dp[r], tt);
-#pragma unroll
-        for (int j = 0; j < kVpt; ++j) acc1[r][j] += dst * xv[j];
-        if (kKv) {
-          const float pt = __shfl_sync(0xffffffffu, s[r], tt);
-#pragma unroll
-          for (int j = 0; j < kVpt; ++j) acc2[r][j] += pt * yv[j];
-        }
-      }
-    }
-  }
-
-  if (!active) return;
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    if (!g.own_valid(a, own_i[r])) continue;
-    const long long off = g.own_off(a, own_i[r], DH);
-#pragma unroll
-    for (int j = 0; j < kVpt; ++j) {
-      const int col = lane + 32 * j;
-      if (kKv) {
-        put1<float, kAcc>(a.dk, off + col, acc1[r][j] * a.scale);
-        put1<float, kAcc>(a.dv, off + col, acc2[r][j]);
-      } else {
-        put1<float, kAcc>(a.dq, off + col, acc1[r][j] * a.scale);
-      }
-    }
-  }
-}
-
 // ---- delta pre-pass and dispatch --------------------------------------------
 
 constexpr int kDeltaWarps = 8;  // rows (warps) of one delta block
@@ -667,6 +515,8 @@ __device__ __forceinline__ void delta_row(const T* __restrict__ o,
   if (lane == 0) delta[row] = s;
 }
 
+// The core of a dtype: bf16 here, f32 in csrc/attention_f32.cuh (which the
+// kernels' sources include).
 template <typename T>
 struct Core;
 template <>
@@ -680,18 +530,6 @@ struct Core<__nv_bfloat16> {
     wgmma_bwd<DH, kKv, kAcc>(a, m);
   }
 };
-template <>
-struct Core<float> {
-  static constexpr int kThreads = attn::kF32Threads;
-  static constexpr int kOwnRows = kTileRows;
-  template <int DH>
-  static constexpr size_t smem() { return f32_smem_bytes<DH>(); }
-  template <int DH, bool kKv, bool kAcc>
-  static __device__ void run(const Args<float>& a, const Maps&) {
-    f32_bwd<DH, kKv, kAcc>(a);
-  }
-};
-
 template <int DH>
 int encode_maps(Maps& m, const Args<__nv_bfloat16>& a, int batch) {
   if (int e = encode_rows<DH>(&m.q, a.q, batch, a.sq, a.n_heads)) return e;

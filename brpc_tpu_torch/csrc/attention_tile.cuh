@@ -48,13 +48,8 @@
 // so every gradient of the row, is then 0. Null: no LSE (the serving
 // path).
 //
-// A problem that declares `static constexpr bool kFolds = true` (K5's f32
-// route, the ring's block fold, csrc/ring_attention.cu; the f32 core only:
-// K5's bf16 route runs csrc/attention_forward.cuh) does neither: the
-// block's (O, m, l) is folded into a running f32 state of its rows by
-// merge_row's rule (`fold_row`), which then stays in place or, on the
-// ring's last step, is written out as O / l rounded to T. Its key range may
-// be empty: the block then only writes the state out.
+// K5's f32 route folds into a running state instead, on its own core
+// (csrc/attention_f32.cuh), through the same Sink.
 #pragma once
 
 #include <stdint.h>
@@ -97,44 +92,6 @@ struct Sink {
 // The LSE a final row stores: m + log(l), +inf where no key was seen.
 __device__ __forceinline__ float row_lse(float m, float l) {
   return l == 0.f ? INFINITY : m + logf(l);
-}
-
-template <typename P, typename = void>
-struct Folds : std::false_type {};
-template <typename P>
-struct Folds<P, std::void_t<decltype(P::kFolds)>>
-    : std::bool_constant<P::kFolds> {};
-
-// Folds a block's row (its unnormalised o over `n` columns `cols(j)`, max
-// m and sum l) into the running state (ms, ls, read by the caller before a
-// __syncwarp, and the state's O row) by merge_row's rule; `writer` is the
-// one lane that stores m and l. With sink.partial the state is updated in
-// place, else the row O / l (l = 0 read as 1) is written to out.
-template <typename T, int N, typename Cols>
-__device__ __forceinline__ void fold_row(const Sink<T>& sink, int rid,
-                                         int dh, const float* o, float m,
-                                         float l, float ms, float ls,
-                                         bool writer, Cols cols) {
-  const float mx = fmaxf(ms, m);
-  const float ws = ms == -INFINITY ? 0.f : expf(ms - mx);
-  const float wb = m == -INFINITY ? 0.f : expf(m - mx);
-  const float lsum = ws * ls + wb * l;
-  float* srow = sink.o_part + static_cast<long long>(rid) * dh;
-  if (sink.partial) {
-#pragma unroll
-    for (int j = 0; j < N; ++j) srow[cols(j)] = ws * srow[cols(j)] + wb * o[j];
-    if (writer) {
-      sink.ml_part[static_cast<long long>(rid) * 2] = mx;
-      sink.ml_part[static_cast<long long>(rid) * 2 + 1] = lsum;
-    }
-  } else {
-    const float inv = 1.0f / (lsum == 0.f ? 1.f : lsum);
-    if (writer && sink.lse != nullptr) sink.lse[rid] = row_lse(mx, lsum);
-    T* orow = sink.out + static_cast<long long>(rid) * dh;
-#pragma unroll
-    for (int j = 0; j < N; ++j)
-      orow[cols(j)] = from_f32<T>((ws * srow[cols(j)] + wb * o[j]) * inv);
-  }
 }
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -242,7 +199,6 @@ __device__ void mma_tile(const Problem& p, const __nv_bfloat16* __restrict__ q,
   constexpr int kStride = DH + 8;
   constexpr int kChunks = DH / 8;
   constexpr int kDSteps = DH / 16;  // k-steps of Q.K^T, n-tile pairs of P.V
-  static_assert(!Folds<Problem>::value, "the bf16 core does not fold");
   if (p.key_begin >= p.key_end) {
     write_empty(p, sink);
     return;
@@ -461,7 +417,7 @@ __device__ void f32_tile(const Problem& p, const float* __restrict__ q,
   constexpr int kRows = kTileRows / kWarps;  // query rows per warp
   constexpr int kVpt = DH / 32;
   constexpr int kStrideK = DH + 4;  // keeps float4 rows 16-byte aligned
-  if (!Folds<Problem>::value && p.key_begin >= p.key_end) {
+  if (p.key_begin >= p.key_end) {
     write_empty(p, sink);
     return;
   }
@@ -558,40 +514,26 @@ __device__ void f32_tile(const Problem& p, const float* __restrict__ q,
   }
 
   if (!active) return;
-  if constexpr (Folds<Problem>::value) {
-    // A row's id is the same on every lane of its warp.
 #pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      const int rid = p.row_id(warp * kRows + r);
-      if (rid < 0) continue;
-      const float ms = sink.ml_part[static_cast<long long>(rid) * 2];
-      const float ls = sink.ml_part[static_cast<long long>(rid) * 2 + 1];
-      __syncwarp();  // every lane has read m and l before lane 0 writes them
-      fold_row<float, kVpt>(sink, rid, DH, acc[r], m[r], l[r], ms, ls,
-                            lane == 0, [&](int j) { return lane + 32 * j; });
-    }
-  } else {
+  for (int r = 0; r < kRows; ++r) {
+    const int rid = p.row_id(warp * kRows + r);
+    if (rid < 0) continue;
+    if (!sink.partial) {
+      const float inv = 1.0f / l[r];
+      if (sink.lse != nullptr && lane == 0)
+        sink.lse[rid] = row_lse(m[r], l[r]);
+      float* orow = sink.out + static_cast<long long>(rid) * DH;
 #pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      const int rid = p.row_id(warp * kRows + r);
-      if (rid < 0) continue;
-      if (!sink.partial) {
-        const float inv = 1.0f / l[r];
-        if (sink.lse != nullptr && lane == 0)
-          sink.lse[rid] = row_lse(m[r], l[r]);
-        float* orow = sink.out + static_cast<long long>(rid) * DH;
+      for (int j = 0; j < kVpt; ++j) orow[lane + 32 * j] = acc[r][j] * inv;
+    } else {
+      const long long prow =
+          static_cast<long long>(sink.split) * sink.n_rows + rid;
+      float* orow = sink.o_part + prow * DH;
 #pragma unroll
-        for (int j = 0; j < kVpt; ++j) orow[lane + 32 * j] = acc[r][j] * inv;
-      } else {
-        const long long prow =
-            static_cast<long long>(sink.split) * sink.n_rows + rid;
-        float* orow = sink.o_part + prow * DH;
-#pragma unroll
-        for (int j = 0; j < kVpt; ++j) orow[lane + 32 * j] = acc[r][j];
-        if (lane == 0) {
-          sink.ml_part[prow * 2] = m[r];
-          sink.ml_part[prow * 2 + 1] = l[r];
-        }
+      for (int j = 0; j < kVpt; ++j) orow[lane + 32 * j] = acc[r][j];
+      if (lane == 0) {
+        sink.ml_part[prow * 2] = m[r];
+        sink.ml_part[prow * 2 + 1] = l[r];
       }
     }
   }

@@ -21,47 +21,54 @@
 // P.V, and the two take turns. The consumers seed their registers with the
 // rows' state, fold every tile into it, and write it back (or, on the last
 // step, o / l and the LSE), so the state stays O(1) in the ring's length and
-// no partial goes through device memory. f32: the exact f32 twin of the
-// shared tile core (csrc/attention_tile.cuh `f32_tile`, the CUDA cores), one
-// block per (batch, head, tile of 64 queries), whose fold epilogue merges
-// the tile's (o, m, l) into the state by merge_row's rule. Under the causal
-// mask a key tile wholly past a block's last row is never read, and blocks
-// run heaviest first; a block wholly above the diagonal changes nothing (the
-// reference keeps m and its alpha is 1), so the wrapper skips it, and on the
-// last step launches with no keys to write the state out. bf16 inputs round
-// the probabilities to bf16 before P.V (the tensor cores' operand), where
-// the reference folds in f32: the bf16 kernel is held to the row tolerance.
+// no partial goes through device memory. f32: the SIMT core of
+// csrc/attention_f32.cuh (`attn_f32::fwd`, plain FFMA on the CUDA cores, no
+// TF32): one block of 256 threads per (batch, head, 128 queries), K/V
+// tiles of 64 keys through cp.async stages, 8 x 4 micro-tiles of S and 8
+// rows x D / 16 columns of o a thread, seeded from the state and written
+// back.
+// Under the causal mask a key tile wholly past a block's last row is never
+// read, and blocks run heaviest first; a block wholly above the diagonal
+// changes nothing (the reference keeps m and its alpha is 1), so the wrapper
+// skips it, and on the last step launches with no keys to write the state
+// out. bf16 inputs round the probabilities to bf16 before P.V (the tensor
+// cores' operand), where the reference folds in f32: the bf16 kernel is
+// held to the row tolerance.
 // With `lse` the last step also writes each row's log-sum-exp over the whole
 // ring (f32, natural units, +inf for a row that saw no key), from which K5b
 // (csrc/ring_attention_backward.cu) recomputes the probabilities.
+#include "attention_f32.cuh"
 #include "attention_forward.cuh"
 
 namespace brpc_tpu_torch {
 namespace {
 
-using attn::kTileRows;
+using attn_f32::kF32FwdRows;
 
-template <typename T>
+// The f32 route's problem (csrc/attention_f32.cuh): the rows of one (batch,
+// head, kF32FwdRows queries) against the block's keys.
 struct RingProblem {
   static constexpr bool kFolds = true;
-  const T* k;
-  const T* v;
+  const float* k;
+  const float* v;
   int sq, sk, n_heads, dh, b, head, q0, diag;
   bool causal;
   int key_begin, key_end;
 
   // diag = q_start - k_start: key j is visible to query row i when
   // j <= diag + i (causal). n_keys is sk, or 0 to only write the state out.
-  __device__ RingProblem(const T* k_, const T* v_, int sq_, int sk_,
+  // The keys end at the block's last valid row's edge.
+  __device__ RingProblem(const float* k_, const float* v_, int sq_, int sk_,
                          int n_keys, int n_heads_, int dh_, int diag_,
                          bool causal_)
       : k(k_), v(v_), sq(sq_), sk(sk_), n_heads(n_heads_), dh(dh_),
         diag(diag_), causal(causal_) {
     b = blockIdx.x / n_heads;
     head = blockIdx.x - b * n_heads;
-    q0 = (gridDim.y - 1 - blockIdx.y) * kTileRows;  // heaviest first
+    q0 = (gridDim.y - 1 - blockIdx.y) * kF32FwdRows;  // heaviest first
     key_begin = 0;
-    key_end = causal ? max(0, min(n_keys, diag + q0 + kTileRows)) : n_keys;
+    key_end = causal ? max(0, min(n_keys, diag + min(q0 + kF32FwdRows, sq)))
+                     : n_keys;
   }
   __device__ int row_id(int r) const {
     const int qi = q0 + r;
@@ -76,20 +83,18 @@ struct RingProblem {
   }
 };
 
-// The f32 route: the shared tile core's exact twin.
+// The f32 route: the SIMT core (T is float only).
 template <typename T, int DH>
-__global__ void __launch_bounds__(attn::Core<T>::kThreads,
-                                  attn::Core<T>::kMinBlocks)
+__global__ void __launch_bounds__(attn_f32::kF32FwdThreads, 1)
     ring_attention_fold_kernel(const T* __restrict__ q,
                                const T* __restrict__ k,
                                const T* __restrict__ v, float* o, float* ml,
                                T* out, float* lse, int sq, int sk,
                                int n_keys, int n_heads, int diag, int causal,
                                float scale) {
-  const RingProblem<T> p(k, v, sq, sk, n_keys, n_heads, DH, diag,
-                         causal != 0);
+  const RingProblem p(k, v, sq, sk, n_keys, n_heads, DH, diag, causal != 0);
   const attn::Sink<T> sink{out, o, ml, 0, 0, out == nullptr, lse};
-  attn::Core<T>::template run<DH>(p, q, scale, sink);
+  attn_f32::fwd<DH>(p, q, scale, sink);
 }
 
 // The bf16 route: the Hopper forward core (T is bf16 only).
@@ -105,13 +110,12 @@ int launch_f32(const void* q, const void* k, const void* v, void* o,
                void* ml, void* out, float* lse, int batch, int sq, int sk,
                int n_keys, int n_heads, int diag, int causal, float scale,
                cudaStream_t stream) {
-  using Core = attn::Core<float>;
-  constexpr size_t smem = Core::template smem<DH>();
+  constexpr size_t smem = attn_f32::FwdSmem<DH>::kBytes;
   auto kernel = ring_attention_fold_kernel<float, DH>;
   static std::atomic<unsigned long long> smem_set{0};
   if (int e = attn::allow_smem(kernel, smem, smem_set)) return e;
-  const dim3 grid(batch * n_heads, (sq + kTileRows - 1) / kTileRows);
-  kernel<<<grid, Core::kThreads, smem, stream>>>(
+  const dim3 grid(batch * n_heads, (sq + kF32FwdRows - 1) / kF32FwdRows);
+  kernel<<<grid, attn_f32::kF32FwdThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o),
       static_cast<float*>(ml), static_cast<float*>(out), lse, sq, sk, n_keys,

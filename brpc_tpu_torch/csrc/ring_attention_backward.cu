@@ -17,7 +17,8 @@
 // 67 in f32); a block is read once and the accumulators read and written
 // once, far below that line at D 128.
 // Design: K2b's two-pass core (csrc/attention_backward.cuh; bf16 on
-// wgmma fed by TMA) with the ring's geometry: global key offsets (diag =
+// wgmma fed by TMA; f32 on the CUDA cores' FFMA, csrc/attention_f32.cuh)
+// with the ring's geometry: global key offsets (diag =
 // q_start - k_start) and the f32 accumulating epilogue (a tile of the
 // block wholly above the diagonal is neither fetched nor computed); the
 // dK/dV pass owns the block's keys and the dQ
@@ -28,7 +29,7 @@
 // only on the rank's rows: the first block of a rank's backward computes
 // it (`fill_delta`) and the others reuse it. A causal block wholly above
 // the diagonal contributes nothing and the wrapper launches nothing for it.
-#include "attention_backward.cuh"
+#include "attention_f32.cuh"
 
 namespace brpc_tpu_torch {
 namespace {

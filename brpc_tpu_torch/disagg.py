@@ -530,13 +530,13 @@ class PrefillWorker(serving.DrainMixin):
 
     def close(self) -> None:
         self._running = False
-        if self._thread is not None:
-            self._thread.join(timeout=10)
-            self._thread = None
-        if self._stream is not None:
-            self._stream.synchronize()
         self.server.stop()
         self.batcher.stop()
+        if not serving.join_loop(self._thread, type(self).__name__):
+            return
+        self._thread = None
+        if self._stream is not None:
+            self._stream.synchronize()
         self.batcher.close()
         self.server.close()
         with self._mu:
@@ -827,6 +827,8 @@ class DecodeWorker(serving.ServingEngine):
 
     def close(self) -> None:
         super().close()
+        if self._thread is not None:  # the loop still runs: see join_loop
+            return
         if self._stream is not None:
             self._stream.synchronize()
         with self._peer_mu:
@@ -1609,11 +1611,11 @@ class DisaggRouter:
 
     def close(self) -> None:
         self._running = False
-        if self._thread is not None:
-            self._thread.join(timeout=10)
-            self._thread = None
         self.server.stop()
         self.batcher.stop()
+        if not serving.join_loop(self._thread, type(self).__name__):
+            return
+        self._thread = None
         self._pool.shutdown(wait=True, cancel_futures=True)
         self.batcher.close()
         self.server.close()

@@ -351,51 +351,64 @@ BWD_OWN_ROWS = _BWD["kBwdOwnRows"]
 BWD_WG_ROWS = _BWD["kBwdWgRows"]
 BWD_COLS = _BWD["kBwdCols"]
 BWD_STAGES = _BWD["kBwdStages"]
+# From csrc/attention_f32.cuh: a block of the f32 backward core owns
+# F32_BWD_OWN_ROWS rows and walks column tiles of F32_BWD_COLS as one.
+_F32 = _build.header_constants("attention_f32.cuh")
+F32_BWD_OWN_ROWS = _F32["kF32BwdOwnRows"]
+F32_BWD_COLS = _F32["kF32BwdCols"]
+# (own rows of a block, rows that skip a tile together, rows of a column
+# tile).
+BWD_TILES = (BWD_OWN_ROWS, BWD_WG_ROWS, BWD_COLS)
+F32_BWD_TILES = (F32_BWD_OWN_ROWS, F32_BWD_OWN_ROWS, F32_BWD_COLS)
 
 
 def backward_tile_plan(sq: int, sk: int, n_heads: int, n_kv_heads: int,
-                       diag: int, causal: bool) -> dict:
-    """The (own tile, column tile) pairs that each pass of the bf16
-    backward core (K2b, K5b) computes, as its blocks walk them: {"kv":
-    [...], "q": [...]}, each pair (own head, column head, own rows [lo,
-    hi), columns [c0, c1), crosses) for every batch entry alike. Key j is
-    visible to query i when j <= diag + i (or always without ``causal``).
-    A dK/dV block owns BWD_OWN_ROWS keys of one KV head and walks, for each
-    of its query heads, BWD_COLS-query tiles from max(0, first key - diag);
-    a dQ block owns BWD_OWN_ROWS queries and walks key tiles from 0 up to
-    its causal edge. Each warpgroup skips the tiles in which its
-    BWD_WG_ROWS rows see no key; ``crosses`` marks the tiles on which it
-    applies the causal test. Columns past the array's end arrive as zeros
-    and are left out of [c0, c1)."""
+                       diag: int, causal: bool,
+                       tiles: tuple = BWD_TILES) -> dict:
+    """The (own tile, column tile) pairs that each pass of the backward
+    core (K2b, K5b) computes, as its blocks walk them: {"kv": [...], "q":
+    [...]}, each pair (own head, column head, own rows [lo, hi), columns
+    [c0, c1), crosses) for every batch entry alike. Key j is visible to
+    query i when j <= diag + i (or always without ``causal``). ``tiles`` =
+    (own, group, cols): BWD_TILES for the bf16 core, F32_BWD_TILES for the
+    f32 one. A dK/dV block owns ``own`` keys of one KV head and walks, for
+    each of its query heads, ``cols``-query tiles from max(0, first key -
+    diag); a dQ block owns ``own`` queries and walks key tiles from 0 up to
+    its causal edge. Each group of ``group`` rows (a warpgroup of the bf16
+    core, the whole block of the f32 core) skips the tiles in which its
+    rows see no key; ``crosses`` marks the tiles on which it applies the
+    causal test. Columns past the array's end arrive as zeros and are left
+    out of [c0, c1)."""
+    own, group, cols = tiles
     rep = n_heads // n_kv_heads
     plan = {"kv": [], "q": []}
     for kv in (True, False):
         own_n, own_heads = (sk, n_kv_heads) if kv else (sq, n_heads)
         for head in range(own_heads):
-            for own0 in range(0, own_n, BWD_OWN_ROWS):
+            for own0 in range(0, own_n, own):
                 if kv:
                     col_heads = range(head * rep, (head + 1) * rep)
                     end = sq
                     begin = max(0, own0 - diag) if causal else 0
                 else:
                     col_heads = (head // rep,)
-                    end = (max(0, min(sk, diag + own0 + BWD_OWN_ROWS))
+                    end = (max(0, min(sk, diag + own0 + own))
                            if causal else sk)
                     begin = 0
                 for ch in col_heads:
-                    for c0 in range(min(begin, end), end, BWD_COLS):
-                        c1 = min(c0 + BWD_COLS, end)
-                        for lo in range(own0, min(own0 + BWD_OWN_ROWS,
-                                                  own_n), BWD_WG_ROWS):
-                            hi = min(lo + BWD_WG_ROWS, own_n)
+                    for c0 in range(min(begin, end), end, cols):
+                        c1 = min(c0 + cols, end)
+                        for lo in range(own0, min(own0 + own, own_n),
+                                        group):
+                            hi = min(lo + group, own_n)
                             if kv:
                                 seen = not causal or lo <= diag + c1 - 1
                                 cross = causal and (
-                                    lo + BWD_WG_ROWS - 1 > diag + c0)
+                                    lo + group - 1 > diag + c0)
                             else:
                                 seen = not causal or c0 <= diag + hi - 1
                                 cross = causal and (
-                                    c0 + BWD_COLS - 1 > diag + lo)
+                                    c0 + cols - 1 > diag + lo)
                             if seen:
                                 plan["kv" if kv else "q"].append(
                                     (head, ch, lo, hi, c0, c1, cross))
@@ -403,15 +416,16 @@ def backward_tile_plan(sq: int, sk: int, n_heads: int, n_kv_heads: int,
 
 
 def attention_backward_tiles_plain(q, k, v, o, lse, do, diag: int = 0,
-                                   causal: bool = True) -> tuple:
+                                   causal: bool = True,
+                                   tiles: tuple = BWD_TILES) -> tuple:
     """The backward of causal (or, for a ring block, offset) attention
-    computed tile by tile along ``backward_tile_plan``, as the bf16 core's
-    two passes compute it: P = exp(logit - lse) and dS = P (dO.V - delta)
-    per tile, the causal test only on tiles that cross the diagonal, dv +=
-    round(P)^T.dO, dk += scale dS^T.Q (dK/dV pass) and dq += scale dS.K
-    (dQ pass). q, o, do: [B, sq, H, Dh]; k, v: [B, sk, KV, Dh]; lse [B, sq,
-    H] f32 -> (dq, dk, dv) in f32. For the tests: the main path never
-    calls it."""
+    computed tile by tile along ``backward_tile_plan`` with ``tiles``, as
+    the core with those tiles computes its two passes: P = exp(logit - lse)
+    and dS = P (dO.V - delta) per tile, the causal test only on tiles that
+    cross the diagonal, dv += round(P)^T.dO, dk += scale dS^T.Q (dK/dV
+    pass) and dq += scale dS.K (dQ pass). q, o, do: [B, sq, H, Dh]; k, v:
+    [B, sk, KV, Dh]; lse [B, sq, H] f32 -> (dq, dk, dv) in f32. For the
+    tests: the main path never calls it."""
     B, sq, H, Dh = q.shape
     sk, KV = k.shape[1], k.shape[2]
     scale = softmax_scale(Dh)
@@ -420,7 +434,7 @@ def attention_backward_tiles_plain(q, k, v, o, lse, do, diag: int = 0,
     dq = torch.zeros(qf.shape, dtype=torch.float32, device=q.device)
     dk = torch.zeros(kf.shape, dtype=torch.float32, device=q.device)
     dv = torch.zeros_like(dk)
-    plan = backward_tile_plan(sq, sk, H, KV, diag, causal)
+    plan = backward_tile_plan(sq, sk, H, KV, diag, causal, tiles)
 
     def tile(xo, yo, xc, yc, l, dl, cross, keys, queries):
         s = torch.einsum("brd,bcd->brc", xo, xc) * scale

@@ -9,7 +9,8 @@ After n steps every query has attended to every key once.
   (csrc/ring_attention.cu); ``ring_attention_fold_plain`` is the
   reference's ``step`` in PyTorch and runs for CPU tensors;
   ``ring_fold_tiles_plain`` computes the same step tile by tile along
-  ``ring_fold_tile_plan``, as the bf16 kernel walks it (for the tests).
+  ``ring_fold_tile_plan``, as one of the kernel's cores walks it (for the
+  tests).
 - ``ring_attention_fold_backward``: one block's share of the gradient, the
   K5b kernel's wrapper (csrc/ring_attention_backward.cu);
   ``ring_attention_fold_backward_plain`` runs for CPU tensors.
@@ -103,45 +104,57 @@ _FWD = _build.header_constants("attention_forward.cuh")
 FWD_ROWS = _FWD["kFwdRows"]
 FWD_WG_ROWS = _FWD["kFwdWgRows"]
 FWD_KEYS = _FWD["kFwdKeys"]
+# From csrc/attention_f32.cuh, K5's f32 core: a block of F32_FWD_ROWS rows
+# walks its key tiles of F32_FWD_KEYS as one (it skips no tile per warp).
+_F32 = _build.header_constants("attention_f32.cuh")
+F32_FWD_ROWS = _F32["kF32FwdRows"]
+F32_FWD_KEYS = _F32["kF32FwdKeys"]
+# (rows of a block, rows that skip a tile together, keys of a tile).
+FWD_TILES = (FWD_ROWS, FWD_WG_ROWS, FWD_KEYS)
+F32_FWD_TILES = (F32_FWD_ROWS, F32_FWD_ROWS, F32_FWD_KEYS)
 
 
-def ring_fold_tile_plan(sq: int, n_keys: int, diag: int,
-                        causal: bool) -> list:
-    """The (rows, key tile) pairs that K5's bf16 core computes for one
-    (batch, head), in the order each warpgroup meets them: [(lo, hi, c0,
-    c1, masked), ...] for query rows [lo, hi) and keys [c0, c1). Key j is
-    visible to row i when j < n_keys and, ``causal``, j <= diag + i. A
-    block of FWD_ROWS rows reads key tiles of FWD_KEYS from 0 up to its last
-    valid row's causal edge; each warpgroup of FWD_WG_ROWS rows skips the
-    tiles in which its rows see no key, and applies the mask only where
-    ``masked``: the tile crosses the diagonal or the keys' end. Keys past
-    n_keys arrive as zeros and are left out of [c0, c1)."""
+def ring_fold_tile_plan(sq: int, n_keys: int, diag: int, causal: bool,
+                        tiles: tuple = FWD_TILES) -> list:
+    """The (rows, key tile) pairs that K5's core computes for one (batch,
+    head), in the order each group of rows meets them: [(lo, hi, c0, c1,
+    masked), ...] for query rows [lo, hi) and keys [c0, c1). Key j is
+    visible to row i when j < n_keys and, ``causal``, j <= diag + i.
+    ``tiles`` = (rows, group, keys): a block of ``rows`` rows reads key
+    tiles of ``keys`` from 0 up to its last valid row's causal edge; each
+    group of ``group`` rows (a warpgroup of the bf16 core, the whole block
+    of the f32 core) skips the tiles in which its rows see no key, and
+    applies the mask only where ``masked``: the tile crosses the diagonal
+    or the keys' end. Keys past n_keys arrive as zeros and are left out of
+    [c0, c1)."""
+    rows, group, keys = tiles
     plan = []
-    for q0 in range(0, sq, FWD_ROWS):
-        end = (max(0, min(n_keys, diag + min(q0 + FWD_ROWS, sq)))
+    for q0 in range(0, sq, rows):
+        end = (max(0, min(n_keys, diag + min(q0 + rows, sq)))
                if causal else n_keys)
-        for c0 in range(0, end, FWD_KEYS):
-            for lo in range(q0, min(q0 + FWD_ROWS, sq), FWD_WG_ROWS):
-                hi = min(lo + FWD_WG_ROWS, sq)
+        for c0 in range(0, end, keys):
+            for lo in range(q0, min(q0 + rows, sq), group):
+                hi = min(lo + group, sq)
                 if causal and c0 > diag + hi - 1:
                     continue
-                masked = (c0 + FWD_KEYS > n_keys
-                          or (causal and c0 + FWD_KEYS - 1 > diag + lo))
-                plan.append((lo, hi, c0, min(c0 + FWD_KEYS, n_keys),
-                             masked))
+                masked = (c0 + keys > n_keys
+                          or (causal and c0 + keys - 1 > diag + lo))
+                plan.append((lo, hi, c0, min(c0 + keys, n_keys), masked))
     return plan
 
 
 def ring_fold_tiles_plain(q, k, v, state: tuple, q_start: int, k_start: int,
-                          causal: bool, n_keys: int = None) -> tuple:
-    """One fold computed tile by tile along ``ring_fold_tile_plan``, as K5's
-    bf16 core computes it: each warpgroup's rows start from the state (o,
-    m, l) and fold its tiles in order, the causal test only on tiles marked
-    ``masked``, p = exp(logit - m_new) summed into l unrounded and rounded
-    to q's dtype for P.V (the tensor cores' operand). ``n_keys``: the
-    block's keys the fold reads (k's length, or 0 as the wrapper launches a
-    block above the diagonal on the last step). -> the new state, in f32.
-    For the tests: the main path never calls it."""
+                          causal: bool, n_keys: int = None,
+                          tiles: tuple = FWD_TILES) -> tuple:
+    """One fold computed tile by tile along ``ring_fold_tile_plan`` with
+    ``tiles`` (FWD_TILES, the bf16 core's, or F32_FWD_TILES), as that core
+    computes it: each group's rows start from the state (o, m, l) and fold
+    its tiles in order, the causal test only on tiles marked ``masked``, p
+    = exp(logit - m_new) summed into l unrounded and rounded to q's dtype
+    for P.V (the bf16 tensor cores' operand; the f32 core keeps it).
+    ``n_keys``: the block's keys the fold reads (k's length, or 0 as the
+    wrapper launches a block above the diagonal on the last step). -> the
+    new state, in f32. For the tests: the main path never calls it."""
     o, ml = state
     sq, sk = q.shape[1], k.shape[1]
     n_keys = sk if n_keys is None else n_keys
@@ -152,7 +165,7 @@ def ring_fold_tiles_plain(q, k, v, state: tuple, q_start: int, k_start: int,
     rows = torch.arange(sq, device=q.device)
     keys = torch.arange(sk, device=q.device)
     for lo, hi, c0, c1, masked in ring_fold_tile_plan(sq, n_keys, diag,
-                                                      causal):
+                                                      causal, tiles):
         s = torch.einsum("bqhd,bkhd->bqhk", qf[:, lo:hi], kf[:, c0:c1]) \
             * scale
         if masked and causal:

@@ -32,6 +32,7 @@ All device work runs on the engine's loop thread.
 
 from __future__ import annotations
 
+import logging
 import struct
 import threading
 import time
@@ -50,6 +51,25 @@ METHOD_INTERACTIVE = "generate"
 METHOD_BATCH = "generate_batch"
 
 _HDR = struct.Struct("<II")
+
+# How long close() waits for a loop thread to end. A thread still alive
+# after that keeps its native batcher and server: a leak on a wedged close
+# is better than a use-after-free in the thread's next native call.
+CLOSE_JOIN_S = 10.0
+
+
+def join_loop(thread: Optional[threading.Thread], owner: str) -> bool:
+    """Join a loop thread (whose batcher and server were stopped first) for
+    at most CLOSE_JOIN_S; True once it has ended (or never started)."""
+    if thread is None:
+        return True
+    thread.join(timeout=CLOSE_JOIN_S)
+    if not thread.is_alive():
+        return True
+    logging.getLogger(__name__).warning(
+        "%s.close: loop thread %s still running after %.1f s; its native "
+        "batcher and server are left open", owner, thread.name, CLOSE_JOIN_S)
+    return False
 
 # SLO product tiers, cheapest-to-shed first; interactive and standard ride
 # the interactive lane, batch the batch lane.
@@ -607,11 +627,11 @@ class ServingEngine(DrainMixin):
 
     def close(self) -> None:
         self._running = False
-        if self._thread is not None:
-            self._thread.join(timeout=10)
-            self._thread = None
         self.server.stop()       # no new admissions arrive
         self.batcher.stop()      # wake any next_batch waiter
+        if not join_loop(self._thread, type(self).__name__):
+            return               # the loop still runs: its handles stay
+        self._thread = None
         for i, seq in enumerate(self._seq):  # cut off in-flight generations
             if seq is not None:
                 self.batcher.finish(seq["id"], runtime.ECANCELED,

@@ -220,14 +220,25 @@ BACKWARD_KERNELS = ("attention_backward_kv_kernel",
                     "attention_backward_q_kernel",
                     "ring_fold_backward_kv_kernel",
                     "ring_fold_backward_q_kernel")
+# The f32 routes of K5, K2b and K5b run the SIMT core of
+# csrc/attention_f32.cuh: plain FFMA, no tensor cores (no TF32), no spill.
+F32_SIMT_KERNELS = ("ring_attention_fold_kernel",) + BACKWARD_KERNELS
+
+
+def f32_simt_kernel(name: str) -> bool:
+    """Is ``name`` (mangled, or ptxas_summary's "kernel<f32, D>") an f32
+    instance of a kernel on the f32 SIMT core?"""
+    m = re.search(r"\d([a-z_]+_kernel)If", name) or re.search(
+        r"([a-z_]+_kernel)<f32", name)
+    return bool(m) and m.group(1) in F32_SIMT_KERNELS
 
 
 def sass_mma_counts(build) -> dict:
     """Tensor-core instructions per compiled attention kernel of the built
     library, from cuobjdump -sass: {kernel: {"HMMA": n, "HGMMA": m}}
     (mma.sync and wgmma). Fails unless each bf16 K1, K2 and K4 kernel has
-    HMMA, each bf16 K5 kernel HGMMA and no HMMA, and each bf16 pass of K2b
-    and K5b HGMMA."""
+    HMMA, each bf16 K5 kernel HGMMA and no HMMA, each bf16 pass of K2b
+    and K5b HGMMA, and each f32 K5, K2b and K5b kernel neither."""
     tool = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
     sass = subprocess.run([tool, "-sass", build.LIB_PATH],
                           capture_output=True, text=True, check=True).stdout
@@ -273,6 +284,14 @@ def sass_mma_counts(build) -> dict:
         for k in found:
             if kind in BACKWARD_KERNELS:
                 log(f"[sass] {k}: {fmt(counts[k])}")
+    simt = [k for k in counts if f32_simt_kernel(k)]
+    if len(simt) != len(F32_SIMT_KERNELS) * 3:  # Dh 32, 64 and 128
+        raise AssertionError(f"f32 SIMT kernels in the SASS: {simt}")
+    for k in simt:
+        log(f"[sass] {k}: {fmt(counts[k])}")
+        if counts[k]["HMMA"] or counts[k]["HGMMA"]:
+            raise AssertionError(f"the f32 kernel {k} uses the tensor "
+                                 f"cores: {fmt(counts[k])}")
     return counts
 
 
@@ -633,7 +652,8 @@ def check_ring_fold(dtype, gen, causal: bool) -> dict:
     through an in-process ring at S 32768: after every step each rank's
     state, normalised, is held to TOL and ROW_TOL; then each rank's output
     (the kernel's last-step epilogue) against the plain fold's. Returns the
-    worst errors, the inputs and the ring's outputs."""
+    worst errors, the inputs, the ring's outputs and its K5 launches."""
+    from brpc_tpu_torch import ops
     from brpc_tpu_torch.ops import ring_attention as ra
 
     n, s = RING_RANKS, RING_S // RING_RANKS
@@ -656,13 +676,16 @@ def check_ring_fold(dtype, gen, causal: bool) -> dict:
             worst, worst_row = max(worst, err), max(worst_row, row)
         finals.append(ra.fold_output(plain, dtype))
         del state, plain
+    ops.reset_launch_counts()
     outs = ra.ring_attention_local(qs, ks, vs, causal)
+    ring_launches_run = ops.launch_counts()["ring_attention_fold"]
     for my in range(n):
         err, row = compare(f"{tag} rank {my} output", outs[my], finals[my],
                            dtype, rows=True)
         worst, worst_row = max(worst, err), max(worst_row, row)
     return {"max_abs_err": worst, "row_rel_err": worst_row,
-            "inputs": (qs, ks, vs), "outputs": outs}
+            "inputs": (qs, ks, vs), "outputs": outs,
+            "launches": ring_launches_run}
 
 
 def check_ring_dense(dtype, gen, causal: bool) -> tuple:
@@ -838,7 +861,7 @@ def phase_parallel() -> dict:
                 main_in, main_out = r["inputs"], r["outputs"]
             res["fold"][f"{tag} causal={causal}"] = {
                 "max_abs_err": r["max_abs_err"],
-                "row_rel_err": r["row_rel_err"]}
+                "row_rel_err": r["row_rel_err"], "launches": r["launches"]}
             del r
             err, row = check_ring_dense(dtype, gen, causal)
             res["dense"][f"{tag} causal={causal}"] = {"max_abs_err": err,
@@ -849,6 +872,8 @@ def phase_parallel() -> dict:
                 f"{res['fold'][f'{tag} causal={causal}']['max_abs_err']:.3e}"
                 f" row_rel_err "
                 f"{res['fold'][f'{tag} causal={causal}']['row_rel_err']:.3e}"
+                f", the ring's K5 launches "
+                f"{res['fold'][f'{tag} causal={causal}']['launches']}"
                 f"; S {RING_DENSE_S} vs dense: max_abs_err {err:.3e} "
                 f"row_rel_err {row:.3e}")
             torch.cuda.empty_cache()
@@ -1141,17 +1166,19 @@ def check_ring_fold_backward(dtype, gen, diagonal: bool) -> dict:
 
 def backward_tiles(dtype) -> str:
     """The backward core's tiles and pipeline in ``dtype``, as
-    csrc/attention_backward.cuh sets them."""
-    from brpc_tpu_torch.ops import _build, attention
+    csrc/attention_backward.cuh (bf16) and csrc/attention_f32.cuh (f32)
+    set them."""
+    from brpc_tpu_torch.ops import attention
 
     if dtype == torch.bfloat16:
         own, cols = attention.BWD_OWN_ROWS, attention.BWD_COLS
         return (f"dK/dV pass {own} keys x {cols}-query tiles, dQ pass {own} "
                 f"queries x {cols}-key tiles, {own // attention.BWD_WG_ROWS}"
                 f" consumer warpgroups, {attention.BWD_STAGES} TMA stages")
-    cols = _build.header_constants("attention_backward.cuh")["kF32Cols"]
-    return (f"both passes {attention.TILE_ROWS} own rows x {cols}-column "
-            f"tiles, one stage")
+    return (f"both passes {attention.F32_BWD_OWN_ROWS} own rows x "
+            f"{attention.F32_BWD_COLS}-column tiles, SIMT FFMA (256 "
+            f"threads, 4 x 4 S/dP and 8 x 8 output micro-tiles), 2 "
+            f"cp.async stages")
 
 
 def log_case(name: str, tag: str, r: dict) -> None:
@@ -1221,14 +1248,19 @@ def check_ring_backward_dense(dtype, gen) -> dict:
     block (ring_attention_fold_backward_plain on the ring's own output),
     and each gradient tensor against dense autograd in the relative
     2-norm (attention.RING_BF16_GRAD_TOL)."""
+    from brpc_tpu_torch import ops
     from brpc_tpu_torch.ops import attention
     from brpc_tpu_torch.ops import ring_attention as ra
 
     S, n = RING_BWD_DENSE_S, RING_BWD_DENSE_RANKS
     full = [torch.randn((1, S, RING_H, RING_DH), generator=gen,
                         device="cuda").to(dtype) for _ in range(4)]
+    ops.reset_launch_counts()
     outs, got = ring_grads(*(list(t.split(S // n, dim=1)) for t in full[:3]),
                            list(full[3].split(S // n, dim=1)), True)
+    counts = ops.launch_counts()
+    launches = {k: counts[k] for k in ("ring_attention_fold",
+                                       "ring_attention_fold_backward")}
     out = torch.cat(outs, dim=1)
     got = [torch.cat(blocks, dim=1) for blocks in got]
     tag = f"ring backward S={S} {str(dtype)[6:]}"
@@ -1265,6 +1297,7 @@ def check_ring_backward_dense(dtype, gen) -> dict:
     res["autograd_rel_err"] = {name: (d / r) ** 0.5 for name, d, r in
                                zip("qkv", sq_diff, sq_ref)}
     res["autograd_row_rel_err"] = autograd_row
+    res["launches"] = launches
     worst = max(res["autograd_rel_err"].values())
     if dtype == torch.bfloat16 and not worst <= attention.RING_BF16_GRAD_TOL:
         raise AssertionError(f"{tag}: a gradient's relative 2-norm error "
@@ -1290,7 +1323,7 @@ def step_exactness(cfg) -> dict:
     """One f32 train_step on the kernels against one step through
     loss_fn_plain's autograd, TF32 off: the loss, every gradient and every
     updated parameter, held to TRAIN_EXACT_TOL."""
-    from brpc_tpu_torch import train
+    from brpc_tpu_torch import ops, train
     from brpc_tpu_torch.models import transformer
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1299,8 +1332,10 @@ def step_exactness(cfg) -> dict:
     tokens = torch.randint(0, cfg.vocab, TRAIN_EXACT_TOKENS, device="cuda",
                            generator=torch.Generator(device="cuda")
                            .manual_seed(22))
+    ops.reset_launch_counts()
     loss, grads = train.value_and_grad(transformer.loss_fn, params, tokens,
                                        cfg, device="cuda")
+    launches = ops.launch_counts()
     loss_p, grads_p = train.value_and_grad(transformer.loss_fn_plain, params,
                                            tokens, cfg, device="cuda")
     loss_err = abs(float(loss) - float(loss_p)) / abs(float(loss_p))
@@ -1324,7 +1359,8 @@ def step_exactness(cfg) -> dict:
                              f"{upd:.3e}")
     return {"loss": float(loss), "loss_plain": float(loss_p),
             "loss_rel_err": loss_err, "grad_rel_err": worst,
-            "update_rel_err": upd}
+            "update_rel_err": upd,
+            "launches": {k: n for k, n in launches.items() if n}}
 
 
 def timed(fn) -> tuple:
@@ -1484,7 +1520,7 @@ def phase_train() -> dict:
             f" max_abs_err {d['max_abs_err']:.3e} row_rel_err "
             f"{d['row_rel_err']:.3e}; vs dense autograd relative 2-norm "
             f"error {fmt_errs(d['autograd_rel_err'])}, worst row "
-            f"{d['autograd_row_rel_err']:.3e}")
+            f"{d['autograd_row_rel_err']:.3e}; launches {d['launches']}")
         torch.cuda.empty_cache()
     res["ring"] = r = ring_backward_at_length(gen)
     log(f"[train] causal ring forward + backward, S {RING_S} bf16 as "
@@ -1504,7 +1540,8 @@ def phase_train() -> dict:
         f"gradients' relative 2-norm error max "
         f"{max(e['grad_rel_err'].values()):.2e} "
         f"({fmt_errs(e['grad_rel_err'])}); "
-        f"updated parameters {e['update_rel_err']:.2e}")
+        f"updated parameters {e['update_rel_err']:.2e}; launches "
+        f"{e['launches']}")
     torch.cuda.empty_cache()
     res["step"] = s = step_at_width(dataclasses.replace(
         base, n_layers=TRAIN_STEP_LAYERS))
@@ -1591,7 +1628,9 @@ def phase_exactness(cfg) -> dict:
     eng = serving.ServingEngine(params, cfg, max_batch_size=4, slots=4,
                                 max_prompt=128, kv_blocks=64)
     try:
+        ops.reset_launch_counts()
         out = run_swarm(eng, prompts, 8)
+        cold = ops.launch_counts()
         # Two chat turns over a shared 40-token prefix (a mid-page start):
         # p0 is the prefix itself and keeps decoding while a and b extend
         # it, so their resumes copy p0's shared tail page; then each
@@ -1636,12 +1675,15 @@ def phase_exactness(cfg) -> dict:
         raise AssertionError(f"K4 launched "
                              f"{launches['paged_prefill_attention']} times "
                              f"over {resumes} resumes")
+    total_launches = {k: cold[k] + launches[k] for k in launches
+                      if cold[k] + launches[k]}
     log(f"[exact] f32 Llama-3-8B width, {cfg.n_layers} layers: 4 "
         f"concurrent streams "
         f"(prompts 5/16/17/100, 8 tokens) identical to the plain forward's "
         f"greedy rollout; two chat turns over a 40-token shared prefix: "
         f"{resumes} resumes ({cows} copy-on-write), all 6 streams identical "
-        f"to the plain rollout of the full prompt")
+        f"to the plain rollout of the full prompt; launches "
+        f"{total_launches}")
     # The same requests through the disaggregated path; the colocated
     # streams above equal the plain rollout, so these must equal them.
     script = [[(p, 8, out["tokens"][i]) for i, p in enumerate(prompts)],
@@ -1652,7 +1694,8 @@ def phase_exactness(cfg) -> dict:
     torch.cuda.empty_cache()
     return {"streams": [out["tokens"][i] for i in range(len(prompts))],
             "chat_streams": [t for _, t in chats], "resumes": resumes,
-            "cow_copies": cows, "disagg": disagg_res}
+            "cow_copies": cows, "disagg": disagg_res,
+            "launches": total_launches}
 
 
 def disagg_fleet(params, cfg, **kw):
@@ -2482,6 +2525,9 @@ def main() -> int:
                 and "<bf16, 128>" in line
                 and " 0 bytes spill stores" not in line):
             raise AssertionError(f"a Llama-width tile spills: {line}")
+        if f32_simt_kernel(line) and not (" 0 bytes spill stores" in line
+                                          and " 0 bytes spill loads" in line):
+            raise AssertionError(f"an f32 SIMT kernel spills: {line}")
     report["build_s"] = {"native": t_native, "kernels": t_kernels}
     report["sass_mma"] = sass_mma_counts(_build)
     cases = phase_kernels()

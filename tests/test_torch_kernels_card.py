@@ -358,19 +358,21 @@ def test_disagg_on_card_streams_plain_greedy(cuda_device):
 
 
 # K5 cases: (B, ranks, block length s, H, D, causal). Ragged blocks (s not
-# a multiple of the bf16 core's 128-row blocks or 64-key tiles), every head
-# dim the core has, causal and not, and a Llama-width one.
+# a multiple of the cores' 128- and 64-row blocks or 128- and 64-key
+# tiles; s 65 leaves the f32 core's second block one row and its second
+# tile one key), every head dim the cores have, causal and not, and a
+# Llama-width one.
 RING_CASES = [(2, 4, 48, 4, 32, True), (1, 3, 130, 2, 64, False),
               (1, 4, 100, 2, 128, True), (1, 2, 256, 32, 128, False),
               (1, 3, 200, 2, 32, False), (2, 3, 130, 4, 64, True),
-              (1, 2, 330, 4, 128, True)]
+              (1, 2, 330, 4, 128, True), (1, 3, 65, 2, 128, True)]
 
 
 @pytest.mark.cuda
 def test_ring_attention_fold_matches_plain_on_card(cuda_device):
     """K5 against the plain fold, step by step through an in-process ring
     (each rank's state normalised after every step), and the ring's output
-    against dense attention; bf16 reruns bit for bit; a block above the
+    against dense attention; reruns bit for bit; a block above the
     diagonal launches nothing until the last step; a head dim the core
     lacks raises."""
     gen = torch.Generator(device=cuda_device).manual_seed(5)
@@ -457,9 +459,10 @@ K2B_CASES = [(2, 70), (1, 130), (2, 200), (1, 300)]
 # K5b cases: (B, block length s, H, D); the other block's start is s below
 # the queries' (every key visible), equal (the diagonal block), s above
 # (nothing visible: no launch) and, without the mask, s above. No s is a
-# multiple of the own or column tiles.
+# multiple of the own or column tiles (s 33 leaves the f32 core's second
+# column tile one row).
 RING_BWD_CASES = [(2, 48, 4, 32), (1, 130, 2, 64), (1, 100, 2, 128),
-                  (1, 300, 4, 128)]
+                  (1, 300, 4, 128), (1, 33, 2, 64)]
 
 
 @pytest.mark.cuda

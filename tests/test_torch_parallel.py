@@ -156,10 +156,11 @@ def test_ring_attention_local_gradient_matches_dense():
         .numpy(), dense, **RING_TOL)
 
 
-def _tile_fold_ring(qs, ks, vs, causal):
-    """Each rank's outputs from a ring of ``ring_fold_tiles_plain`` folds,
-    launched as the wrapper launches K5: a causal block above the diagonal
-    is skipped, except on a rank's last step, which reads no keys."""
+def _tile_fold_ring(qs, ks, vs, causal, tiles):
+    """Each rank's outputs from a ring of ``ring_fold_tiles_plain`` folds
+    with ``tiles``, launched as the wrapper launches K5: a causal block
+    above the diagonal is skipped, except on a rank's last step, which
+    reads no keys."""
     n, s = len(qs), qs[0].shape[1]
     outs = []
     for my in range(n):
@@ -171,78 +172,92 @@ def _tile_fold_ring(qs, ks, vs, causal):
                 continue
             state = ra.ring_fold_tiles_plain(
                 qs[my], ks[src], vs[src], state, my * s, src * s, causal,
-                n_keys=0 if above else s)
+                n_keys=0 if above else s, tiles=tiles)
         outs.append(ra.fold_output(state, qs[my].dtype))
     return outs
 
 
 def test_ring_fold_tile_walk_matches_plain_and_jax(mesh):
-    """K5's bf16 core modelled on the CPU (ring_fold_tiles_plain along
-    ring_fold_tile_plan, tile sizes from csrc/attention_forward.cuh), at
-    block lengths 48, 130 and 200 (ragged against the 128-row blocks and
-    64-key tiles): each fold, from a fresh state and from one that already
-    holds a block, against the plain fold (f32 within 1e-5; bf16 inputs, P
-    rounded as the tensor cores take it, row by row within the card test's
-    1e-2); a ring of its folds against the JAX package's ring_attention at
-    RING_TOL, causal and not; and each plan covers every visible (query,
-    key) pair once, with no tile its rows see nothing of and no unmasked
-    tile holding an invisible pair."""
+    """K5's two cores modelled on the CPU (ring_fold_tiles_plain along
+    ring_fold_tile_plan): the bf16 core's tiles from
+    csrc/attention_forward.cuh and the f32 core's from
+    csrc/attention_f32.cuh, at block lengths 48, 130 and 200 (ragged
+    against the 128- and 64-row blocks and the 64- and 128-key tiles): each
+    fold, from a fresh state and from one that already holds a block,
+    against the plain fold (f32 within 1e-5; bf16 inputs on the bf16 core,
+    P rounded as the tensor cores take it, row by row within the card
+    test's 1e-2); a ring of its folds against the JAX package's
+    ring_attention at RING_TOL, causal and not; and each plan covers every
+    visible (query, key) pair once, with no tile its rows see nothing of
+    and no unmasked tile holding an invisible pair."""
     rng = np.random.default_rng(12)
     H, D = 2, 16
+    cores = (("bf16 core", ra.FWD_TILES, (torch.float32, torch.bfloat16)),
+             ("f32 core", ra.F32_FWD_TILES, (torch.float32,)))
     for s in (48, 130, 200):
-        for dtype in (torch.float32, torch.bfloat16):
-            q, k0, v0, k1, v1 = (torch.from_numpy(rng.standard_normal(
-                (1, s, H, D)).astype(np.float32)).to(dtype)
-                for _ in range(5))
-            for diag, causal in ((s, True), (0, True), (-s, True),
-                                 (-s, False), (0, False)):
-                case = f"s={s} {dtype} diag={diag} causal={causal}"
-                q_start, k_start = max(diag, 0), max(-diag, 0)
-                seeded = ra.ring_attention_fold_plain(
-                    q, k1, v1, ra.fold_state(q), q_start, q_start, causal)
-                for name, st in (("fresh", ra.fold_state(q)),
-                                 ("seeded", seeded)):
-                    got = ra.ring_fold_tiles_plain(q, k0, v0, st, q_start,
-                                                   k_start, causal)
-                    want = ra.ring_attention_fold_plain(q, k0, v0, st,
-                                                        q_start, k_start,
-                                                        causal)
-                    g, w = (ra.fold_output(x, torch.float32)
-                            for x in (got, want))
-                    msg = f"{case} {name}"
-                    if dtype == torch.float32:
-                        np.testing.assert_allclose(g.numpy(), w.numpy(),
-                                                   rtol=1e-5, atol=1e-5,
-                                                   err_msg=msg)
-                        np.testing.assert_allclose(
-                            ra.fold_lse(got).numpy(),
-                            ra.fold_lse(want).numpy(), rtol=1e-5,
-                            atol=1e-5, err_msg=f"{msg} lse")
-                    else:
-                        err = attention.max_row_rel_err(g, w)
-                        assert err <= 1e-2, f"{msg}: row error {err:.3e}"
-                plan = ra.ring_fold_tile_plan(s, s, diag, causal)
-                visible = (np.arange(s)[None, :] <= diag
-                           + np.arange(s)[:, None]) if causal else \
-                    np.ones((s, s), bool)
-                count = np.zeros((s, s), np.int32)
-                for lo, hi, c0, c1, masked in plan:
-                    count[lo:hi, c0:c1] += 1
-                    seen = visible[lo:hi, c0:c1]
-                    assert seen.any(), f"{case}: a tile its rows never see"
-                    assert masked or seen.all(), f"{case}: unmasked cross"
-                assert (count[visible] == 1).all(), f"{case}: coverage"
-                assert (count <= 1).all(), f"{case}: overlap"
-                assert ra.ring_fold_tile_plan(s, 0, diag, causal) == [], case
+        data = {dtype: [torch.from_numpy(rng.standard_normal(
+            (1, s, H, D)).astype(np.float32)).to(dtype) for _ in range(5)]
+            for dtype in (torch.float32, torch.bfloat16)}
+        for core, tiles, dtypes in cores:
+            for dtype in dtypes:
+                q, k0, v0, k1, v1 = data[dtype]
+                for diag, causal in ((s, True), (0, True), (-s, True),
+                                     (-s, False), (0, False)):
+                    case = (f"{core} s={s} {dtype} diag={diag} "
+                            f"causal={causal}")
+                    q_start, k_start = max(diag, 0), max(-diag, 0)
+                    seeded = ra.ring_attention_fold_plain(
+                        q, k1, v1, ra.fold_state(q), q_start, q_start,
+                        causal)
+                    for name, st in (("fresh", ra.fold_state(q)),
+                                     ("seeded", seeded)):
+                        got = ra.ring_fold_tiles_plain(
+                            q, k0, v0, st, q_start, k_start, causal,
+                            tiles=tiles)
+                        want = ra.ring_attention_fold_plain(
+                            q, k0, v0, st, q_start, k_start, causal)
+                        g, w = (ra.fold_output(x, torch.float32)
+                                for x in (got, want))
+                        msg = f"{case} {name}"
+                        if dtype == torch.float32:
+                            np.testing.assert_allclose(
+                                g.numpy(), w.numpy(), rtol=1e-5, atol=1e-5,
+                                err_msg=msg)
+                            np.testing.assert_allclose(
+                                ra.fold_lse(got).numpy(),
+                                ra.fold_lse(want).numpy(), rtol=1e-5,
+                                atol=1e-5, err_msg=f"{msg} lse")
+                        else:
+                            err = attention.max_row_rel_err(g, w)
+                            assert err <= 1e-2, f"{msg}: row error {err:.3e}"
+                    if dtype != torch.float32:
+                        continue
+                    plan = ra.ring_fold_tile_plan(s, s, diag, causal, tiles)
+                    visible = (np.arange(s)[None, :] <= diag
+                               + np.arange(s)[:, None]) if causal else \
+                        np.ones((s, s), bool)
+                    count = np.zeros((s, s), np.int32)
+                    for lo, hi, c0, c1, masked in plan:
+                        count[lo:hi, c0:c1] += 1
+                        seen = visible[lo:hi, c0:c1]
+                        assert seen.any(), f"{case}: a tile never seen"
+                        assert masked or seen.all(), f"{case}: unmasked cross"
+                    assert (count[visible] == 1).all(), f"{case}: coverage"
+                    assert (count <= 1).all(), f"{case}: overlap"
+                    assert ra.ring_fold_tile_plan(s, 0, diag, causal,
+                                                  tiles) == [], case
         for causal in (True, False):
             q, k, v = _qkv(s, 1, N * s, H, D)
             blocks = [[torch.from_numpy(a[:, r * s:(r + 1) * s])
                        for r in range(N)] for a in (q, k, v)]
-            got = torch.cat(_tile_fold_ring(*blocks, causal), dim=1)
-            np.testing.assert_allclose(
-                got.numpy(), _jax_ring(mesh, q, k, v, causal),
-                err_msg=f"ring of tile folds, s={s} causal={causal}",
-                **RING_TOL)
+            want = _jax_ring(mesh, q, k, v, causal)
+            for core, tiles, _ in cores:
+                got = torch.cat(_tile_fold_ring(*blocks, causal, tiles),
+                                dim=1)
+                np.testing.assert_allclose(
+                    got.numpy(), want,
+                    err_msg=f"{core}: ring of tile folds, s={s} "
+                            f"causal={causal}", **RING_TOL)
 
 
 def test_pipeline_forward_matches_jax_in_a_gloo_world():

@@ -166,6 +166,55 @@ def test_expired_queued_request_culled_without_model_step(models):
         eng.close()
 
 
+def test_close_leaves_native_handles_to_a_live_loop(monkeypatch):
+    """A loop thread held inside a step past close()'s wait: close() stops
+    the server and the batcher, returns after CLOSE_JOIN_S, and destroys
+    neither while the thread lives; released, the thread finds the batcher
+    stopped and ends cleanly, and a second close() then frees both."""
+    cfg = dataclasses.replace(tt.TransformerConfig.tiny(),
+                              dtype=torch.float32)
+    params = tt.init_params(cfg, torch.Generator().manual_seed(0),
+                            device="cpu")
+    eng = serving.ServingEngine(params, cfg, max_batch_size=2, slots=2,
+                                max_prompt=16, prefix_cache=False,
+                                autostart=False, device="cpu")
+    inside, release = threading.Event(), threading.Event()
+    errors = []
+    step = eng.step
+
+    def held_step(*args, **kwargs):
+        inside.set()
+        release.wait(30)
+        try:
+            return step(*args, **kwargs)
+        except Exception as e:  # noqa: BLE001 — reported by the test
+            errors.append(e)
+            raise
+
+    eng.step = held_step
+    monkeypatch.setattr(serving, "CLOSE_JOIN_S", 0.2)
+    eng.start()
+    try:
+        assert inside.wait(10), "the loop never entered a step"
+        handles = (eng.batcher._h, eng.server._h)
+        t0 = time.monotonic()
+        eng.close()
+        assert time.monotonic() - t0 < 5, "close() waited past its limit"
+        thread = eng._thread
+        assert thread is not None and thread.is_alive()
+        assert (eng.batcher._h, eng.server._h) == handles, \
+            "a native handle was destroyed under a live loop thread"
+        release.set()
+        thread.join(10)
+        assert not thread.is_alive(), "the loop did not end once released"
+        assert errors == [] and not eng._running
+    finally:
+        release.set()
+        eng.close()
+    assert eng._thread is None
+    assert eng.batcher._h is None and eng.server._h is None
+
+
 def test_queue_full_rejected_with_elimit(models):
     _, _, tcfg, tp = models
     eng = serving.ServingEngine(tp, tcfg, max_batch_size=2, slots=2,

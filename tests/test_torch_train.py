@@ -171,51 +171,62 @@ def _check_tile_plan(plan, sq, sk, H, KV, diag, causal, case):
 
 
 def test_attention_backward_tile_walk_matches_plain():
-    """The bf16 backward core's tile walk (backward_tile_plan, tile sizes
-    from csrc/attention_backward.cuh), computed tile by tile in f32
+    """The backward cores' tile walks (backward_tile_plan with the bf16
+    core's tiles from csrc/attention_backward.cuh and the f32 core's from
+    csrc/attention_f32.cuh), computed tile by tile in f32
     (attention_backward_tiles_plain), against the plain backwards: K2b's
-    causal GQA at S 70, 130 and 257 (ragged against the 128-row own tiles
-    and 64-row column tiles) with H 4 over KV 2, and K5b's block at offsets
-    q_start - k_start of +s, 0 and -s (without the mask), and a causal
-    block wholly above the diagonal (no tile, no gradient); each plan
-    covers every visible triple once per pass and holds no masked tile."""
+    causal GQA at S 70, 130 and 257 (ragged against the 128- and 64-row own
+    tiles and the 64- and 32-row column tiles) with H 4 over KV 2, and
+    K5b's block at offsets q_start - k_start of +s, 0 and -s (without the
+    mask), and a causal block wholly above the diagonal (no tile, no
+    gradient); each plan covers every visible triple once per pass and
+    holds no masked tile."""
     rng = np.random.default_rng(3)
     H, KV, Dh = 4, 2, 16
+    cores = (("bf16 core", attention.BWD_TILES),
+             ("f32 core", attention.F32_BWD_TILES))
     for S in (70, 130, 257):
-        case = f"K2b S={S}"
         q, k, v, do = (_t(rng, 2, S, n, Dh) for n in (H, KV, KV, H))
         o, lse = attention.causal_attention_plain(q, k, v)
-        got = attention.attention_backward_tiles_plain(q, k, v, o, lse, do)
         want = attention.prefill_attention_backward_plain(q, k, v, o, lse,
                                                           do)
-        for name, g, w in zip("qkv", got, want):
-            np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=1e-5,
-                                       atol=1e-5, err_msg=f"{case} d{name}")
-        _check_tile_plan(attention.backward_tile_plan(S, S, H, KV, 0, True),
-                         S, S, H, KV, 0, True, case)
+        for core, tiles in cores:
+            case = f"{core} K2b S={S}"
+            got = attention.attention_backward_tiles_plain(
+                q, k, v, o, lse, do, tiles=tiles)
+            for name, g, w in zip("qkv", got, want):
+                np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=1e-5,
+                                           atol=1e-5,
+                                           err_msg=f"{case} d{name}")
+            _check_tile_plan(attention.backward_tile_plan(S, S, H, KV, 0,
+                                                          True, tiles),
+                             S, S, H, KV, 0, True, case)
     for s in (100, 200):
         q, kb, vb, k2, v2, do = (_t(rng, 1, s, 2, Dh) for _ in range(6))
         for diag, causal in ((s, True), (0, True), (-s, False), (-s, True)):
-            case = f"K5b s={s} q_start - k_start={diag} causal={causal}"
             q_start, k_start = max(diag, 0), max(-diag, 0)
             st = ra.ring_attention_fold_plain(q, kb, vb, ra.fold_state(q),
                                               q_start, k_start, causal)
             st = ra.ring_attention_fold_plain(q, k2, v2, st, q_start,
                                               q_start, causal)
             o, lse = ra.fold_output(st, torch.float32), ra.fold_lse(st)
-            got = attention.attention_backward_tiles_plain(
-                q, kb, vb, o, lse, do, diag, causal)
             want = ra.ring_attention_fold_backward_plain(
                 q, kb, vb, o, lse, do, q_start, k_start, causal)
-            for name, g, w in zip("qkv", got, want):
-                np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=1e-5,
-                                           atol=1e-5,
-                                           err_msg=f"{case} d{name}")
-            plan = attention.backward_tile_plan(s, s, 2, 2, diag, causal)
-            if causal and diag < 0:
-                assert plan == {"kv": [], "q": []}, case
-                assert all(not g.any() for g in got), case
-            _check_tile_plan(plan, s, s, 2, 2, diag, causal, case)
+            for core, tiles in cores:
+                case = (f"{core} K5b s={s} q_start - k_start={diag} "
+                        f"causal={causal}")
+                got = attention.attention_backward_tiles_plain(
+                    q, kb, vb, o, lse, do, diag, causal, tiles)
+                for name, g, w in zip("qkv", got, want):
+                    np.testing.assert_allclose(g.numpy(), w.numpy(),
+                                               rtol=1e-5, atol=1e-5,
+                                               err_msg=f"{case} d{name}")
+                plan = attention.backward_tile_plan(s, s, 2, 2, diag, causal,
+                                                    tiles)
+                if causal and diag < 0:
+                    assert plan == {"kv": [], "q": []}, case
+                    assert all(not g.any() for g in got), case
+                _check_tile_plan(plan, s, s, 2, 2, diag, causal, case)
 
 
 def test_rms_norm_backward_plain_matches_autograd():

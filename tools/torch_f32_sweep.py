@@ -1,0 +1,167 @@
+"""Time the f32 attention cores (csrc/attention_f32.cuh: K5's f32 fold,
+K5b's and K2b's f32 backward passes) at chip_smoke.py's shapes for copies
+of this checkout with other block shapes, in turns, one process each, so
+that they compare on one card in one call. Each case is also held to its
+plain version (the worst row error), and each copy's ptxas registers and
+spills of its f32 Dh-128 kernels are printed.
+
+    python3 tools/torch_f32_sweep.py . F128x32x512 B64x32x512 .
+
+Each argument is "." (this checkout) or a spec of the forward core's
+block (F<rows>x<keys>x<threads>), the backward core's (B<own rows>x<column
+rows>x<threads>), the inner loops' unroll depths (U<dots>x<accumulations>),
+or several joined by "-": a copy under build/f32_sweep/ with those
+constants. Prints the card's name and power limit, then one
+"[f32]" line per argument and case. Needs a CUDA card; each copy builds
+its kernels into its own build/ directory.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import re
+import shutil
+import subprocess
+import sys
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+S, H, DH = 4096, 32, 128
+K2B = (2, 2048, 8)  # B, S, KV heads
+
+
+def one(root: str) -> None:
+    """The cases in the checkout at ``root``, as RESULT lines."""
+    sys.path.insert(0, root)
+    import torch
+
+    import chip_smoke
+    from brpc_tpu_torch.ops import _build, attention
+    from brpc_tpu_torch.ops import ring_attention as ra
+
+    _build.build()
+    for line in chip_smoke.ptxas_summary(_build.PTXAS_LOG):
+        if chip_smoke.f32_simt_kernel(line) and "f32, 128>" in line:
+            print("RESULT " + json.dumps({"ptxas": line}), flush=True)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    f32 = torch.float32
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    def emit(case, fn, got, want, flops):
+        err = max(chip_smoke.compare(case, g, w, f32, rows=True,
+                                     floor=attention.GRAD_ROW_FLOOR)[1]
+                  for g, w in zip(got, want))
+        ms = chip_smoke.device_ms(fn, iters=10)
+        print("RESULT " + json.dumps({"case": case, "device_ms": ms,
+                                      "tflops": flops / ms / 1e9,
+                                      "row_rel_err": err}), flush=True)
+
+    q, k0, v0, k1, v1, do = (rnd(1, S, H, DH) for _ in range(6))
+    for name, k_start, pairs in (("K5 full", 0, S * S),
+                                 ("K5 diagonal", S, S * (S + 1) / 2)):
+        state = ra.fold_state(q)
+        got = ra.ring_attention_fold(q, k0, v0, ra.fold_state(q), S,
+                                     k_start, True)
+        want = ra.ring_attention_fold_plain(q, k0, v0, ra.fold_state(q), S,
+                                            k_start, True)
+        emit(name, lambda: ra.ring_attention_fold(q, k0, v0, state, S,
+                                                  k_start, True),
+             [ra.fold_output(got, f32)], [ra.fold_output(want, f32)],
+             4.0 * pairs * H * DH)
+        del got, want, state
+    lse = torch.empty((1, S, H), dtype=f32, device="cuda")
+    st = ra.ring_attention_fold(q, k0, v0, ra.fold_state(q), S, 0, True)
+    o = ra.ring_attention_fold(q, k1, v1, st, S, S, True, final=True,
+                               lse=lse)
+    del st
+    for name, kb, vb, k_start, pairs in (
+            ("K5b full", k0, v0, 0, S * S),
+            ("K5b diagonal", k1, v1, S, S * (S + 1) / 2)):
+        grads = ra.grad_buffers(q, kb)
+        ra.ring_attention_fold_backward(q, kb, vb, o, lse, do, grads, S,
+                                        k_start, True, True)
+        want = ra.ring_attention_fold_backward_plain(q, kb, vb, o, lse, do,
+                                                     S, k_start, True)
+        emit(name, lambda: ra.ring_attention_fold_backward(
+            q, kb, vb, o, lse, do, grads, S, k_start, True, True),
+             grads[:3], want, 10.0 * pairs * H * DH)
+        del grads, want
+    del q, k0, v0, k1, v1, do, o, lse
+    torch.cuda.empty_cache()
+    B, T, KV = K2B
+    q, do = rnd(B, T, H, DH), rnd(B, T, H, DH)
+    k, v = rnd(B, T, KV, DH), rnd(B, T, KV, DH)
+    o, lse = attention.causal_attention_forward(q, k, v)
+    got = attention.attention_backward(q, k, v, o, lse, do)
+    want = attention.prefill_attention_backward_plain(q, k, v, o, lse, do)
+    emit(f"K2b B={B} S={T}",
+         lambda: attention.attention_backward(q, k, v, o, lse, do), got,
+         want, 10.0 * B * T * (T + 1) / 2 * H * DH)
+
+
+def checkout(spec: str) -> str:
+    """The checkout for an argument: this one, or a copy with the block
+    shapes of ``spec``."""
+    if spec == ".":
+        return REPO
+    root = os.path.join(REPO, "build", "f32_sweep", spec)
+    if not os.path.exists(os.path.join(root, "chip_smoke.py")):
+        os.makedirs(root, exist_ok=True)
+        shutil.copytree(os.path.join(REPO, "brpc_tpu_torch"),
+                        os.path.join(root, "brpc_tpu_torch"),
+                        ignore=shutil.ignore_patterns("__pycache__"),
+                        dirs_exist_ok=True)
+        shutil.copy(os.path.join(REPO, "chip_smoke.py"), root)
+        header = os.path.join(root, "brpc_tpu_torch", "csrc",
+                              "attention_f32.cuh")
+        with open(header) as f:
+            text = f.read()
+        names = {"F": ("kF32FwdRows", "kF32FwdKeys", "kF32FwdThreads"),
+                 "B": ("kF32BwdOwnRows", "kF32BwdCols", "kF32BwdThreads"),
+                 "U": ("kF32DotUnroll", "kF32AccUnroll")}
+        for part in spec.split("-"):
+            for name, value in zip(names[part[0]], part[1:].split("x")):
+                text = re.sub(rf"constexpr int {name} = \d+;",
+                              f"constexpr int {name} = {int(value)};", text)
+        with open(header, "w") as f:
+            f.write(text)
+    return root
+
+
+def main() -> int:
+    if sys.argv[1:2] == ["--one"]:
+        one(os.path.abspath(sys.argv[2]))
+        return 0
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip()
+    print(f"[f32] card {card}", flush=True)
+    for i, spec in enumerate(sys.argv[1:] or ["."]):
+        root = checkout(spec)
+        out = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--one", root],
+            cwd=root, capture_output=True, text=True)
+        if out.returncode != 0:
+            print(f"[f32] round {i} {spec}: failed\n{out.stdout[-1500:]}"
+                  f"\n{out.stderr[-3000:]}", flush=True)
+            continue
+        for line in out.stdout.splitlines():
+            if not line.startswith("RESULT "):
+                continue
+            r = json.loads(line[len("RESULT "):])
+            if "ptxas" in r:
+                print(f"[f32] round {i} {spec}: ptxas {r['ptxas']}",
+                      flush=True)
+                continue
+            print(f"[f32] round {i} {spec}: {r['case']} device_ms "
+                  f"{r['device_ms']:.4f} ({r['tflops']:.1f} TFLOP/s by the "
+                  f"4- or 10-flop count) row_rel_err "
+                  f"{r['row_rel_err']:.3e}", flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
