@@ -1,6 +1,8 @@
-// The f32 attention cores on the H100's CUDA cores: K5's f32 block fold
-// (csrc/ring_attention.cu, `fwd`) and the f32 passes of the attention
-// backward that K2b (csrc/attention_backward.cu) and K5b
+// The f32 attention cores on the H100's CUDA cores: the forward (`fwd`)
+// that K5's f32 block fold (csrc/ring_attention.cu), K2's f32 prefill
+// (csrc/prefill_attention.cu) and K4's f32 suffix prefill
+// (csrc/paged_prefill_attention.cu) share, and the f32 passes of the
+// attention backward that K2b (csrc/attention_backward.cu) and K5b
 // (csrc/ring_attention_backward.cu) share (`bwd`). The f32 routes exist to
 // hold the port to the reference in f32, so every product is a plain f32
 // FFMA: no tensor cores and no TF32.
@@ -36,9 +38,12 @@
 //
 // The forward's threads of one row are the 16 lanes of one half-warp, so a
 // row max takes 4 shuffles; each lane keeps its share of the row sum and
-// the shares are added once, at the end. The backward needs no row
-// reduction, so its warps take 4 rows x 8 columns of its grids, which
-// halves the distinct rows each load touches.
+// the shares are added once, at the end. Its rows are numbered valid
+// first, and a block computes only its slices of 16 rows that hold a valid
+// row (`fwd_tiles`), so the padding of a short grid (K4 with one query,
+// K2's last block) costs no FFMA. The backward needs no row reduction, so
+// its warps take 4 rows x 8 columns of its grids, which halves the
+// distinct rows each load touches.
 #pragma once
 
 #include <limits.h>
@@ -49,7 +54,8 @@ namespace brpc_tpu_torch {
 namespace attn_f32 {
 
 // The forward core: query rows of a block, keys of a tile, threads. The
-// Python tile plan (ops/ring_attention.py) reads these from this file.
+// Python plans (ops/ring_attention.py's tile plan, ops/attention.py's f32
+// split plan of K4) read these from this file.
 constexpr int kF32FwdRows = 128;
 constexpr int kF32FwdKeys = 64;
 constexpr int kF32FwdThreads = 256;
@@ -124,9 +130,9 @@ struct Cols {
   }
 };
 
-// acc[i][.] += a[i] * b[.] for the thread's rows i, one key's row b of V
-// (or of a column tile) in shared memory.
-template <int DH, int kRm>
+// acc[i][.] += a[i] * b[.] for the thread's first kLive rows i, one key's
+// row b of V (or of a column tile) in shared memory.
+template <int DH, int kRm, int kLive = kRm>
 __device__ __forceinline__ void accumulate_row(float (&acc)[kRm][DH / kGrid],
                                                const float (&a)[kRm],
                                                const float* brow, int tx) {
@@ -136,15 +142,15 @@ __device__ __forceinline__ void accumulate_row(float (&acc)[kRm][DH / kGrid],
   for (int h = 0; h < C::kNv; ++h)
     ldv<C::kVec>(b + h * C::kVec, brow + C::col(tx, h));
 #pragma unroll
-  for (int i = 0; i < kRm; ++i)
+  for (int i = 0; i < kLive; ++i)
 #pragma unroll
     for (int c = 0; c < C::kOc; ++c) acc[i][c] = fmaf(a[i], b[c], acc[i][c]);
 }
 
 // acc += P.B over a tile of n (a multiple of 4) keys: P [rows][n] at
-// `ps` (row stride ps_stride; the thread's rows ty + kStep i), B [n][Dh]
-// at `bs`.
-template <int DH, int kRm, int kStep>
+// `ps` (row stride ps_stride; the thread's rows ty + kStep i, the first
+// kLive of them), B [n][Dh] at `bs`.
+template <int DH, int kRm, int kStep, int kLive = kRm>
 __device__ __forceinline__ void accumulate(float (&acc)[kRm][DH / kGrid],
                                            const float* ps, int ps_stride,
                                            const float* bs, int n, int ty,
@@ -153,23 +159,25 @@ __device__ __forceinline__ void accumulate(float (&acc)[kRm][DH / kGrid],
   for (int t = 0; t < n; t += 4) {
     float4 p4[kRm];
 #pragma unroll
-    for (int i = 0; i < kRm; ++i)
+    for (int i = 0; i < kLive; ++i)
       p4[i] = *reinterpret_cast<const float4*>(ps + (ty + kStep * i) *
                                                         ps_stride + t);
 #pragma unroll
     for (int u = 0; u < 4; ++u) {
       float a[kRm];
 #pragma unroll
-      for (int i = 0; i < kRm; ++i)
+      for (int i = 0; i < kLive; ++i)
         a[i] = reinterpret_cast<const float*>(&p4[i])[u];
-      accumulate_row<DH, kRm>(acc, a, bs + (t + u) * Cols<DH>::kStride, tx);
+      accumulate_row<DH, kRm, kLive>(acc, a,
+                                     bs + (t + u) * Cols<DH>::kStride, tx);
     }
   }
 }
 
 // s[i][j] += X[rows i] . Y[rows j] along Dh: rows ty + kStep i of `xs`
-// and tx + kColStep j of `ys` (both [.][Dh + 4]).
-template <int DH, int kRm, int kCn, int kStep, int kColStep = kGrid>
+// (the first kLive of them) and tx + kColStep j of `ys` (both [.][Dh + 4]).
+template <int DH, int kRm, int kCn, int kStep, int kColStep = kGrid,
+          int kLive = kRm>
 __device__ __forceinline__ void dots(float (&s)[kRm][kCn], const float* xs,
                                      const float* ys, int ty, int tx) {
   constexpr int kStride = Cols<DH>::kStride;
@@ -180,7 +188,7 @@ __device__ __forceinline__ void dots(float (&s)[kRm][kCn], const float* xs,
   for (int d = 0; d < DH; d += 4) {
     float4 x[kRm], y[kCn];
 #pragma unroll
-    for (int i = 0; i < kRm; ++i)
+    for (int i = 0; i < kLive; ++i)
       x[i] = *reinterpret_cast<const float4*>(xs + (ty + kStep * i) *
                                                        kStride + d);
 #pragma unroll
@@ -188,7 +196,7 @@ __device__ __forceinline__ void dots(float (&s)[kRm][kCn], const float* xs,
       y[j] = *reinterpret_cast<const float4*>(ys + (tx + kColStep * j) *
                                                        kStride + d);
 #pragma unroll
-    for (int i = 0; i < kRm; ++i)
+    for (int i = 0; i < kLive; ++i)
 #pragma unroll
       for (int j = 0; j < kCn; ++j) {
         s[i][j] = fmaf(x[i].x, y[j].x, s[i][j]);
@@ -199,7 +207,7 @@ __device__ __forceinline__ void dots(float (&s)[kRm][kCn], const float* xs,
   }
 }
 
-// ---- the forward: a block of query rows folded into their running state --
+// ---- the forward: a block of query rows over a range of keys ------------
 
 // Shared memory, in floats: Q, two K stages, two V stages (one where two do
 // not fit: the next V tile then loads while S and P are formed), P, and
@@ -241,92 +249,47 @@ __device__ __forceinline__ void fwd_load(const Problem& p, float* dst,
   }
 }
 
-// One block folds its kF32FwdRows query rows (row r is global row
-// p.row_id(r), -1 past the end) over the keys [p.key_begin, p.key_end)
-// into the rows' running f32 state (o, m, l) in sink.o_part and
-// sink.ml_part (natural units): each thread seeds its registers from the
-// state, folds every key tile into them with the reference's rule, and
-// writes the state back or, when !sink.partial, the rows' o / l (l = 0 read
-// as 1) to sink.out and their LSE to sink.lse. Key j is visible to row r
-// when j < p.key_end and j <= p.edge(r); only tiles that cross the block's
-// lowest edge or the keys' end run the test. An empty key range only
-// writes the state out.
-template <int DH, typename Problem>
-__device__ void fwd(const Problem& p, const float* __restrict__ q,
-                    float scale, const attn::Sink<float>& sink) {
-  static_assert(Problem::kFolds, "the f32 forward core folds into a state");
-  using C = Cols<DH>;
+// The rows of a block in a thread's registers: for each of its rows
+// ty + kGy i, the causal edge, the running max m, its share of the sum l
+// (the whole of it once the 16 shares are added) and its columns of o.
+// Slice i is row ty + kGy i of every thread, the block's rows kGy i ..
+// kGy i + kGy - 1; rows are numbered valid first, so a slice is live or
+// dead as a whole.
+template <int DH>
+struct FwdRows {
+  static constexpr int kGy = kF32FwdThreads / kGrid;  // rows of the grid
+  static constexpr int kRm = kF32FwdRows / kGy;        // slices: rows a thread
+  static_assert((kRm & (kRm - 1)) == 0, "a power of two of slices");
+  int edge[kRm];
+  float m[kRm], l[kRm], o[kRm][Cols<DH>::kOc];
+};
+
+// Folds the key tiles [p.key_begin, p.key_end) into the first kLive slices
+// of `r` with the reference's rule. A block takes the variant of the least
+// power of two kLive at or above its `live` slices, so the products skip
+// dead slices with no branch in their loops and every register index stays
+// static; with every slice live it is the one full variant. Before the
+// call the copy groups K(0), V(0) (and Q) are in flight.
+template <int DH, int kLive, typename Problem>
+__device__ __forceinline__ void fwd_tiles(const Problem& p, FwdRows<DH>& r,
+                                          float* sm, float scale,
+                                          int n_tiles, int emin, int live,
+                                          int ty, int tx) {
+  if constexpr (kLive > 1) {
+    if (live <= kLive / 2) {
+      fwd_tiles<DH, kLive / 2>(p, r, sm, scale, n_tiles, emin, live, ty, tx);
+      return;
+    }
+  }
   using L = FwdSmem<DH>;
-  constexpr int kStride = L::kStride;
-  constexpr int kGy = kF32FwdThreads / kGrid;  // rows of the thread grid
-  constexpr int kRm = kF32FwdRows / kGy;        // rows a thread
-  constexpr int kKn = kF32FwdKeys / kGrid;      // keys of S a thread
-  constexpr int kOc = C::kOc;
-  extern __shared__ float4 smem_f4[];
-  float* sm = reinterpret_cast<float*>(smem_f4);
-  float* qs = sm + L::kQ;
+  constexpr int kGy = FwdRows<DH>::kGy;
+  constexpr int kRm = FwdRows<DH>::kRm;
+  constexpr int kKn = kF32FwdKeys / kGrid;  // keys of S a thread
+  constexpr int kOc = Cols<DH>::kOc;
+  const float* qs = sm + L::kQ;
   float* ks = sm + L::kK;
   float* vs = sm + L::kV;
   float* ps = sm + L::kP;
-  int* edge_s = reinterpret_cast<int*>(sm + L::kEdge);
-  const int tx = threadIdx.x % kGrid;
-  const int ty = threadIdx.x / kGrid;  // a row's 16 threads: one half-warp
-
-  const int n_tiles =
-      max(0, (p.key_end - p.key_begin + kF32FwdKeys - 1) / kF32FwdKeys);
-  // Q and the first K tile, then the first V tile: two copy groups (none
-  // without keys). Before tile it the groups in flight are K(it), V(it).
-  if (n_tiles > 0) {
-    constexpr int kChunks = DH / 4;
-    for (int c = threadIdx.x; c < kF32FwdRows * kChunks;
-         c += kF32FwdThreads) {
-      const int r = c / kChunks;
-      const int ch = (c - r * kChunks) * 4;
-      const int rid = p.row_id(r);
-      attn::cp_async16(qs + r * kStride + ch,
-                       q + static_cast<long long>(rid < 0 ? 0 : rid) * DH +
-                           ch,
-                       rid >= 0);
-    }
-    fwd_load<DH>(p, ks, p.k, p.key_begin);
-    attn::cp_async_commit();
-    fwd_load<DH>(p, vs, p.v, p.key_begin);
-    attn::cp_async_commit();
-  }
-
-  // The state of this thread's rows: m, its share of l (the whole of it on
-  // tx 0), its columns of o.
-  int rid[kRm], edge[kRm];
-  float m[kRm], l[kRm], o[kRm][kOc];
-  int emin = INT_MAX;
-#pragma unroll
-  for (int i = 0; i < kRm; ++i) {
-    const int r = ty + kGy * i;
-    rid[i] = p.row_id(r);
-    edge[i] = p.edge(r);
-    m[i] = -INFINITY;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < kOc; ++c) o[i][c] = 0.f;
-    if (rid[i] < 0) continue;
-    emin = min(emin, edge[i]);
-    const long long row = rid[i];
-    m[i] = sink.ml_part[row * 2];
-    if (tx == 0) l[i] = sink.ml_part[row * 2 + 1];
-    const float* srow = sink.o_part + row * DH;
-#pragma unroll
-    for (int h = 0; h < C::kNv; ++h)
-      ldv<C::kVec>(&o[i][h * C::kVec], srow + C::col(tx, h));
-  }
-  // The block's lowest edge: a tile at or below it needs no causal test.
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    emin = min(emin, __shfl_xor_sync(0xffffffffu, emin, off));
-  if (threadIdx.x % 32 == 0) edge_s[threadIdx.x / 32] = emin;
-  __syncthreads();
-#pragma unroll
-  for (int w = 0; w < kF32FwdThreads / 32; ++w) emin = min(emin, edge_s[w]);
-
   for (int it = 0; it < n_tiles; ++it) {
     const int k0 = p.key_begin + it * kF32FwdKeys;
     const bool more = it + 1 < n_tiles;
@@ -350,43 +313,43 @@ __device__ void fwd(const Problem& p, const float* __restrict__ q,
 
     float s[kRm][kKn];
 #pragma unroll
-    for (int i = 0; i < kRm; ++i)
+    for (int i = 0; i < kLive; ++i)
 #pragma unroll
       for (int j = 0; j < kKn; ++j) s[i][j] = 0.f;
-    dots<DH, kRm, kKn, kGy>(s, qs, kt, ty, tx);
+    dots<DH, kRm, kKn, kGy, kGrid, kLive>(s, qs, kt, ty, tx);
 
     // Scale, mask, and fold into the running max; p = exp(s - m_new).
     const bool masked = k0 + kF32FwdKeys > p.key_end ||
                         k0 + kF32FwdKeys - 1 > emin;
 #pragma unroll
-    for (int i = 0; i < kRm; ++i) {
+    for (int i = 0; i < kLive; ++i) {
       float mx = -INFINITY;
 #pragma unroll
       for (int j = 0; j < kKn; ++j) {
         const int key = k0 + tx + kGrid * j;
         float v = s[i][j] * scale;
-        if (masked && !(key < p.key_end && key <= edge[i])) v = -INFINITY;
+        if (masked && !(key < p.key_end && key <= r.edge[i])) v = -INFINITY;
         s[i][j] = v;
         mx = fmaxf(mx, v);
       }
 #pragma unroll
       for (int off = kGrid / 2; off > 0; off >>= 1)
         mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float mn = fmaxf(m[i], mx);
+      const float mn = fmaxf(r.m[i], mx);
       // A row with no visible key yet keeps max -inf; subtracting 0 then
       // keeps exp(-inf) = 0 and never forms -inf - -inf.
       const float mu = mn == -INFINITY ? 0.f : mn;
-      const float alpha = expf(m[i] - mu);
-      m[i] = mn;
+      const float alpha = expf(r.m[i] - mu);
+      r.m[i] = mn;
       float sum = 0.f;
 #pragma unroll
       for (int j = 0; j < kKn; ++j) {
         s[i][j] = expf(s[i][j] - mu);
         sum += s[i][j];
       }
-      l[i] = l[i] * alpha + sum;
+      r.l[i] = r.l[i] * alpha + sum;
 #pragma unroll
-      for (int c = 0; c < kOc; ++c) o[i][c] *= alpha;
+      for (int c = 0; c < kOc; ++c) r.o[i][c] *= alpha;
 #pragma unroll
       for (int j = 0; j < kKn; ++j)
         ps[(ty + kGy * i) * L::kPStride + tx + kGrid * j] = s[i][j];
@@ -398,43 +361,151 @@ __device__ void fwd(const Problem& p, const float* __restrict__ q,
         attn::cp_async_wait<0>();
     }
     __syncthreads();  // P (and, with one V stage, V(it)) is in
-    accumulate<DH, kRm, kGy>(o, ps, L::kPStride, vt, kF32FwdKeys, ty, tx);
+    // Keys past p.key_end have p = 0 and zero rows of V, so P.V of a
+    // partial last tile stops at the first multiple of 4 past its keys.
+    const int n_keys = p.key_end - k0;
+    if (n_keys >= kF32FwdKeys)
+      accumulate<DH, kRm, kGy, kLive>(r.o, ps, L::kPStride, vt, kF32FwdKeys,
+                                      ty, tx);
+    else
+      accumulate<DH, kRm, kGy, kLive>(r.o, ps, L::kPStride, vt,
+                                      (n_keys + 3) & ~3, ty, tx);
     if (L::kVStages == 1 && more) {
       __syncthreads();  // V(it) is consumed
       fwd_load<DH>(p, vs, p.v, k0 + kF32FwdKeys);
       attn::cp_async_commit();
     }
   }
+}
+
+// One block computes its kF32FwdRows query rows (row r is global row
+// p.row_id(r), -1 past the end, valid rows first) over the keys
+// [p.key_begin, p.key_end) with an online softmax in f32. Key j is visible
+// to row r when j < p.key_end and j <= p.edge(r); only tiles that cross the
+// block's lowest edge or the keys' end run the test.
+// - Start: a folding problem (Problem::kFolds, K5) seeds each row from its
+//   running state (o, m, l; natural units) in sink.o_part and
+//   sink.ml_part, [row][Dh] and [row][2]; any other starts at m = -inf,
+//   l = 0, o = 0 and reads no state.
+// - End: with sink.partial the rows' unnormalised o and (m, l) go to row
+//   sink.split * sink.n_rows + row of sink.o_part and sink.ml_part (a
+//   folding problem's state: split 0; K4's split partials, which
+//   attn::merge_row reads); otherwise the rows' o / l (l = 0 read as 1) go
+//   to sink.out and, where sink.lse is set, their LSE to sink.lse.
+// An empty key range writes its rows as they started (m = -inf, l = 0 for
+// a problem that does not fold).
+template <int DH, typename Problem>
+__device__ void fwd(const Problem& p, const float* __restrict__ q,
+                    float scale, const attn::Sink<float>& sink) {
+  using C = Cols<DH>;
+  using L = FwdSmem<DH>;
+  using R = FwdRows<DH>;
+  constexpr int kStride = L::kStride;
+  constexpr int kGy = R::kGy;
+  constexpr int kRm = R::kRm;
+  constexpr int kOc = C::kOc;
+  extern __shared__ float4 smem_f4[];
+  float* sm = reinterpret_cast<float*>(smem_f4);
+  float* qs = sm + L::kQ;
+  int* edge_s = reinterpret_cast<int*>(sm + L::kEdge);
+  const int tx = threadIdx.x % kGrid;
+  const int ty = threadIdx.x / kGrid;  // a row's 16 threads: one half-warp
+
+  const int n_tiles =
+      max(0, (p.key_end - p.key_begin + kF32FwdKeys - 1) / kF32FwdKeys);
+  // The live slices, and the Q rows of the slices that fwd_tiles computes
+  // (the least power of two of slices at or above `live`).
+  int live = 0;
+#pragma unroll
+  for (int i = 0; i < kRm; ++i) live += p.row_id(kGy * i) >= 0;
+  int q_rows = kGy;
+  while (q_rows < live * kGy) q_rows *= 2;
+  // Q and the first K tile, then the first V tile: two copy groups (none
+  // without keys). Before tile it the groups in flight are K(it), V(it).
+  if (n_tiles > 0) {
+    constexpr int kChunks = DH / 4;
+    for (int c = threadIdx.x; c < q_rows * kChunks; c += kF32FwdThreads) {
+      const int row = c / kChunks;
+      const int ch = (c - row * kChunks) * 4;
+      const int rid = p.row_id(row);
+      attn::cp_async16(qs + row * kStride + ch,
+                       q + static_cast<long long>(rid < 0 ? 0 : rid) * DH +
+                           ch,
+                       rid >= 0);
+    }
+    fwd_load<DH>(p, sm + L::kK, p.k, p.key_begin);
+    attn::cp_async_commit();
+    fwd_load<DH>(p, sm + L::kV, p.v, p.key_begin);
+    attn::cp_async_commit();
+  }
+
+  R r;
+  int rid[kRm];
+  int emin = INT_MAX;
+#pragma unroll
+  for (int i = 0; i < kRm; ++i) {
+    const int row = ty + kGy * i;
+    rid[i] = p.row_id(row);
+    r.edge[i] = p.edge(row);
+    r.m[i] = -INFINITY;
+    r.l[i] = 0.f;
+#pragma unroll
+    for (int c = 0; c < kOc; ++c) r.o[i][c] = 0.f;
+    if (rid[i] < 0) continue;
+    emin = min(emin, r.edge[i]);
+    if constexpr (Problem::kFolds) {
+      const long long g = rid[i];
+      r.m[i] = sink.ml_part[g * 2];
+      if (tx == 0) r.l[i] = sink.ml_part[g * 2 + 1];
+      const float* srow = sink.o_part + g * DH;
+#pragma unroll
+      for (int h = 0; h < C::kNv; ++h)
+        ldv<C::kVec>(&r.o[i][h * C::kVec], srow + C::col(tx, h));
+    }
+  }
+  // The block's lowest edge: a tile at or below it needs no causal test.
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    emin = min(emin, __shfl_xor_sync(0xffffffffu, emin, off));
+  if (threadIdx.x % 32 == 0) edge_s[threadIdx.x / 32] = emin;
+  __syncthreads();
+#pragma unroll
+  for (int w = 0; w < kF32FwdThreads / 32; ++w) emin = min(emin, edge_s[w]);
+
+  fwd_tiles<DH, kRm>(p, r, sm, scale, n_tiles, emin, live, ty, tx);
 
   // Each row's l from its 16 threads' shares, then the state or the rows.
 #pragma unroll
   for (int i = 0; i < kRm; ++i)
 #pragma unroll
     for (int off = kGrid / 2; off > 0; off >>= 1)
-      l[i] += __shfl_xor_sync(0xffffffffu, l[i], off);
+      r.l[i] += __shfl_xor_sync(0xffffffffu, r.l[i], off);
 #pragma unroll
   for (int i = 0; i < kRm; ++i) {
     if (rid[i] < 0) continue;
     const long long row = rid[i];
     if (sink.partial) {
-      float* srow = sink.o_part + row * DH;
+      const long long prow =
+          static_cast<long long>(sink.split) * sink.n_rows + row;
+      float* srow = sink.o_part + prow * DH;
 #pragma unroll
       for (int h = 0; h < C::kNv; ++h)
-        stv<C::kVec>(srow + C::col(tx, h), &o[i][h * C::kVec]);
+        stv<C::kVec>(srow + C::col(tx, h), &r.o[i][h * C::kVec]);
       if (tx == 0) {
-        sink.ml_part[row * 2] = m[i];
-        sink.ml_part[row * 2 + 1] = l[i];
+        sink.ml_part[prow * 2] = r.m[i];
+        sink.ml_part[prow * 2 + 1] = r.l[i];
       }
     } else {
-      const float inv = 1.0f / (l[i] == 0.f ? 1.f : l[i]);
+      const float inv = 1.0f / (r.l[i] == 0.f ? 1.f : r.l[i]);
       if (tx == 0 && sink.lse != nullptr)
-        sink.lse[row] = attn::row_lse(m[i], l[i]);
+        sink.lse[row] = attn::row_lse(r.m[i], r.l[i]);
       float* orow = sink.out + row * DH;
 #pragma unroll
       for (int h = 0; h < C::kNv; ++h) {
         float v[C::kVec];
 #pragma unroll
-        for (int e = 0; e < C::kVec; ++e) v[e] = o[i][h * C::kVec + e] * inv;
+        for (int e = 0; e < C::kVec; ++e)
+          v[e] = r.o[i][h * C::kVec + e] * inv;
         stv<C::kVec>(orow + C::col(tx, h), v);
       }
     }

@@ -22,11 +22,14 @@
 // ldmatrix.trans. O accumulates in f32 registers; the division by the sum
 // happens once, at the end.
 //
-// f32 (`f32_tile`): exact f32 math on the CUDA cores, for the f32 model
-// (the serving path's stream-exactness check runs f32 with TF32 off, so
-// tensor cores cannot serve it). 8 warps of 8 rows; K/V tiles of 32 keys
-// staged once in shared memory as f32; lane j forms key j's logit for the
-// warp's rows, and P.V gives each lane Dh/32 output columns.
+// f32 (`f32_tile`, K1's f32 route alone): exact f32 math on the CUDA
+// cores, for the f32 model (the serving path's stream-exactness check runs
+// f32 with TF32 off, so tensor cores cannot serve it). 8 warps of 8 rows;
+// K/V tiles of 32 keys staged once in shared memory as f32; lane j forms
+// key j's logit for the warp's rows, and P.V gives each lane Dh/32 output
+// columns. K2's and K4's f32 routes run the register-tiled SIMT forward
+// core of csrc/attention_f32.cuh (`attn_f32::fwd`) on the same problems
+// with 128 rows a block, through the same Sink.
 //
 // Both cores take the same problems and the same key ranges (a split is
 // cut in 64-key tiles, a multiple of the f32 core's 32), and both follow
@@ -48,8 +51,8 @@
 // so every gradient of the row, is then 0. Null: no LSE (the serving
 // path).
 //
-// K5's f32 route folds into a running state instead, on its own core
-// (csrc/attention_f32.cuh), through the same Sink.
+// K5's f32 route folds into a running state instead, on that SIMT core,
+// through the same Sink.
 #pragma once
 
 #include <stdint.h>

@@ -17,41 +17,52 @@
 // the H100 SXM's 3.35 TB/s), operations for long ones (4 x H x Dh flops
 // per visible (query, key) pair against its 989 TFLOP/s in bf16; data
 // sheet, 700 W power limit).
-// Design: the paged loader of the shared tile core (csrc/attention_tile.cuh:
-// bf16 on the tensor cores with mma.sync, f32 exact on the CUDA cores).
+// Design: the paged loader of two cores. bf16: the tensor-core tile core
+// (csrc/attention_tile.cuh, `mma_tile`: mma.sync, 64 rows a block). f32
+// exact on the CUDA cores: the register-tiled SIMT forward core of
+// csrc/attention_f32.cuh (`attn_f32::fwd`, plain FFMA, no TF32: 128 rows a
+// block, 64-key tiles by cp.async), which computes only a block's 16-row
+// slices that hold a valid row; it plans its own splits for one block per
+// SM (ops/attention.py `plan_splits`).
 // - Paged loads: key j is row j % page of block table[j / page] in the
 //   strided layer slice (element strides s_blk, s_t, s_kvh), so a start or
 //   an end inside a page is no special case.
-// - GQA packing: one block serves one KV head, and its 64 rows are the
-//   (query, head) pairs of the H / KV query heads that share it, query
-//   major. Each page is read once per KV head, not H / KV times, and the
-//   causal edge is per row: start + the row's query index.
+// - GQA packing: one block serves one KV head, and its rows (64, or 128 in
+//   f32) are the (query, head) pairs of the H / KV query heads that share
+//   it, query major. Each page is read once per KV head, not H / KV
+//   times, and the causal edge is per row: start + the row's query index.
 // - Split-K: a short suffix gives few (query tile, KV head) blocks, so the
 //   key range [0, start + n_q) is cut at 64-key tile boundaries into
 //   n_splits ranges of tiles_per_split tiles (the wrapper derives both from
-//   the shape and the SM count) and the grid is (query tile, KV head,
-//   split). Each split writes an unnormalised f32 partial O with its row
-//   max and sum; `paged_prefill_merge_kernel`, launched by the same entry
-//   point, rescales the partials to the largest max, divides once by the
-//   combined sum and rounds to T. A split may hold no key a row can see
-//   (m = -inf, l = 0): the merge skips it,
-//   and since key 0 is in split 0 and visible to every row, no row is
-//   masked in every split. With one split the block writes its rows
-//   straight out and there is no merge. The merge rescales P.V sums whose
-//   probabilities were rounded to T within their split; the result stays
-//   inside the bf16 tolerance (atol 2e-2 + rtol 1e-2) that the online
-//   softmax already relies on, as each split is itself an online softmax
-//   over its tiles.
-#include "attention_tile.cuh"
+//   the shape, the dtype's core and the SM count) and the grid is (query
+//   tile, KV head, split). Each split writes an unnormalised f32 partial O
+//   with its row max and sum; `paged_prefill_merge_kernel`, launched by the
+//   same entry point, rescales the partials to the largest max, divides
+//   once by the combined sum and rounds to T. A split may hold no key a row
+//   can see (m = -inf, l = 0): the merge skips it, and since key 0 is in
+//   split 0 and visible to every row, no row is masked in every split. With
+//   one split the block writes its rows straight out and there is no
+//   merge. The merge rescales P.V sums whose probabilities were rounded to
+//   T within their split; the result stays inside the bf16 tolerance (atol
+//   2e-2 + rtol 1e-2) that the online softmax already relies on, as each
+//   split is itself an online softmax over its tiles.
+#include "attention_f32.cuh"
 
 namespace brpc_tpu_torch {
 namespace {
 
 using attn::kTileKeys;
 using attn::kTileRows;
+using attn_f32::kF32FwdRows;
+// A split is cut in 64-key tiles of either core.
+static_assert(kTileKeys == attn_f32::kF32FwdKeys,
+              "a split boundary is a key tile boundary of both cores");
 
-template <typename T>
+// The packed rows of one (query tile of kRows rows, KV head, split) block:
+// kTileRows for the bf16 core, kF32FwdRows for the f32 one.
+template <typename T, int kRows>
 struct PagedProblem {
+  static constexpr bool kFolds = false;
   const T* k;
   const T* v;
   const int* table;
@@ -66,9 +77,9 @@ struct PagedProblem {
       : k(k_), v(v_), table(table_), n_q(n_q_), start(start_),
         n_heads(n_heads_), group(n_heads_ / n_kv_heads), page(page_),
         s_blk(s_blk_), s_t(s_t_), s_kvh(s_kvh_) {
-    r0 = (gridDim.x - 1 - blockIdx.x) * kTileRows;  // heaviest first
+    r0 = (gridDim.x - 1 - blockIdx.x) * kRows;  // heaviest first
     kvh = blockIdx.y;
-    const int last_q = min((r0 + kTileRows - 1) / group, n_q - 1);
+    const int last_q = min((r0 + kRows - 1) / group, n_q - 1);
     key_begin = blockIdx.z * tiles_per_split * kTileKeys;
     key_end = min(key_begin + tiles_per_split * kTileKeys,
                   start + last_q + 1);
@@ -88,9 +99,9 @@ struct PagedProblem {
   }
 };
 
+// The bf16 route: the tile core on the tensor cores (T is bf16 only).
 template <typename T, int DH>
-__global__ void __launch_bounds__(attn::Core<T>::kThreads,
-                                  attn::Core<T>::kMinBlocks)
+__global__ void __launch_bounds__(attn::kMmaThreads, attn::kMmaMinBlocks)
     paged_prefill_kernel(const T* __restrict__ q,
                          const T* __restrict__ k_pool,
                          const T* __restrict__ v_pool,
@@ -100,12 +111,34 @@ __global__ void __launch_bounds__(attn::Core<T>::kThreads,
                          int n_heads, int n_kv_heads, int page,
                          long long s_blk, long long s_t, long long s_kvh,
                          float scale, int tiles_per_split) {
-  const PagedProblem<T> p(k_pool, v_pool, table, n_q, start, n_heads,
-                          n_kv_heads, page, s_blk, s_t, s_kvh,
-                          tiles_per_split);
+  const PagedProblem<T, kTileRows> p(k_pool, v_pool, table, n_q, start,
+                                     n_heads, n_kv_heads, page, s_blk, s_t,
+                                     s_kvh, tiles_per_split);
   const attn::Sink<T> sink{out, o_part, ml_part, n_q * n_heads,
                            static_cast<int>(blockIdx.z), gridDim.z > 1};
-  attn::Core<T>::template run<DH>(p, q, scale, sink);
+  attn::mma_tile<DH>(p, q, scale, sink);
+}
+
+// The f32 route: the SIMT forward core (T is float only).
+template <typename T, int DH>
+__global__ void __launch_bounds__(attn_f32::kF32FwdThreads, 1)
+    paged_prefill_simt_kernel(const T* __restrict__ q,
+                              const T* __restrict__ k_pool,
+                              const T* __restrict__ v_pool,
+                              const int* __restrict__ table,
+                              T* __restrict__ out,
+                              float* __restrict__ o_part,
+                              float* __restrict__ ml_part, int n_q,
+                              int start, int n_heads, int n_kv_heads,
+                              int page, long long s_blk, long long s_t,
+                              long long s_kvh, float scale,
+                              int tiles_per_split) {
+  const PagedProblem<T, kF32FwdRows> p(k_pool, v_pool, table, n_q, start,
+                                       n_heads, n_kv_heads, page, s_blk,
+                                       s_t, s_kvh, tiles_per_split);
+  const attn::Sink<T> sink{out, o_part, ml_part, n_q * n_heads,
+                           static_cast<int>(blockIdx.z), gridDim.z > 1};
+  attn_f32::fwd<DH>(p, q, scale, sink);
 }
 
 // The merge pass: one warp per (query, head) row (attn::merge_row).
@@ -134,14 +167,23 @@ struct Args {
 
 template <typename T, int DH>
 int launch(const Args& a, cudaStream_t stream) {
-  constexpr size_t smem = attn::Core<T>::template smem<DH>();
-  auto kernel = paged_prefill_kernel<T, DH>;
+  constexpr bool kF32 = std::is_same<T, float>::value;
+  constexpr int kRows = kF32 ? kF32FwdRows : kTileRows;
+  constexpr int kThreads = kF32 ? attn_f32::kF32FwdThreads
+                                : attn::kMmaThreads;
+  constexpr size_t smem = kF32 ? attn_f32::FwdSmem<DH>::kBytes
+                               : attn::mma_smem_bytes<DH>();
+  auto kernel = [] {
+    if constexpr (kF32)
+      return paged_prefill_simt_kernel<T, DH>;
+    else
+      return paged_prefill_kernel<T, DH>;
+  }();
   static std::atomic<unsigned long long> smem_set{0};
   if (int e = attn::allow_smem(kernel, smem, smem_set)) return e;
   const int rows = a.n_q * (a.n_heads / a.n_kv_heads);
-  const dim3 grid((rows + kTileRows - 1) / kTileRows, a.n_kv_heads,
-                  a.n_splits);
-  kernel<<<grid, attn::Core<T>::kThreads, smem, stream>>>(
+  const dim3 grid((rows + kRows - 1) / kRows, a.n_kv_heads, a.n_splits);
+  kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k_pool),
       static_cast<const T*>(a.v_pool), a.table, static_cast<T*>(a.out),
       a.o_part, a.ml_part, a.n_q, a.start, a.n_heads, a.n_kv_heads, a.page,

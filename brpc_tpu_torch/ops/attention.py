@@ -44,16 +44,21 @@ def _repeat_kv(x: torch.Tensor, rep: int, dim: int) -> torch.Tensor:
     return x.repeat_interleave(rep, dim=dim) if rep > 1 else x
 
 
-# ---- split-K plans of the shared tile core (K1 and K4) ---------------------
+# ---- split-K plans of K1 and K4 --------------------------------------------
 
-# From csrc/attention_tile.cuh: a block holds TILE_ROWS (query, head) rows
-# of one KV head, a split covers whole tiles of TILE_KEYS keys, and an SM
-# holds BLOCKS_PER_SM blocks of the bf16 core at once, so the planner aims
-# the grid at that many blocks per SM.
+# From csrc/attention_tile.cuh: a block of the tile core holds TILE_ROWS
+# (query, head) rows of one KV head, a split covers whole tiles of
+# TILE_KEYS keys, and an SM holds BLOCKS_PER_SM blocks of the bf16 core at
+# once, so the bf16 planner aims the grid at that many blocks per SM.
 _TILE = _build.header_constants("attention_tile.cuh")
 TILE_ROWS = _TILE["kTileRows"]
 TILE_KEYS = _TILE["kTileKeys"]
 BLOCKS_PER_SM = _TILE["kMmaMinBlocks"]
+# From csrc/attention_f32.cuh: a block of the f32 forward core (K4's f32
+# route) holds F32_FWD_ROWS rows, and one such block fills an SM. Its key
+# tiles are TILE_KEYS wide too (K4 asserts it), so both plans cut alike.
+_F32 = _build.header_constants("attention_f32.cuh")
+F32_FWD_ROWS = _F32["kF32FwdRows"]
 # A split holds at least this many key tiles: fewer would spend more on the
 # partial's write and the merge than the split saves.
 MIN_SPLIT_TILES = 2
@@ -71,13 +76,39 @@ def _plan(blocks: int, keys: int, sms: int) -> tuple:
     return per, -(-tiles // per)
 
 
+@functools.lru_cache(maxsize=4096)
+def _plan_one_wave(blocks: int, keys: int, sms: int) -> tuple:
+    """The f32 core's split-K plan of a grid of ``blocks`` blocks per
+    split over the key range [0, keys) -> (tiles_per_split, n_splits):
+    among the cuts into splits of at least ``MIN_SPLIT_TILES`` tiles (or
+    one split), the one of least cost, the waves of one block per SM
+    times the tiles a block walks; ties go to fewer splits."""
+    tiles = -(-keys // TILE_KEYS)
+    best = None
+    for per in range(tiles, 0, -1):  # splits only grow
+        n = -(-tiles // per)
+        if n > 1 and per < MIN_SPLIT_TILES:
+            break
+        cost = -(-(blocks * n) // sms) * per
+        if best is None or cost < best[0]:
+            best = (cost, per, n)
+    return best[1], best[2]
+
+
 def plan_splits(n_q: int, n_heads: int, n_kv_heads: int, start: int,
-                sms: int) -> tuple:
-    """K4's split-K plan -> (tiles_per_split, n_splits): ceil(n_q * H / KV
-    / 64) query tiles per KV head over the keys [0, start + n_q). Derived
-    from the shape and the SM count only."""
-    q_tiles = -(-(n_q * (n_heads // n_kv_heads)) // TILE_ROWS)
-    return _plan(q_tiles * n_kv_heads, start + n_q, sms)
+                sms: int, dtype: torch.dtype = torch.bfloat16) -> tuple:
+    """K4's split-K plan for the core of ``dtype`` -> (tiles_per_split,
+    n_splits) over the keys [0, start + n_q), from the shape and the SM
+    count only. bf16 (the tile core): ceil(n_q * H / KV / TILE_ROWS) query
+    tiles per KV head, the grid aimed at ``BLOCKS_PER_SM`` blocks per SM.
+    f32 (the SIMT forward core, one block per SM): F32_FWD_ROWS-row query
+    tiles, the cut of least waves x tiles per split, so that a short grid
+    runs in as few waves of as short splits as it can."""
+    rows = n_q * (n_heads // n_kv_heads)
+    if dtype == torch.float32:
+        return _plan_one_wave(-(-rows // F32_FWD_ROWS) * n_kv_heads,
+                              start + n_q, sms)
+    return _plan(-(-rows // TILE_ROWS) * n_kv_heads, start + n_q, sms)
 
 
 def plan_decode_splits(n_lanes: int, n_kv_heads: int, max_keys: int,
@@ -353,7 +384,6 @@ BWD_COLS = _BWD["kBwdCols"]
 BWD_STAGES = _BWD["kBwdStages"]
 # From csrc/attention_f32.cuh: a block of the f32 backward core owns
 # F32_BWD_OWN_ROWS rows and walks column tiles of F32_BWD_COLS as one.
-_F32 = _build.header_constants("attention_f32.cuh")
 F32_BWD_OWN_ROWS = _F32["kF32BwdOwnRows"]
 F32_BWD_COLS = _F32["kF32BwdCols"]
 # (own rows of a block, rows that skip a tile together, rows of a column
@@ -611,10 +641,10 @@ def paged_prefill_attention_split_plain(q, k_pool, v_pool, table,
                                         start: int, layer: int,
                                         sms: int) -> torch.Tensor:
     """K4's split-K arithmetic in plain PyTorch: the split pass of the plan
-    for ``sms`` SMs, then the merge, rounded to q's dtype. For the tests;
-    the main path never calls it."""
+    for ``sms`` SMs and q's dtype (as the wrapper plans), then the merge,
+    rounded to q's dtype. For the tests; the main path never calls it."""
     n, H, _ = q.shape
-    per, n_splits = plan_splits(n, H, k_pool.shape[3], start, sms)
+    per, n_splits = plan_splits(n, H, k_pool.shape[3], start, sms, q.dtype)
     o, m, l = paged_prefill_split_partials(q, k_pool, v_pool, table, start,
                                            layer, per, n_splits)
     return merge_splits_plain(o, m, l).to(q.dtype)
@@ -662,8 +692,9 @@ def paged_prefill_attention(q, k_pool, v_pool, table, start: int,
     ``layer`` of the paged pool (the cached prefix plus the suffix rows
     already written). On a CUDA tensor launches
     csrc/paged_prefill_attention.cu (K4): one call runs the split pass of
-    ``plan_splits`` for the card's SM count and, with more than one
-    split, the merge pass, and returns the first launch error."""
+    ``plan_splits`` for the card's SM count and q's dtype (bf16: the tile
+    core on the tensor cores; f32: the SIMT forward core) and, with more
+    than one split, the merge pass, and returns the first launch error."""
     if q.device.type == "cpu":
         return paged_prefill_attention_plain(q, k_pool, v_pool, table, start,
                                              layer)
@@ -687,7 +718,8 @@ def paged_prefill_attention(q, k_pool, v_pool, table, start: int,
                          "start or query count")
     qc, tc = q.contiguous(), table.contiguous()
     out = torch.empty_like(qc)
-    per, n_splits = plan_splits(n, H, KV, int(start), _sm_count(q.device))
+    per, n_splits = plan_splits(n, H, KV, int(start), _sm_count(q.device),
+                                q.dtype)
     # Split scratch, one allocation: partial O [S, n * H, Dh], then (m, l)
     # [S, n * H, 2], f32.
     o_part = ml_part = None

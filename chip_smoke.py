@@ -220,9 +220,14 @@ BACKWARD_KERNELS = ("attention_backward_kv_kernel",
                     "attention_backward_q_kernel",
                     "ring_fold_backward_kv_kernel",
                     "ring_fold_backward_q_kernel")
-# The f32 routes of K5, K2b and K5b run the SIMT core of
+# The f32 routes of K5, K2, K4, K2b and K5b run the SIMT cores of
 # csrc/attention_f32.cuh: plain FFMA, no tensor cores (no TF32), no spill.
-F32_SIMT_KERNELS = ("ring_attention_fold_kernel",) + BACKWARD_KERNELS
+F32_SIMT_KERNELS = ("ring_attention_fold_kernel",
+                    "prefill_attention_simt_kernel",
+                    "paged_prefill_simt_kernel") + BACKWARD_KERNELS
+# K2's and K4's kernels on the tile core: bf16 only (their f32 routes are
+# the SIMT kernels above).
+TILE_BF16_ONLY = re.compile(r"\d(prefill_attention|paged_prefill)_kernelIf")
 
 
 def f32_simt_kernel(name: str) -> bool:
@@ -238,7 +243,8 @@ def sass_mma_counts(build) -> dict:
     library, from cuobjdump -sass: {kernel: {"HMMA": n, "HGMMA": m}}
     (mma.sync and wgmma). Fails unless each bf16 K1, K2 and K4 kernel has
     HMMA, each bf16 K5 kernel HGMMA and no HMMA, each bf16 pass of K2b
-    and K5b HGMMA, and each f32 K5, K2b and K5b kernel neither."""
+    and K5b HGMMA, each f32 K5, K2, K4, K2b and K5b kernel neither, and
+    no f32 instance of K2's or K4's tile-core kernel is built."""
     tool = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
     sass = subprocess.run([tool, "-sass", build.LIB_PATH],
                           capture_output=True, text=True, check=True).stdout
@@ -273,6 +279,10 @@ def sass_mma_counts(build) -> dict:
     if any("ring_attention_fold_kernel" in k for k in bf16("")):
         raise AssertionError("a bf16 instance of the mma.sync ring fold "
                              "is still built")
+    old_f32 = [k for k in counts if TILE_BF16_ONLY.search(k)]
+    if old_f32:
+        raise AssertionError(f"an f32 instance of K2's or K4's tile-core "
+                             f"kernel is still built: {old_f32}")
     for kind in WGMMA_KERNELS + BACKWARD_KERNELS:
         found = bf16(kind)
         if not found or any(counts[k]["HGMMA"] == 0 for k in found):
@@ -462,8 +472,12 @@ def check_paged_prefill(dtype, gen, start: int, n: int) -> dict:
     err, row_err = compare(f"paged_prefill_attention start={start} n={n}",
                            kern(), plain(), dtype, rows=True)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    per, splits = attention.plan_splits(n, H, KV, start, sms)
-    q_tiles = -(-(n * H // KV) // attention.TILE_ROWS)
+    # the plan and grid of the dtype's core: the tile core's 64-row blocks
+    # in bf16, the SIMT core's 128-row blocks in f32
+    per, splits = attention.plan_splits(n, H, KV, start, sms, dtype)
+    rows = (attention.F32_FWD_ROWS if dtype == torch.float32
+            else attention.TILE_ROWS)
+    q_tiles = -(-(n * H // KV) // rows)
     # rows (query, head) that see no key of some split, which the merge
     # must weigh 0
     masked_pairs = H * sum(
@@ -985,9 +999,9 @@ def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
 
 def check_attention_backward(dtype, gen, B: int, S: int) -> dict:
     """K2's training forward (o and its LSE) against causal_attention_plain,
-    and K2b against its plain backward on K2's own o and LSE, at
-    Llama-3-8B's heads; SDPA's causal GQA backward as the library
-    yardstick."""
+    timed beside its bound and causal SDPA's forward, and K2b against its
+    plain backward on K2's own o and LSE, at Llama-3-8B's heads; SDPA's
+    causal GQA backward as the library yardstick."""
     from brpc_tpu_torch.ops import attention
 
     dev = torch.device("cuda")
@@ -1033,6 +1047,21 @@ def check_attention_backward(dtype, gen, B: int, S: int) -> dict:
     nbytes = (4 * B * S * H * Dh + 4 * B * S * KV * Dh) * itemsize \
         + B * S * H * 4
     b, by = bound_ms(nbytes, 10.0 * pairs * H * Dh, dtype)
+
+    def fwd():
+        return attention.causal_attention_forward(q, k, v)
+
+    def lib_fwd():
+        return F.scaled_dot_product_attention(
+            q4.detach(), k4.detach(), v4.detach(), is_causal=True,
+            enable_gqa=True)
+
+    # q read and o written, k and v read, the LSE written
+    fb, fby = bound_ms((2 * B * S * H * Dh + 2 * B * S * KV * Dh) * itemsize
+                       + B * S * H * 4, 4.0 * pairs * H * Dh, dtype)
+    timing = {"ms": time_ms(fwd), "device_ms": device_ms(fwd),
+              "bound_ms": fb, "bound_by": fby, "library_ms": time_ms(lib_fwd),
+              "library_device_ms": device_ms(lib_fwd)}
     return {"shape": f"q,o,dO[{B},{S},{H},{Dh}] k,v[{B},{S},{KV},{Dh}]",
             "max_abs_err": max(e[0] for e in errs),
             "row_rel_err": max(e[1] for e in errs),
@@ -1042,7 +1071,7 @@ def check_attention_backward(dtype, gen, B: int, S: int) -> dict:
             "bound_by": by, "library_ms": time_ms(lib),
             "library_device_ms": device_ms(lib),
             "forward": {"max_abs_err": fwd_err[0], "row_rel_err": fwd_err[1],
-                        "lse_max_abs_err": lse_err}}
+                        "lse_max_abs_err": lse_err, **timing}}
 
 
 def check_norm_backward(dtype, gen, rows: int, fused: bool) -> dict:
@@ -1197,7 +1226,11 @@ def log_case(name: str, tag: str, r: dict) -> None:
         log(f"[kernel] {name} {tag}: K2's training forward against "
             f"causal_attention_plain: o max_abs_err {f['max_abs_err']:.3e} "
             f"row_rel_err {f['row_rel_err']:.3e}; lse max_abs_err "
-            f"{f['lse_max_abs_err']:.3e}")
+            f"{f['lse_max_abs_err']:.3e}; ms {f['ms']:.4f} device_ms "
+            f"{fmt_ms(f['device_ms'])} bound_ms {f['bound_ms']:.5f} "
+            f"({f['bound_by']}) causal SDPA library_ms "
+            f"{f['library_ms']:.4f} library_device_ms "
+            f"{fmt_ms(f['library_device_ms'])}")
 
 
 def phase_backward_kernels() -> dict:

@@ -6,6 +6,9 @@ tests/test_torch_ops.py; the kernel against both plain versions on a card
 in tests/test_torch_kernels_card.py.
 """
 
+import os
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -159,3 +162,65 @@ def test_plan_fills_the_card_where_keys_allow(n, H, KV, start):
     # the keys allow it: enough tiles for every SM to get a block
     assert tiles >= attention.MIN_SPLIT_TILES * -(-SMS // (q_tiles * KV))
     assert q_tiles * KV * n_splits >= SMS
+
+
+# The f32 plans of PLAN_SHAPES' first four (the phase-3 shapes) at 132 SMs:
+# (tiles_per_split, n_splits), with the grid of 128-row blocks they give.
+F32_PLANS = {(200, 32, 8, 100): (3, 2, 112), (40, 32, 8, 1008): (3, 6, 96),
+             (1, 32, 8, 4000): (4, 16, 128)}
+
+
+def test_f32_plan_takes_the_least_cost_cut():
+    """K4's f32 plan (the SIMT core: one block per SM, rows from
+    csrc/attention_f32.cuh) covers [0, start + n) once on 64-key
+    boundaries with no empty split, and of every cut into splits of at
+    least MIN_SPLIT_TILES tiles (or one split) it takes the least waves x
+    tiles per split, the fewest splits on a tie."""
+    with open(os.path.join(attention._build._SRC_DIR,
+                           "attention_f32.cuh")) as f:
+        rows = int(re.search(r"constexpr int kF32FwdRows = (\d+);",
+                             f.read()).group(1))
+    assert attention.F32_FWD_ROWS == rows
+    for n, H, KV, start in PLAN_SHAPES:
+        case = f"n={n} H={H} KV={KV} start={start}"
+        per, n_splits = attention.plan_splits(n, H, KV, start, SMS,
+                                              torch.float32)
+        ranges = attention.split_ranges(start, n, per, n_splits)
+        assert ranges[0][0] == 0 and ranges[-1][1] == start + n, case
+        for (lo, hi), (lo2, _) in zip(ranges, ranges[1:]):
+            assert hi == lo2, case
+            assert lo % 64 == 0 and hi % 64 == 0, case
+        assert all(lo < hi for lo, hi in ranges), case
+        blocks = -(-(n * H // KV) // rows) * KV
+        tiles = -(-(start + n) // 64)
+        cuts = sorted({(-(-tiles // s), -(-tiles // -(-tiles // s)))
+                       for s in range(1, tiles + 1)}, key=lambda c: c[1])
+        costs = [(-(-(blocks * s) // SMS) * p, s) for p, s in cuts
+                 if s == 1 or p >= attention.MIN_SPLIT_TILES]
+        assert (-(-(blocks * n_splits) // SMS) * per, n_splits) == \
+            min(costs), f"{case}: plan ({per}, {n_splits}) of {costs}"
+        if (n, H, KV, start) in F32_PLANS:
+            assert (per, n_splits, blocks * n_splits) == \
+                F32_PLANS[(n, H, KV, start)], case
+
+
+def test_f32_plan_cuts_merge_to_plain():
+    """At the f32 plan's cuts, the plain split pass merged equals the
+    one-pass softmax in f32 within 1e-6, as at the bf16 plan's."""
+    for H, KV, Dh in HEADS:
+        for start, n in SPLIT_CASES:
+            case = f"H={H} KV={KV} Dh={Dh} start={start} n={n}"
+            q, k_pool, v_pool, table = _pool(H, KV, Dh, start, n,
+                                             start + 2 * n)
+            per, n_splits = attention.plan_splits(n, H, KV, start, SMS,
+                                                  torch.float32)
+            o, m, l = attention.paged_prefill_split_partials(
+                q, k_pool, v_pool, table, start, 1, per, n_splits)
+            got = attention.merge_splits_plain(o, m, l)
+            want = attention.paged_prefill_attention_plain(
+                q, k_pool, v_pool, table, start, 1)
+            np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0,
+                                       atol=1e-6, err_msg=case)
+            assert torch.equal(
+                attention.paged_prefill_attention_split_plain(
+                    q, k_pool, v_pool, table, start, 1, SMS), got), case

@@ -121,11 +121,13 @@ def test_kernels_match_plain_on_card(cuda_device):
 @pytest.mark.cuda
 def test_prefill_attention_matches_plain_on_card(cuda_device):
     """K2 against its plain version: a 1060-token prompt in its 2048
-    bucket (key tiles past the length skipped, pad rows still computed)
-    and a ragged short one."""
+    bucket (key tiles past the length skipped, pad rows still computed),
+    a ragged short one, and one whose last block of the f32 core's 128
+    rows holds a single row (a partial slice of 16). One f32 case runs
+    twice and must repeat bit for bit."""
     for H, KV, Dh in HEADS:
         for dtype in DTYPES:
-            for P, length in [(2048, 1060), (130, 77)]:
+            for P, length in [(2048, 1060), (130, 77), (257, 200)]:
                 case = f"{dtype} H={H} KV={KV} Dh={Dh} P={P} len={length}"
                 gen = torch.Generator(device=cuda_device).manual_seed(
                     P + length)
@@ -139,6 +141,10 @@ def test_prefill_attention_matches_plain_on_card(cuda_device):
                 want = attention.prefill_attention_plain(q, k, v, length)
                 _assert_close(got, want, dtype, case)
                 _assert_rows_close(got, want, dtype, case)
+                if dtype == torch.float32 and Dh == 128 and P == 257:
+                    assert torch.equal(
+                        attention.prefill_attention(q, k, v, length), got), \
+                        f"{case}: a rerun differs"
 
 
 # K1 at Llama-3-8B heads, 8 lanes: (positions, table columns (None: the
@@ -194,12 +200,13 @@ def test_paged_decode_attention_matches_plain_on_card(cuda_device):
 
 
 # (start, n): page-aligned, mid-page start ending mid-page, one query deep,
-# and a long suffix whose split plan leaves its first rows no key in the
-# later splits
-RESUME_CASES = [(1008, 40), (517, 300), (4000, 1), (100, 200)]
+# a long suffix whose split plan leaves its first rows no key in the later
+# splits, and a short resume inside one key tile (one split, no merge)
+RESUME_CASES = [(1008, 40), (517, 300), (4000, 1), (100, 200), (40, 24)]
 
 
-def _check_paged_prefill(cuda_device, H, KV, Dh, dtype, start, n):
+def _check_paged_prefill(cuda_device, H, KV, Dh, dtype, start, n,
+                         rerun=False):
     L, page = 2, 16
     gen = torch.Generator(device=cuda_device).manual_seed(start + n)
     pages = -(-(start + n) // page)
@@ -219,16 +226,24 @@ def _check_paged_prefill(cuda_device, H, KV, Dh, dtype, start, n):
                                                    start, L - 1)
     _assert_close(got, want, dtype, case)
     _assert_rows_close(got, want, dtype, case)
+    if rerun:
+        again = attention.paged_prefill_attention(q, k_pool, v_pool, table,
+                                                  start, L - 1)
+        assert torch.equal(again, got), f"{case}: a rerun differs"
 
 
 @pytest.mark.cuda
 def test_paged_prefill_attention_matches_plain_on_card(cuda_device):
     """K4 against its plain version on a shuffled table over the last
-    layer of a strided pool."""
+    layer of a strided pool. One f32 case (split and merged) runs twice
+    and must repeat bit for bit."""
     for H, KV, Dh in HEADS:
         for dtype in DTYPES:
             for start, n in RESUME_CASES:
-                _check_paged_prefill(cuda_device, H, KV, Dh, dtype, start, n)
+                _check_paged_prefill(
+                    cuda_device, H, KV, Dh, dtype, start, n,
+                    rerun=(dtype == torch.float32 and Dh == 128
+                           and (start, n) == (100, 200)))
 
 
 @pytest.mark.cuda

@@ -10,7 +10,10 @@ checks its kernels against their plain versions and times them (CUDA
 events and torch.profiler), so two versions compare on one card in one
 call. Each K2b, K5b and K5 case's device time is also split by kernel
 from torch.profiler (K2b and K5b: the delta pre-pass, the dK/dV pass, the
-dQ pass), and the library call's kernels are named by the profiler.
+dQ pass), and the library call's kernels are named by the profiler. K2's
+batched training forward (o and the LSE) is timed at K2b's shapes beside
+causal SDPA's forward; with ``--all`` the kernels of phase 3's K2 and K4
+library call (SDPA with an explicit mask) are named too.
 
     python3 tools/torch_backward_ab.py [--all] PARENT_DIR . . PARENT_DIR
 
@@ -100,14 +103,33 @@ def one(root: str, everything: bool) -> None:
         def rnd(*shape):
             return torch.randn(shape, generator=gen, device="cuda").to(dtype)
 
-        split = {}
+        split, forward = {}, []
         for B, S in K2B_SHAPES:
             q, k, v, do = (rnd(B, S, 32, 128), rnd(B, S, 8, 128),
                            rnd(B, S, 8, 128), rnd(B, S, 32, 128))
             o, lse = attention.causal_attention_forward(q, k, v)
             split[f"K2b {tag} B={B} S={S}"] = by_kernel(
                 lambda: attention.attention_backward(q, k, v, o, lse, do))
+            forward.append(training_forward(chip_smoke, attention, q, k, v,
+                                            f"K2 forward {tag} B={B} S={S}",
+                                            split))
             del q, k, v, do, o, lse
+        if everything:
+            q, k, v = rnd(1, 32, 1024, 128), rnd(1, 32, 1024, 128), \
+                rnd(1, 32, 1024, 128)
+            mask = torch.ones((1024, 1024), dtype=torch.bool,
+                              device="cuda").tril()[None, None]
+
+            def masked():
+                return torch.nn.functional.scaled_dot_product_attention(
+                    q, k, v, attn_mask=mask)
+
+            name = f"SDPA masked {tag} [1, 32, 1024, 128]"
+            split[name] = by_kernel(masked, raw=True)
+            result(name, {"ms": chip_smoke.time_ms(masked),
+                          "device_ms": sum(split[name].values())},
+                   "phase 3's K2 and K4 library call", split[name])
+            del q, k, v, mask
         s = 4096
         q, k0, v0, k1, v1, do = (rnd(1, s, 32, 128) for _ in range(6))
         lse = torch.empty((1, s, 32), dtype=torch.float32, device="cuda")
@@ -125,9 +147,35 @@ def one(root: str, everything: bool) -> None:
         for name, r in runs:
             result(name, r, "SDPA backward" if "K3b" not in name
                    else "F.rms_norm backward", split.get(name, {}))
+        for name, r in forward:
+            result(name, r, "causal SDPA", split[name])
         for name, r, lib in k5_runs(chip_smoke, ra, gen, dtype, split):
             result(name, r, lib, split[name])
         torch.cuda.empty_cache()
+
+
+def training_forward(chip_smoke, attention, q, k, v, name: str,
+                     split: dict) -> tuple:
+    """K2's batched training forward (o and the LSE) on q [B, S, H, Dh],
+    k, v [B, S, KV, Dh], timed beside causal SDPA's forward over the same
+    GQA inputs; ``split[name]`` gets both split by kernel (SDPA's under
+    the profiler's names, marked "SDPA"): (name, result)."""
+    import torch
+
+    q4, k4, v4 = (t.transpose(1, 2) for t in (q, k, v))
+
+    def kern():
+        return attention.causal_attention_forward(q, k, v)
+
+    def lib():
+        return torch.nn.functional.scaled_dot_product_attention(
+            q4, k4, v4, is_causal=True, enable_gqa=True)
+
+    own, library = by_kernel(kern), by_kernel(lib, raw=True)
+    split[name] = {**own, **{"SDPA " + k: ms for k, ms in library.items()}}
+    return name, {"ms": chip_smoke.time_ms(kern),
+                  "device_ms": sum(own.values()), "row_rel_err": None,
+                  "library_device_ms": sum(library.values())}
 
 
 def k5_runs(chip_smoke, ra, gen, dtype, split: dict) -> list:

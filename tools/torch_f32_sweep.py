@@ -1,7 +1,10 @@
 """Time the f32 attention cores (csrc/attention_f32.cuh: K5's f32 fold,
-K5b's and K2b's f32 backward passes) at chip_smoke.py's shapes for copies
-of this checkout with other block shapes, in turns, one process each, so
-that they compare on one card in one call. Each case is also held to its
+K2's and K4's f32 forward on the same core, K5b's and K2b's f32 backward
+passes) at chip_smoke.py's shapes for copies of this checkout with other
+block shapes, in turns, one process each, so that they compare on one
+card in one call. K2 runs at P 1024 and P 4096 (length 3000), K4 at
+(start 100, 200 queries) and (start 4000, 1 query), each with the split
+plan that copy's rows give. Each case is also held to its
 plain version (the worst row error), and each copy's ptxas registers and
 spills of its f32 Dh-128 kernels are printed.
 
@@ -90,6 +93,7 @@ def one(root: str) -> None:
         del grads, want
     del q, k0, v0, k1, v1, do, o, lse
     torch.cuda.empty_cache()
+    forward_cases(rnd, emit)
     B, T, KV = K2B
     q, do = rnd(B, T, H, DH), rnd(B, T, H, DH)
     k, v = rnd(B, T, KV, DH), rnd(B, T, KV, DH)
@@ -99,6 +103,40 @@ def one(root: str) -> None:
     emit(f"K2b B={B} S={T}",
          lambda: attention.attention_backward(q, k, v, o, lse, do), got,
          want, 10.0 * B * T * (T + 1) / 2 * H * DH)
+
+
+def forward_cases(rnd, emit) -> None:
+    """K2 and K4 in f32 at Llama-3-8B heads (KV 8): K2 at P 1024 and P 4096
+    (length 3000); K4 on the last layer of a 2-layer pool of 16-token
+    pages at (start 100, 200 queries) and (start 4000, 1 query)."""
+    import torch
+
+    from brpc_tpu_torch.ops import attention
+
+    kv, page = K2B[2], 16
+    for P, length in ((1024, 1024), (4096, 3000)):
+        q, k, v = rnd(P, H, DH), rnd(P, kv, DH), rnd(P, kv, DH)
+        pairs = sum(min(i + 1, length) for i in range(P))
+        emit(f"K2 P={P} length={length}",
+             lambda: attention.prefill_attention(q, k, v, length),
+             [attention.prefill_attention(q, k, v, length)],
+             [attention.prefill_attention_plain(q, k, v, length)],
+             4.0 * pairs * H * DH)
+    for start, n in ((100, 200), (4000, 1)):
+        pages = -(-(start + n) // page)
+        k_pool, v_pool = (rnd(pages + 1, 2, page, kv, DH) for _ in range(2))
+        table = torch.randperm(pages, device="cuda").int() + 1
+        q = rnd(n, H, DH)
+
+        def kern():
+            return attention.paged_prefill_attention(q, k_pool, v_pool,
+                                                     table, start, 1)
+
+        plan = attention.plan_splits(n, H, kv, start, 132, torch.float32)
+        emit(f"K4 start={start} n={n} plan(132 SMs)={plan}", kern, [kern()],
+             [attention.paged_prefill_attention_plain(q, k_pool, v_pool,
+                                                      table, start, 1)],
+             4.0 * H * DH * (n * start + n * (n + 1) / 2))
 
 
 def checkout(spec: str) -> str:
