@@ -1,11 +1,12 @@
 // The f32 attention cores on the H100's CUDA cores: the forward (`fwd`)
 // that K5's f32 block fold (csrc/ring_attention.cu), K2's f32 prefill
-// (csrc/prefill_attention.cu) and K4's f32 suffix prefill
-// (csrc/paged_prefill_attention.cu) share, and the f32 passes of the
-// attention backward that K2b (csrc/attention_backward.cu) and K5b
-// (csrc/ring_attention_backward.cu) share (`bwd`). The f32 routes exist to
-// hold the port to the reference in f32, so every product is a plain f32
-// FFMA: no tensor cores and no TF32.
+// (csrc/prefill_attention.cu), K4's f32 suffix prefill
+// (csrc/paged_prefill_attention.cu) and K1's f32 decode
+// (csrc/paged_decode_attention.cu, in a layout of 16 rows) share, and the
+// f32 passes of the attention backward that K2b
+// (csrc/attention_backward.cu) and K5b (csrc/ring_attention_backward.cu)
+// share (`bwd`). The f32 routes exist to hold the port to the reference in
+// f32, so every product is a plain f32 FFMA: no tensor cores and no TF32.
 //
 // Bound on the card: operations, against the H100 SXM's 67 TFLOP/s of f32
 // FFMA (data sheet, 700 W). What keeps a SIMT kernel from it is the shared
@@ -59,6 +60,14 @@ namespace attn_f32 {
 constexpr int kF32FwdRows = 128;
 constexpr int kF32FwdKeys = 64;
 constexpr int kF32FwdThreads = 256;
+// K1's f32 decode (csrc/paged_decode_attention.cu) runs the forward in a
+// layout of kF32DecodeRows rows (up to that many of a lane's H / KV query
+// heads), small enough that an SM holds kF32DecodeBlocks blocks; its
+// splits are kF32DecodeSplitTiles key tiles. ops/attention.py's f32 decode
+// plan reads all three; tools/torch_f32_sweep.py chose them.
+constexpr int kF32DecodeRows = 16;
+constexpr int kF32DecodeBlocks = 2;
+constexpr int kF32DecodeSplitTiles = 2;
 // The backward core: own rows of a block, rows of a column tile, threads
 // (ops/attention.py reads these).
 constexpr int kF32BwdOwnRows = 128;
@@ -79,6 +88,8 @@ static_assert(kF32BwdThreads % (4 * kGrid) == 0 &&
                   kF32BwdCols % 8 == 0 && kF32BwdCols % 4 == 0,
               "backward thread grids");
 constexpr int kSmemPerBlock = 232448;  // what one block may use
+constexpr int kSmemPerSm = 233472;     // what the blocks of an SM share
+constexpr int kSmemReserved = 1024;    // the system's share of each block
 // Unroll depths of the two inner loops: 4-column steps of a logit-like
 // product, 4-key steps of an accumulation.
 constexpr int kF32DotUnroll = 8;
@@ -209,26 +220,31 @@ __device__ __forceinline__ void dots(float (&s)[kRm][kCn], const float* xs,
 
 // ---- the forward: a block of query rows over a range of keys ------------
 
-// Shared memory, in floats: Q, two K stages, two V stages (one where two do
-// not fit: the next V tile then loads while S and P are formed), P, and
-// the warps' causal edges.
-template <int DH>
+// Shared memory of a block of kRows query rows, of which an SM holds
+// kBlocks, in floats: Q, two K stages, two V stages (one where two do not
+// fit: the next V tile then loads while S and P are formed), P, and the
+// warps' causal edges.
+template <int DH, int kRows_ = kF32FwdRows, int kBlocks = 1>
 struct FwdSmem {
+  static constexpr int kRows = kRows_;
+  static constexpr int kBudget =
+      kBlocks == 1 ? kSmemPerBlock : kSmemPerSm / kBlocks - kSmemReserved;
   static constexpr int kStride = Cols<DH>::kStride;
   static constexpr int kPStride = kF32FwdKeys + 4;
   static constexpr int kTile = kF32FwdKeys * kStride;
-  static constexpr int kFixed = kF32FwdRows * kStride + 2 * kTile +
-                                kF32FwdRows * kPStride +
-                                kF32FwdThreads / 32;
+  static constexpr int kFixed = kRows * kStride + 2 * kTile +
+                                kRows * kPStride + kF32FwdThreads / 32;
   static constexpr int kVStages =
-      (kFixed + 2 * kTile) * 4 <= kSmemPerBlock ? 2 : 1;
+      (kFixed + 2 * kTile) * 4 <= kBudget ? 2 : 1;
   static constexpr int kQ = 0;
-  static constexpr int kK = kQ + kF32FwdRows * kStride;
+  static constexpr int kK = kQ + kRows * kStride;
   static constexpr int kV = kK + 2 * kTile;
   static constexpr int kP = kV + kVStages * kTile;
-  static constexpr int kEdge = kP + kF32FwdRows * kPStride;
+  static constexpr int kEdge = kP + kRows * kPStride;
   static constexpr size_t kBytes =
       static_cast<size_t>(kEdge + kF32FwdThreads / 32) * sizeof(float);
+  static_assert(kBytes <= static_cast<size_t>(kBudget),
+                "the layout fits its share of an SM");
 };
 
 // Keys [k0, k0 + kF32FwdKeys) of `src` (p.k or p.v) into a staged tile,
@@ -255,11 +271,12 @@ __device__ __forceinline__ void fwd_load(const Problem& p, float* dst,
 // Slice i is row ty + kGy i of every thread, the block's rows kGy i ..
 // kGy i + kGy - 1; rows are numbered valid first, so a slice is live or
 // dead as a whole.
-template <int DH>
+template <int DH, int kRows = kF32FwdRows>
 struct FwdRows {
   static constexpr int kGy = kF32FwdThreads / kGrid;  // rows of the grid
-  static constexpr int kRm = kF32FwdRows / kGy;        // slices: rows a thread
-  static_assert((kRm & (kRm - 1)) == 0, "a power of two of slices");
+  static constexpr int kRm = kRows / kGy;              // slices: rows a thread
+  static_assert(kRows % kGy == 0 && (kRm & (kRm - 1)) == 0,
+                "a power of two of slices");
   int edge[kRm];
   float m[kRm], l[kRm], o[kRm][Cols<DH>::kOc];
 };
@@ -270,20 +287,21 @@ struct FwdRows {
 // dead slices with no branch in their loops and every register index stays
 // static; with every slice live it is the one full variant. Before the
 // call the copy groups K(0), V(0) (and Q) are in flight.
-template <int DH, int kLive, typename Problem>
-__device__ __forceinline__ void fwd_tiles(const Problem& p, FwdRows<DH>& r,
+template <int DH, typename L, int kLive, typename Problem>
+__device__ __forceinline__ void fwd_tiles(const Problem& p,
+                                          FwdRows<DH, L::kRows>& r,
                                           float* sm, float scale,
                                           int n_tiles, int emin, int live,
                                           int ty, int tx) {
   if constexpr (kLive > 1) {
     if (live <= kLive / 2) {
-      fwd_tiles<DH, kLive / 2>(p, r, sm, scale, n_tiles, emin, live, ty, tx);
+      fwd_tiles<DH, L, kLive / 2>(p, r, sm, scale, n_tiles, emin, live, ty,
+                                  tx);
       return;
     }
   }
-  using L = FwdSmem<DH>;
-  constexpr int kGy = FwdRows<DH>::kGy;
-  constexpr int kRm = FwdRows<DH>::kRm;
+  constexpr int kGy = FwdRows<DH, L::kRows>::kGy;
+  constexpr int kRm = FwdRows<DH, L::kRows>::kRm;
   constexpr int kKn = kF32FwdKeys / kGrid;  // keys of S a thread
   constexpr int kOc = Cols<DH>::kOc;
   const float* qs = sm + L::kQ;
@@ -378,7 +396,8 @@ __device__ __forceinline__ void fwd_tiles(const Problem& p, FwdRows<DH>& r,
   }
 }
 
-// One block computes its kF32FwdRows query rows (row r is global row
+// One block of the layout FwdSmem<DH, kRows, kBlocks> computes its kRows
+// query rows (row r is global row
 // p.row_id(r), -1 past the end, valid rows first) over the keys
 // [p.key_begin, p.key_end) with an online softmax in f32. Key j is visible
 // to row r when j < p.key_end and j <= p.edge(r); only tiles that cross the
@@ -393,13 +412,16 @@ __device__ __forceinline__ void fwd_tiles(const Problem& p, FwdRows<DH>& r,
 //   attn::merge_row reads); otherwise the rows' o / l (l = 0 read as 1) go
 //   to sink.out and, where sink.lse is set, their LSE to sink.lse.
 // An empty key range writes its rows as they started (m = -inf, l = 0 for
-// a problem that does not fold).
-template <int DH, typename Problem>
+// a problem that does not fold). Every copy group is drained on return;
+// a caller that runs fwd again in the same block passes a __syncthreads
+// first, since threads may still read the last tile.
+template <int DH, int kRows = kF32FwdRows, int kBlocks = 1,
+          typename Problem>
 __device__ void fwd(const Problem& p, const float* __restrict__ q,
                     float scale, const attn::Sink<float>& sink) {
   using C = Cols<DH>;
-  using L = FwdSmem<DH>;
-  using R = FwdRows<DH>;
+  using L = FwdSmem<DH, kRows, kBlocks>;
+  using R = FwdRows<DH, kRows>;
   constexpr int kStride = L::kStride;
   constexpr int kGy = R::kGy;
   constexpr int kRm = R::kRm;
@@ -472,7 +494,7 @@ __device__ void fwd(const Problem& p, const float* __restrict__ q,
 #pragma unroll
   for (int w = 0; w < kF32FwdThreads / 32; ++w) emin = min(emin, edge_s[w]);
 
-  fwd_tiles<DH, kRm>(p, r, sm, scale, n_tiles, emin, live, ty, tx);
+  fwd_tiles<DH, L, kRm>(p, r, sm, scale, n_tiles, emin, live, ty, tx);
 
   // Each row's l from its 16 threads' shares, then the state or the rows.
 #pragma unroll

@@ -1,42 +1,35 @@
-// The attention core shared by K1 (csrc/paged_decode_attention.cu), K2
-// (csrc/prefill_attention.cu) and K4 (csrc/paged_prefill_attention.cu): one
-// block folds a tile of 64 query rows over a range of keys with an online
-// softmax. The kernels differ only in their "problem", a small struct that
-// says which global row each of the 64 rows is, the last key each row may
-// see, where key j lives, and which key range the block covers. Rows are
-// numbered valid first (row_id -1 past the end), so a warp whose first row
-// is invalid skips the arithmetic. Two cores, chosen by dtype:
+// The bf16 attention core of K1 (csrc/paged_decode_attention.cu), K2
+// (csrc/prefill_attention.cu) and K4 (csrc/paged_prefill_attention.cu) on
+// the tensor cores (`mma_tile`), with what the forward kernels share: the
+// Sink a block writes through, the merge of split partials (`merge_row`)
+// and the shared-memory attribute. One block folds a tile of 64 query rows
+// over a range of keys with an online softmax. The kernels differ only in
+// their "problem", a small struct that says which global row each of the
+// 64 rows is, the last key each row may see, where key j lives, and which
+// key range the block covers. Rows are numbered valid first (row_id -1
+// past the end), so a warp whose first row is invalid skips the
+// arithmetic. Every f32 forward route (K1, K2, K4 and K5) runs the SIMT
+// core of csrc/attention_f32.cuh (`attn_f32::fwd`) on problems of the
+// same shape, through the same Sink and merge.
 //
-// bf16 (`mma_tile`): tensor cores. 4 warps of 16 rows each. The Q tile is
-// copied into shared memory and held in registers as the A operand of
-// mma.sync.m16n8k16 (bf16 in, f32 accumulate). K and V tiles of 64 keys
-// stream in through 16-byte cp.async copies into a double-buffered ring in
-// shared memory; rows are padded by 16 bytes so that ldmatrix reads of 8
-// rows hit 8 different bank groups. S = Q.K^T comes out of the tensor
-// cores in f32, is scaled by the f32-rounded 1/sqrt(Dh) and masked in
-// registers, and folds into a running row max and sum (f32; a row's four
-// lanes combine with two shuffles). The probabilities, rounded to bf16,
-// are the A operand of P.V straight from the S accumulator fragment (the
-// m16n8k16 C layout of two 8-key tiles is the A layout of one 16-key
-// step), so P never goes through shared memory; V's B operand comes from
-// ldmatrix.trans. O accumulates in f32 registers; the division by the sum
-// happens once, at the end.
-//
-// f32 (`f32_tile`, K1's f32 route alone): exact f32 math on the CUDA
-// cores, for the f32 model (the serving path's stream-exactness check runs
-// f32 with TF32 off, so tensor cores cannot serve it). 8 warps of 8 rows;
-// K/V tiles of 32 keys staged once in shared memory as f32; lane j forms
-// key j's logit for the warp's rows, and P.V gives each lane Dh/32 output
-// columns. K2's and K4's f32 routes run the register-tiled SIMT forward
-// core of csrc/attention_f32.cuh (`attn_f32::fwd`) on the same problems
-// with 128 rows a block, through the same Sink.
-//
-// Both cores take the same problems and the same key ranges (a split is
-// cut in 64-key tiles, a multiple of the f32 core's 32), and both follow
-// the reference's rounding: f32 logits from model-dtype operands times
+// `mma_tile`: 4 warps of 16 rows each. The Q tile is copied into shared
+// memory and held in registers as the A operand of mma.sync.m16n8k16 (bf16
+// in, f32 accumulate). K and V tiles of 64 keys stream in through 16-byte
+// cp.async copies into a double-buffered ring in shared memory; rows are
+// padded by 16 bytes so that ldmatrix reads of 8 rows hit 8 different bank
+// groups. S = Q.K^T comes out of the tensor cores in f32, is scaled by the
+// f32-rounded 1/sqrt(Dh) and masked in registers, and folds into a running
+// row max and sum (f32; a row's four lanes combine with two shuffles). The
+// probabilities, rounded to bf16, are the A operand of P.V straight from
+// the S accumulator fragment (the m16n8k16 C layout of two 8-key tiles is
+// the A layout of one 16-key step), so P never goes through shared memory;
+// V's B operand comes from ldmatrix.trans. O accumulates in f32 registers;
+// the division by the sum happens once, at the end. This follows the
+// reference's rounding: f32 logits from model-dtype operands times
 // softmax_scale, masked keys skipped, probabilities rounded to the model
 // dtype before P.V, P.V accumulated in f32, one division by the sum.
 //
+// A split is cut in 64-key tiles (kTileKeys, the f32 core's key tile too).
 // A block writes either its final rows (one split: O / l rounded to T) or,
 // when the key range is cut into splits, an unnormalised f32 partial O with
 // its row max m and sum l, which a merge pass (`merge_row`, below) combines.
@@ -49,10 +42,8 @@
 // exp(logit - m)), from which a backward pass recomputes the probabilities
 // as exp(logit - lse). A row with l = 0 gets +inf: every probability, and
 // so every gradient of the row, is then 0. Null: no LSE (the serving
-// path).
-//
-// K5's f32 route folds into a running state instead, on that SIMT core,
-// through the same Sink.
+// path). K5's f32 route folds into a running state instead, through the
+// same Sink.
 #pragma once
 
 #include <stdint.h>
@@ -65,16 +56,14 @@
 namespace brpc_tpu_torch {
 namespace attn {
 
-constexpr int kTileRows = 64;  // query rows of one block, both cores
-constexpr int kTileKeys = 64;  // keys of one bf16 tile; a split's unit
+constexpr int kTileRows = 64;  // query rows of one block
+constexpr int kTileKeys = 64;  // keys of one tile; a split's unit
 // Blocks of the bf16 core an SM holds at once: 68 KB of shared memory and
-// at most 168 registers a thread. K4's split planner aims its grid at this
-// many blocks per SM (ops/attention.py reads these three constants from
-// this file).
+// at most 168 registers a thread. The bf16 split plans of K4 and K1 aim
+// their grids at this many blocks per SM (ops/attention.py reads these
+// three constants from this file).
 constexpr int kMmaMinBlocks = 3;
 constexpr int kMmaThreads = 128;
-constexpr int kF32Threads = 256;
-constexpr int kF32Keys = 32;
 constexpr float kLog2e = 1.4426950408889634f;
 
 // Where a block's rows go. Rows are numbered as in q and out, [n, H]
@@ -403,145 +392,6 @@ __device__ void mma_tile(const Problem& p, const __nv_bfloat16* __restrict__ q,
   store(p.row_id(row_a + 8), m_b, l_b, 1);
 }
 
-// ---- f32 on the CUDA cores ------------------------------------------------
-
-template <int DH>
-constexpr size_t f32_smem_bytes() {
-  return (static_cast<size_t>(kTileRows) * DH +
-          static_cast<size_t>(kF32Keys) * (DH + 4) +
-          static_cast<size_t>(kF32Keys) * DH) *
-         sizeof(float);
-}
-
-template <int DH, typename Problem>
-__device__ void f32_tile(const Problem& p, const float* __restrict__ q,
-                         float scale, const Sink<float>& sink) {
-  constexpr int kWarps = kF32Threads / 32;
-  constexpr int kRows = kTileRows / kWarps;  // query rows per warp
-  constexpr int kVpt = DH / 32;
-  constexpr int kStrideK = DH + 4;  // keeps float4 rows 16-byte aligned
-  if (p.key_begin >= p.key_end) {
-    write_empty(p, sink);
-    return;
-  }
-  extern __shared__ float4 smem_f4[];
-  float* qs = reinterpret_cast<float*>(smem_f4);  // [kTileRows][DH]
-  float* ks = qs + kTileRows * DH;                 // [kF32Keys][kStrideK]
-  float* vs = ks + kF32Keys * kStrideK;            // [kF32Keys][DH]
-
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  // As in mma_tile: a warp whose first row is past the end only loads.
-  const bool active = p.row_id(warp * kRows) >= 0;
-
-  for (int i = threadIdx.x; i < kTileRows * DH; i += kF32Threads) {
-    const int r = i / DH;
-    const int rid = p.row_id(r);
-    qs[i] = rid >= 0 ? q[static_cast<long long>(rid) * DH + (i - r * DH)]
-                     : 0.f;
-  }
-  int edge[kRows];
-  float acc[kRows][kVpt];
-  float m[kRows];
-  float l[kRows];
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    edge[r] = p.edge(warp * kRows + r);
-    m[r] = -INFINITY;
-    l[r] = 0.f;
-#pragma unroll
-    for (int j = 0; j < kVpt; ++j) acc[r][j] = 0.f;
-  }
-
-  for (int k0 = p.key_begin; k0 < p.key_end; k0 += kF32Keys) {
-    __syncthreads();  // previous tile consumed (and qs written, first pass)
-    for (int i = threadIdx.x; i < kF32Keys * DH; i += kF32Threads) {
-      const int t = i / DH;
-      const int d = i - t * DH;
-      const int key = k0 + t;
-      float kv_k = 0.f, kv_v = 0.f;
-      if (key < p.key_end) {
-        const long long off = p.kv_offset(key) + d;
-        kv_k = p.k[off];
-        kv_v = p.v[off];
-      }
-      ks[t * kStrideK + d] = kv_k;
-      vs[t * DH + d] = kv_v;
-    }
-    __syncthreads();
-    if (!active) continue;
-
-    // Logits: lane j <-> key k0 + j, for the warp's kRows query rows.
-    float s[kRows];
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) s[r] = 0.f;
-    const float4* krow = reinterpret_cast<const float4*>(ks + lane * kStrideK);
-#pragma unroll 4
-    for (int d4 = 0; d4 < DH / 4; ++d4) {
-      const float4 kk = krow[d4];
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        const float4 qq = reinterpret_cast<const float4*>(
-            qs + (warp * kRows + r) * DH)[d4];
-        s[r] += qq.x * kk.x + qq.y * kk.y + qq.z * kk.z + qq.w * kk.w;
-      }
-    }
-    const int key = k0 + lane;
-    float pr[kRows];
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      const bool valid = key < p.key_end && key <= edge[r];
-      const float sv = valid ? s[r] * scale : -INFINITY;
-      const float m_new = fmaxf(m[r], warp_max(sv));
-      const float alpha = m[r] == -INFINITY ? 0.f : expf(m[r] - m_new);
-      const float e = valid ? expf(sv - m_new) : 0.f;
-      l[r] = l[r] * alpha + warp_sum(e);
-      m[r] = m_new;
-#pragma unroll
-      for (int j = 0; j < kVpt; ++j) acc[r][j] *= alpha;
-      pr[r] = e;
-    }
-    // P.V: lane owns output columns lane + 32 * j.
-    const int n_keys = min(kF32Keys, p.key_end - k0);
-    for (int t = 0; t < n_keys; ++t) {
-      float vv[kVpt];
-#pragma unroll
-      for (int j = 0; j < kVpt; ++j) vv[j] = vs[t * DH + lane + 32 * j];
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        const float pt = __shfl_sync(0xffffffffu, pr[r], t);
-#pragma unroll
-        for (int j = 0; j < kVpt; ++j) acc[r][j] += pt * vv[j];
-      }
-    }
-  }
-
-  if (!active) return;
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    const int rid = p.row_id(warp * kRows + r);
-    if (rid < 0) continue;
-    if (!sink.partial) {
-      const float inv = 1.0f / l[r];
-      if (sink.lse != nullptr && lane == 0)
-        sink.lse[rid] = row_lse(m[r], l[r]);
-      float* orow = sink.out + static_cast<long long>(rid) * DH;
-#pragma unroll
-      for (int j = 0; j < kVpt; ++j) orow[lane + 32 * j] = acc[r][j] * inv;
-    } else {
-      const long long prow =
-          static_cast<long long>(sink.split) * sink.n_rows + rid;
-      float* orow = sink.o_part + prow * DH;
-#pragma unroll
-      for (int j = 0; j < kVpt; ++j) orow[lane + 32 * j] = acc[r][j];
-      if (lane == 0) {
-        sink.ml_part[prow * 2] = m[r];
-        sink.ml_part[prow * 2 + 1] = l[r];
-      }
-    }
-  }
-}
-
 // ---- merge of the split partials --------------------------------------------
 
 constexpr int kMergeWarps = 4;  // rows (warps) of one merge block
@@ -587,35 +437,6 @@ __device__ __forceinline__ void merge_row(const float* __restrict__ o_part,
 __host__ __forceinline__ unsigned merge_blocks(int n_rows) {
   return static_cast<unsigned>((n_rows + kMergeWarps - 1) / kMergeWarps);
 }
-
-// ---- dispatch ----------------------------------------------------------------
-
-template <typename T>
-struct Core;
-template <>
-struct Core<__nv_bfloat16> {
-  static constexpr int kThreads = kMmaThreads;
-  static constexpr int kMinBlocks = kMmaMinBlocks;
-  template <int DH>
-  static constexpr size_t smem() { return mma_smem_bytes<DH>(); }
-  template <int DH, typename Problem>
-  static __device__ void run(const Problem& p, const __nv_bfloat16* q,
-                             float scale, const Sink<__nv_bfloat16>& sink) {
-    mma_tile<DH>(p, q, scale, sink);
-  }
-};
-template <>
-struct Core<float> {
-  static constexpr int kThreads = kF32Threads;
-  static constexpr int kMinBlocks = 1;
-  template <int DH>
-  static constexpr size_t smem() { return f32_smem_bytes<DH>(); }
-  template <int DH, typename Problem>
-  static __device__ void run(const Problem& p, const float* q, float scale,
-                             const Sink<float>& sink) {
-    f32_tile<DH>(p, q, scale, sink);
-  }
-};
 
 // Allows the kernel its dynamic shared memory (above 48 KB needs the
 // attribute), once per device: `done` is the caller's per-kernel bit set of

@@ -59,6 +59,12 @@ BLOCKS_PER_SM = _TILE["kMmaMinBlocks"]
 # tiles are TILE_KEYS wide too (K4 asserts it), so both plans cut alike.
 _F32 = _build.header_constants("attention_f32.cuh")
 F32_FWD_ROWS = _F32["kF32FwdRows"]
+# K1's f32 route runs that core in a layout of F32_DECODE_ROWS rows (up to
+# that many of a lane's H / KV query heads), F32_DECODE_BLOCKS blocks an
+# SM, over splits of F32_DECODE_SPLIT_TILES tiles.
+F32_DECODE_ROWS = _F32["kF32DecodeRows"]
+F32_DECODE_BLOCKS = _F32["kF32DecodeBlocks"]
+F32_DECODE_SPLIT_TILES = _F32["kF32DecodeSplitTiles"]
 # A split holds at least this many key tiles: fewer would spend more on the
 # partial's write and the merge than the split saves.
 MIN_SPLIT_TILES = 2
@@ -112,13 +118,68 @@ def plan_splits(n_q: int, n_heads: int, n_kv_heads: int, start: int,
 
 
 def plan_decode_splits(n_lanes: int, n_kv_heads: int, max_keys: int,
-                       sms: int) -> tuple:
-    """K1's split-K plan -> (tiles_per_split, n_splits): one block per
-    (lane, KV head), whose rows are the lane's H / KV query heads, over
-    the keys [0, max_keys), the bound the block table's width gives (pages
-    x page size). From host integers only: the lanes' positions stay on
-    the device, and a split past a lane's position is empty for it."""
+                       sms: int, dtype: torch.dtype = torch.bfloat16
+                       ) -> tuple:
+    """K1's split-K plan for the core of ``dtype`` -> (tiles_per_split,
+    n_splits): one item per (lane, KV head, split), whose rows are the
+    lane's H / KV query heads, over the keys [0, max_keys), the bound the
+    block table's width gives (pages x page size). From host integers
+    only: the lanes' positions stay on the device, and a split past a
+    lane's position is empty for it.
+
+    bf16 (the tile core, one block per item): the grid aimed at
+    ``BLOCKS_PER_SM`` blocks per SM. f32 (the SIMT forward core, a
+    persistent grid of ``decode_grid`` blocks that run only the items
+    holding a key, ``decode_schedule``): splits of
+    ``F32_DECODE_SPLIT_TILES`` tiles, so that a long lane spreads over
+    many SMs, or one split, and no merge, where the lanes' KV heads alone
+    give every block slot (``F32_DECODE_BLOCKS`` an SM) an item. The split
+    size is the fastest of 1, 2 and 4 tiles at phase 3's first two K1
+    cases (``tools/torch_f32_sweep.py --decode . D1x16x2 D4x16x2``,
+    PERF.md section 6)."""
+    if dtype == torch.float32:
+        tiles = -(-max_keys // TILE_KEYS)
+        if (n_lanes * n_kv_heads >= F32_DECODE_BLOCKS * sms
+                or tiles <= F32_DECODE_SPLIT_TILES):
+            return tiles, 1
+        return F32_DECODE_SPLIT_TILES, -(-tiles // F32_DECODE_SPLIT_TILES)
     return _plan(n_lanes * n_kv_heads, max_keys, sms)
+
+
+def decode_grid(n_lanes: int, n_heads: int, n_kv_heads: int,
+                n_splits: int, sms: int) -> int:
+    """Blocks of K1's f32 launch: one per item (lane, KV head, chunk of up
+    to F32_DECODE_ROWS of its query heads, split), at most
+    F32_DECODE_BLOCKS per SM (the kernel derives the same from the card's
+    SM count)."""
+    chunks = -(-(n_heads // n_kv_heads) // F32_DECODE_ROWS)
+    return min(n_lanes * n_kv_heads * chunks * n_splits,
+               F32_DECODE_BLOCKS * sms)
+
+
+def decode_live_splits(pos: int, max_keys: int, tiles_per_split: int) -> int:
+    """The splits of K1's plan that hold a key of a lane at ``pos``: its
+    keys [0, pos + 1), clipped at the table's ``max_keys``."""
+    keys = min(max(pos + 1, 0), max_keys)
+    return -(-keys // (tiles_per_split * TILE_KEYS))
+
+
+def decode_schedule(pos, n_heads: int, n_kv_heads: int,
+                    tiles_per_split: int, n_splits: int, max_keys: int,
+                    sms: int) -> list:
+    """The items (lane, KV head, chunk, split) that each block of K1's f32
+    launch runs, in order, for lanes at ``pos``: every block forms the
+    lane-major sequence (lane, split, KV head, chunk) of the items that
+    hold a key (``decode_live_splits`` of each lane) and block b runs items
+    b, b + grid, ... of it. Items past a lane's pos are in no block's list,
+    and the merge reads only the live splits."""
+    grid = decode_grid(len(pos), n_heads, n_kv_heads, n_splits, sms)
+    chunks = -(-(n_heads // n_kv_heads) // F32_DECODE_ROWS)
+    live = [(lane, kvh, chunk, split) for lane, p in enumerate(pos)
+            for split in range(decode_live_splits(int(p), max_keys,
+                                                  tiles_per_split))
+            for kvh in range(n_kv_heads) for chunk in range(chunks)]
+    return [live[b::grid] for b in range(grid)]
 
 
 def split_ranges(start: int, n_q: int, tiles_per_split: int,
@@ -174,14 +235,17 @@ def paged_decode_split_partials(q, k_pool, v_pool, tables, pos,
 
 
 def paged_decode_attention_split_plain(q, k_pool, v_pool, tables, pos,
-                                       layer: int, sms: int) -> torch.Tensor:
+                                       layer: int, sms: int,
+                                       dtype: torch.dtype = torch.bfloat16
+                                       ) -> torch.Tensor:
     """K1's split-K arithmetic in plain PyTorch: the split pass of the plan
-    ``plan_decode_splits`` makes for the table's width and ``sms`` SMs,
-    then the merge, rounded to q's dtype. For the tests; the main path
-    never calls it."""
+    ``plan_decode_splits`` makes for the table's width, ``sms`` SMs and
+    the core of ``dtype``, then the merge, rounded to q's dtype. For the
+    tests; the main path never calls it."""
     S, H, _ = q.shape
     page, KV = k_pool.shape[2], k_pool.shape[3]
-    per, n_splits = plan_decode_splits(S, KV, tables.shape[1] * page, sms)
+    per, n_splits = plan_decode_splits(S, KV, tables.shape[1] * page, sms,
+                                       dtype)
     o, m, l = paged_decode_split_partials(q, k_pool, v_pool, tables, pos,
                                           layer, per, n_splits)
     return merge_splits_plain(o, m, l).to(q.dtype)
@@ -193,9 +257,10 @@ def paged_decode_attention(q, k_pool, v_pool, tables, pos,
     over layer ``layer`` of the paged pool, read through ``tables``
     ([S, pages] int32; every pos[s] < pages * page). On a CUDA tensor
     launches csrc/paged_decode_attention.cu (K1): one call runs the split
-    pass of ``plan_decode_splits`` (from the table's width and the card's
-    SM count; pos stays on the device) and, with more than one split, the
-    merge pass, and returns the first launch error."""
+    pass of ``plan_decode_splits`` (from the table's width, the card's SM
+    count and q's dtype: bf16 on the tile core, f32 on the SIMT forward
+    core's persistent grid; pos stays on the device) and, with more than
+    one split, the merge pass, and returns the first launch error."""
     if q.device.type == "cpu":
         return paged_decode_attention_plain(q, k_pool, v_pool, tables, pos,
                                             layer)
@@ -220,7 +285,7 @@ def paged_decode_attention(q, k_pool, v_pool, tables, pos,
     qc, tc, pc = q.contiguous(), tables.contiguous(), pos.contiguous()
     width = tc.shape[1]
     per, n_splits = plan_decode_splits(S, KV, width * page,
-                                       _sm_count(q.device))
+                                       _sm_count(q.device), q.dtype)
     # One allocation: the output, then with splits the f32 scratch, partial
     # O [n_splits, S * H, Dh] and (m, l) [n_splits, S * H, 2].
     rows = S * H

@@ -220,14 +220,16 @@ BACKWARD_KERNELS = ("attention_backward_kv_kernel",
                     "attention_backward_q_kernel",
                     "ring_fold_backward_kv_kernel",
                     "ring_fold_backward_q_kernel")
-# The f32 routes of K5, K2, K4, K2b and K5b run the SIMT cores of
+# The f32 routes of K5, K2, K4, K1, K2b and K5b run the SIMT cores of
 # csrc/attention_f32.cuh: plain FFMA, no tensor cores (no TF32), no spill.
 F32_SIMT_KERNELS = ("ring_attention_fold_kernel",
                     "prefill_attention_simt_kernel",
-                    "paged_prefill_simt_kernel") + BACKWARD_KERNELS
-# K2's and K4's kernels on the tile core: bf16 only (their f32 routes are
-# the SIMT kernels above).
-TILE_BF16_ONLY = re.compile(r"\d(prefill_attention|paged_prefill)_kernelIf")
+                    "paged_prefill_simt_kernel",
+                    "paged_decode_simt_kernel") + BACKWARD_KERNELS
+# K2's, K4's and K1's kernels on the tile core: bf16 only (their f32
+# routes are the SIMT kernels above).
+TILE_BF16_ONLY = re.compile(
+    r"\d(prefill_attention|paged_prefill|paged_decode)_kernelIf")
 
 
 def f32_simt_kernel(name: str) -> bool:
@@ -243,8 +245,9 @@ def sass_mma_counts(build) -> dict:
     library, from cuobjdump -sass: {kernel: {"HMMA": n, "HGMMA": m}}
     (mma.sync and wgmma). Fails unless each bf16 K1, K2 and K4 kernel has
     HMMA, each bf16 K5 kernel HGMMA and no HMMA, each bf16 pass of K2b
-    and K5b HGMMA, each f32 K5, K2, K4, K2b and K5b kernel neither, and
-    no f32 instance of K2's or K4's tile-core kernel is built."""
+    and K5b HGMMA, each f32 K5, K2, K4, K1, K2b and K5b kernel neither,
+    and no f32 instance of K2's, K4's or K1's tile-core kernel is
+    built."""
     tool = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
     sass = subprocess.run([tool, "-sass", build.LIB_PATH],
                           capture_output=True, text=True, check=True).stdout
@@ -281,8 +284,8 @@ def sass_mma_counts(build) -> dict:
                              "is still built")
     old_f32 = [k for k in counts if TILE_BF16_ONLY.search(k)]
     if old_f32:
-        raise AssertionError(f"an f32 instance of K2's or K4's tile-core "
-                             f"kernel is still built: {old_f32}")
+        raise AssertionError(f"an f32 instance of K2's, K4's or K1's "
+                             f"tile-core kernel is still built: {old_f32}")
     for kind in WGMMA_KERNELS + BACKWARD_KERNELS:
         found = bf16(kind)
         if not found or any(counts[k]["HGMMA"] == 0 for k in found):
@@ -328,16 +331,14 @@ K1_CASES = (([0, 15, 16, 300, 2047, 1000, 517, 64], 512, ()),
             ([0] * 7 + [1055], None, tuple(range(7))))
 
 
-def check_paged_decode(dtype, gen, pos_list, width=None, idle=()) -> dict:
-    """K1 over 8 lanes at ``pos_list`` on the last layer of a 32-layer
-    pool, its table ``width`` columns wide (None: the pages in play, as
-    the engine sends it); lanes in ``idle`` decode at pos 0 through
-    garbage block 0, as free slots do."""
-    from brpc_tpu_torch.ops import attention
-
+def decode_inputs(dtype, gen, pos_list, width=None, idle=()) -> tuple:
+    """K1's inputs at Llama-3-8B heads: 8 lanes at ``pos_list`` on the
+    last layer of a 32-layer pool, the table ``width`` columns wide (None:
+    the pages in play, as the engine sends it); lanes in ``idle`` decode
+    at pos 0 through garbage block 0, as free slots do. -> (q, k_pool,
+    v_pool, tables, pos, layer, pages each lane holds)."""
     dev = torch.device("cuda")
     S, H, KV, Dh, page, L = len(pos_list), 32, 8, 128, 16, 32
-    layer = L - 1  # the last layer: exercises the pool's layer stride
     need = [0 if s in idle else p // page + 1 for s, p in enumerate(pos_list)]
     width = width or max(need)
     nb = sum(need) + 1
@@ -352,6 +353,19 @@ def check_paged_decode(dtype, gen, pos_list, width=None, idle=()) -> dict:
         used += n
     pos = torch.tensor(pos_list, dtype=torch.int32, device=dev)
     q = torch.randn((S, H, Dh), generator=gen, device=dev).to(dtype)
+    return q, k_pool, v_pool, tables, pos, L - 1, need
+
+
+def check_paged_decode(dtype, gen, pos_list, width=None, idle=()) -> dict:
+    """K1 on ``decode_inputs``: against its plain version, timed, with its
+    dtype's split plan, grid and empty (row, split) pairs."""
+    from brpc_tpu_torch.ops import attention
+
+    q, k_pool, v_pool, tables, pos, layer, need = decode_inputs(
+        dtype, gen, pos_list, width, idle)
+    dev = q.device
+    (S, H, Dh), (nb, L, page, KV, _) = q.shape, k_pool.shape
+    width = tables.shape[1]
 
     def kern():
         return attention.paged_decode_attention(q, k_pool, v_pool, tables,
@@ -364,9 +378,13 @@ def check_paged_decode(dtype, gen, pos_list, width=None, idle=()) -> dict:
     err, row_err = compare(f"paged_decode_attention pos={pos_list}", kern(),
                            plain(), dtype, rows=True)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    per, splits = attention.plan_decode_splits(S, KV, width * page, sms)
-    # (row, split) pairs wholly past their lane's pos: empty blocks whose
-    # rows the merge must weigh 0
+    per, splits = attention.plan_decode_splits(S, KV, width * page, sms,
+                                               dtype)
+    blocks = (attention.decode_grid(S, H, KV, splits, sms)
+              if dtype == torch.float32 else S * KV * splits)
+    # (row, split) pairs wholly past their lane's pos: in bf16 empty blocks
+    # whose rows the merge must weigh 0, in f32 items no block runs and
+    # the merge must skip
     masked_pairs = H * sum(lo > p for p in pos_list for lo, _ in
                            attention.split_ranges(0, width * page, per,
                                                   splits))
@@ -396,7 +414,7 @@ def check_paged_decode(dtype, gen, pos_list, width=None, idle=()) -> dict:
                      f"table[{S},{width}] pos={pos_list}"
                      + (f" idle={list(idle)}" if idle else ""),
             "splits": splits, "tiles_per_split": per,
-            "grid_blocks": S * KV * splits,
+            "grid_blocks": blocks,
             "masked_row_splits": masked_pairs,
             "max_abs_err": err, "row_rel_err": row_err,
             "ms": time_ms(kern), "plain_ms": time_ms(plain, iters=5),

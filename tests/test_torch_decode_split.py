@@ -1,8 +1,10 @@
-"""K1's split-K and K3's fused residual add on the CPU: the decode planner
-against its contract, the plain model of K1's split and merge passes
+"""K1's split-K and K3's fused residual add on the CPU: the decode planners
+(bf16, and f32 with its persistent grid's item schedule) against their
+contract, the plain model of K1's split and merge passes
 (``paged_decode_attention_split_plain``: K4's split pass per lane with
-start = pos, one query) against K1's plain version, the fused norm's plain
-version, and the engine sending only the table columns in play. The plain
+start = pos, one query) against K1's plain version at either plan's cuts,
+the fused norm's plain version, and the engine sending only the table
+columns in play. The plain
 versions are held against the JAX reference in tests/test_torch_ops.py;
 the kernels against them on a card in tests/test_torch_kernels_card.py.
 """
@@ -157,6 +159,88 @@ def test_decode_plan_covers_keys_once_on_tile_boundaries(S, KV, max_keys):
         assert n_splits == 1
     elif tiles >= attention.MIN_SPLIT_TILES * -(-SMS // (S * KV)):
         assert S * KV * n_splits >= SMS
+
+
+def test_f32_decode_plan_and_schedule_cover_every_item_once():
+    """K1's f32 plan (the SIMT core's persistent grid): over
+    DECODE_PLANS its splits cover [0, max_keys) once, cut on 64-key tiles,
+    in splits of F32_DECODE_SPLIT_TILES tiles (one split where the lanes'
+    KV heads alone give each block slot an item, or the keys fit one
+    split); the grid is one block per item up to F32_DECODE_BLOCKS per SM;
+    and for lanes at the table's last key, at a ragged mix (idle lanes at
+    0) and at a pos past the table, with groups of 4 and of 32 query heads
+    (two chunks of F32_DECODE_ROWS), the blocks run each (lane, KV head,
+    chunk, split) that holds a key once, no other, and at most one item
+    more than any other block."""
+    rng = np.random.default_rng(4)
+    slots = attention.F32_DECODE_BLOCKS * SMS
+    for S, KV, max_keys in DECODE_PLANS:
+        case = f"S={S} KV={KV} max_keys={max_keys}"
+        per, n_splits = attention.plan_decode_splits(S, KV, max_keys, SMS,
+                                                     torch.float32)
+        tiles = -(-max_keys // attention.TILE_KEYS)
+        if S * KV >= slots or tiles <= attention.F32_DECODE_SPLIT_TILES:
+            assert (per, n_splits) == (tiles, 1), case
+        else:
+            assert per == attention.F32_DECODE_SPLIT_TILES, case
+        ranges = attention.split_ranges(0, max_keys, per, n_splits)
+        assert ranges[0][0] == 0 and ranges[-1][1] == max_keys, case
+        for (lo, hi), (lo2, _) in zip(ranges, ranges[1:]):
+            assert hi == lo2 and lo % attention.TILE_KEYS == 0, case
+        assert all(lo < hi for lo, hi in ranges), case
+        ragged = rng.integers(0, max_keys, S)
+        ragged[::3] = 0
+        for group in (4, 32):
+            H = KV * group
+            chunks = -(-group // attention.F32_DECODE_ROWS)
+            grid = attention.decode_grid(S, H, KV, n_splits, SMS)
+            assert grid == min(S * KV * chunks * n_splits, slots), case
+            for pos in ([max_keys - 1] * S, list(ragged),
+                        [max_keys + 5] + [0] * (S - 1)):
+                blocks = attention.decode_schedule(pos, H, KV, per, n_splits,
+                                                   max_keys, SMS)
+                assert len(blocks) == grid, case
+                seen = [item for block in blocks for item in block]
+                want = {(s, k, c, sp) for s in range(S) for k in range(KV)
+                        for c in range(chunks)
+                        for sp, (lo, _) in enumerate(ranges)
+                        if lo <= min(int(pos[s]), max_keys - 1)}
+                assert len(seen) == len(set(seen)), case
+                assert set(seen) == want, case
+                sizes = [len(block) for block in blocks]
+                assert max(sizes) - min(sizes) <= 1, case
+
+
+def test_decode_split_model_at_f32_cuts_matches_plain():
+    """At the f32 plan's cuts (splits of F32_DECODE_SPLIT_TILES tiles over
+    a 40-column table), the per-lane partials merged equal the one-pass
+    plain version in f32 within 1e-6, for the MHA and GQA-4 heads, with
+    an idle lane; so does the split model that follows the f32 plan."""
+    width = 40
+    for H, KV, Dh in HEADS:
+        case = f"H={H} KV={KV} Dh={Dh}"
+        q, k_pool, v_pool, tables, pos = _decode_inputs(H, KV, Dh,
+                                                        DECODE_POS, width,
+                                                        7 + H)
+        per, n_splits = attention.plan_decode_splits(
+            len(DECODE_POS), KV, width * PAGE, SMS, torch.float32)
+        assert per == attention.F32_DECODE_SPLIT_TILES and n_splits > 2, case
+        o, m, l = attention.paged_decode_split_partials(
+            q, k_pool, v_pool, tables, pos, 1, per, n_splits)
+        w = per * attention.TILE_KEYS
+        for s, p in enumerate(DECODE_POS):
+            for k in range(n_splits):
+                assert bool(torch.isinf(m[k, s]).all()) == (k * w > p), \
+                    (case, s, k)
+        want = attention.paged_decode_attention_plain(q, k_pool, v_pool,
+                                                      tables, pos, 1)
+        got = attention.merge_splits_plain(o, m, l)
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0,
+                                   atol=1e-6, err_msg=case)
+        got = attention.paged_decode_attention_split_plain(
+            q, k_pool, v_pool, tables, pos, 1, SMS, torch.float32)
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0,
+                                   atol=1e-6, err_msg=case)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -161,9 +161,15 @@ DECODE_CASES = {
 }
 
 
-def _check_paged_decode(dev, case, dtype):
+# Llama-3-8B's heads (GQA 4:1), MHA (group 1) and a group of 32 (two
+# chunks of the f32 decode layout's rows) at narrower heads.
+DECODE_HEADS = [(32, 8, 128), (8, 8, 64), (32, 1, 64)]
+
+
+def _check_paged_decode(dev, case, dtype, heads, rerun=False):
     pos, width, idle = DECODE_CASES[case]
-    H, KV, Dh, L, page = 32, 8, 128, 2, 16
+    H, KV, Dh = heads
+    L, page = 2, 16
     gen = torch.Generator(device=dev).manual_seed(len(case))
     need = [0 if s in idle else p // page + 1 for s, p in enumerate(pos)]
     width = width or max(need)
@@ -182,21 +188,32 @@ def _check_paged_decode(dev, case, dtype):
     before = attention.paged_decode_attention.launches
     got = attention.paged_decode_attention(q, k_pool, v_pool, tables, pos_t,
                                            L - 1)
-    what = f"{case} {dtype}"
+    what = f"{case} {dtype} H={H} KV={KV} Dh={Dh}"
     assert attention.paged_decode_attention.launches == before + 1, what
     want = attention.paged_decode_attention_plain(q, k_pool, v_pool, tables,
                                                   pos_t, L - 1)
     _assert_close(got, want, dtype, what)
     _assert_rows_close(got, want, dtype, what)
+    if rerun:
+        again = attention.paged_decode_attention(q, k_pool, v_pool, tables,
+                                                 pos_t, L - 1)
+        assert torch.equal(again, got), f"{what}: a rerun differs"
 
 
 @pytest.mark.cuda
 def test_paged_decode_attention_matches_plain_on_card(cuda_device):
-    """K1 (split-K over each lane's table, the plan from the table's width)
-    against its plain version on the last layer of a strided pool."""
-    for dtype in DTYPES:
-        for case in DECODE_CASES:
-            _check_paged_decode(cuda_device, case, dtype)
+    """K1 (split-K over each lane's table, the plan from the table's width
+    and the dtype's core) against its plain version on the last layer of
+    a strided pool, at Llama's GQA heads, at MHA and at a group of 32. One
+    f32 case (split, its items spread over a persistent grid, and merged)
+    runs twice and must repeat bit for bit."""
+    for heads in DECODE_HEADS:
+        for dtype in DTYPES:
+            for case in DECODE_CASES:
+                _check_paged_decode(
+                    cuda_device, case, dtype, heads,
+                    rerun=(dtype == torch.float32 and case == "full_table"
+                           and heads == DECODE_HEADS[0]))
 
 
 # (start, n): page-aligned, mid-page start ending mid-page, one query deep,

@@ -13,7 +13,8 @@ from torch.profiler (K2b and K5b: the delta pre-pass, the dK/dV pass, the
 dQ pass), and the library call's kernels are named by the profiler. K2's
 batched training forward (o and the LSE) is timed at K2b's shapes beside
 causal SDPA's forward; with ``--all`` the kernels of phase 3's K2 and K4
-library call (SDPA with an explicit mask) are named too.
+library call (SDPA with an explicit mask) are named too, and those of
+its K1 library call at phase 5's last decode step.
 
     python3 tools/torch_backward_ab.py [--all] PARENT_DIR . . PARENT_DIR
 
@@ -129,6 +130,19 @@ def one(root: str, everything: bool) -> None:
             result(name, {"ms": chip_smoke.time_ms(masked),
                           "device_ms": sum(split[name].values())},
                    "phase 3's K2 and K4 library call", split[name])
+            del q, k, v, mask
+            # Phase 3's K1 library call at phase 5's last step: one query
+            # per (lane, head) over the gathered keys, each lane's own mask.
+            q, k, v = rnd(8, 32, 1, 128), rnd(8, 32, 1056, 128), \
+                rnd(8, 32, 1056, 128)
+            mask = (torch.arange(1056, device="cuda")[None, :] <= torch.tensor(
+                [n + 31 for n in (16, 1024, 100, 517, 64, 300, 800, 33)],
+                device="cuda")[:, None])[:, None, None, :]
+            name = f"SDPA masked decode {tag} [8, 32, 1, 128] x 1056 keys"
+            split[name] = by_kernel(masked, raw=True)
+            result(name, {"ms": chip_smoke.time_ms(masked),
+                          "device_ms": sum(split[name].values())},
+                   "phase 3's K1 library call", split[name])
             del q, k, v, mask
         s = 4096
         q, k0, v0, k1, v1, do = (rnd(1, s, 32, 128) for _ in range(6))
