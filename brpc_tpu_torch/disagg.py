@@ -30,9 +30,19 @@ its own CUDA stream, so a decode step never queues behind a whole prefill
 on one stream; a worker's kernel launches are counted apart in its
 ``launches``. Only the read-only params are shared between workers.
 
-The router here takes static worker lists; the lease registry
-(``registry=``), the subprocess worker runner and the autoscaler are not
-ported yet.
+Worker processes: ``_worker_main`` (spawned from ``_WORKER_SRC``) pulls
+its model's weights at start-up from the ``ParamServer`` group(s) named on
+its argv (TPS1 over the RPC wire: a torch worker cannot rebuild JAX's
+seeded weights), then serves one worker under a ``WorkerRunner``, whose
+Admin service drains, flips, retargets, swaps adapters and retires it.
+``DisaggCluster`` serves the weights, spawns the workers and fronts them
+with a router. After each batch a worker adds its kernel launches to the
+process's app counters (``torch_launches_<kernel>``), which a parent reads
+off the worker's ``/vars``.
+
+The router and the cluster take static worker lists; the lease registry
+(``registry=``, ``--registry``, ``use_registry=``), the autoscaler and the
+model-mix advisor are not ported yet (ROADMAP A 4b).
 
 Wire payloads (little-endian):
   Prefill.run request:  <u64 handle> <i64 budget_us> <u32 prompt_len>
@@ -50,10 +60,17 @@ Wire payloads (little-endian):
 from __future__ import annotations
 
 import contextlib
+import dataclasses
+import os
 import secrets
+import select
 import struct
+import subprocess
+import sys
 import threading
 import time
+import traceback
+import warnings
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, List, Optional, Sequence
@@ -61,7 +78,8 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from brpc_tpu_torch import cluster, kv_cache, ops, runtime, serving
+from brpc_tpu_torch import cluster, kv_cache, ops, param_server, runtime
+from brpc_tpu_torch import serving
 from brpc_tpu_torch.models import transformer
 from brpc_tpu_torch.utils import resolve_device
 
@@ -178,6 +196,30 @@ def _worker_stream(cfg, device: torch.device) -> Optional[torch.cuda.Stream]:
     return torch.cuda.Stream(device) if device.type == "cuda" else None
 
 
+LAUNCH_COUNTER_PREFIX = "torch_launches_"
+DEVICE_MEMORY_COUNTER = "torch_cuda_reserved_bytes"
+
+
+def _publish_counters(worker) -> None:
+    """Add ``worker``'s kernel launches since the last call to the
+    process's app counters (``torch_launches_<kernel>``) and, on a card,
+    bring ``torch_cuda_reserved_bytes`` to the memory the process's
+    allocator holds there: how a parent reads a worker process's launches
+    and device memory, off its ``/vars``."""
+    published = worker._published
+    now = dict(worker.launches)
+    if worker.device.type == "cuda":
+        now[DEVICE_MEMORY_COUNTER] = torch.cuda.memory_reserved(
+            worker.device)
+    for name, n in now.items():
+        delta = n - published.get(name, 0)
+        if delta:
+            runtime.app_counter_add(
+                name if name == DEVICE_MEMORY_COUNTER
+                else LAUNCH_COUNTER_PREFIX + name, delta)
+            published[name] = n
+
+
 @contextlib.contextmanager
 def _worker_scope(stream: Optional[torch.cuda.Stream], launches: dict):
     """A loop thread's device context: its worker's stream, made to wait
@@ -246,6 +288,7 @@ class PrefillWorker(serving.DrainMixin):
         self.commit_seconds = 0.0
         self.transfer_bytes = 0
         self.launches: Dict[str, int] = {}
+        self._published: Dict[str, int] = {}
         self.draining = False
         self.drain_reason = ""
         self.drain_sheds = 0
@@ -333,6 +376,7 @@ class PrefillWorker(serving.DrainMixin):
                                             f"prefill failed: {e}")
                     finally:
                         self._inflight_handles -= 1
+                _publish_counters(self)
 
     # ---- drain state machine (verbs shared via serving.DrainMixin) ---------
 
@@ -593,6 +637,7 @@ class DecodeWorker(serving.ServingEngine):
         self.splice_rejects = 0
         self.peer_fill_pages = 0    # pages landed from peers
         self.launches: Dict[str, int] = {}
+        self._published: Dict[str, int] = {}
         self._peer_mu = threading.Lock()
         self._peer_channels: Dict[str, runtime.Channel] = {}
         self._stream = _worker_stream(cfg,
@@ -602,6 +647,11 @@ class DecodeWorker(serving.ServingEngine):
     def _loop(self) -> None:
         with _worker_scope(self._stream, self.launches):
             super()._loop()
+
+    def step(self, wait_us: int = 50_000) -> int:
+        active = super().step(wait_us)
+        _publish_counters(self)
+        return active
 
     def _peer_channel(self, addr: str) -> runtime.Channel:
         with self._peer_mu:
@@ -1623,6 +1673,878 @@ class DisaggRouter:
             for ch in self._channels.values():
                 ch.close()
             self._channels.clear()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+
+# ---- worker processes: the TPS1 cold start, the runner, the cluster -------------
+
+_WORKER_SRC = """
+import sys
+from brpc_tpu_torch import disagg
+disagg._worker_main(sys.argv[1:])
+"""
+
+# The deadline of one call of a weight fetch: a range, or a whole blob (up
+# to param_server.MAX_BLOB_BYTES) from a server without ranges.
+FETCH_TIMEOUT_MS = 600_000
+# From a worker's spawn to its READY line: the interpreter, torch, the
+# device and the weight fetch (about 50 s for Llama-3-8B on an H100 host).
+READY_TIMEOUT_S = 600.0
+
+
+def _model_cfg(cfg_name: str) -> transformer.TransformerConfig:
+    """Named model shape -> TransformerConfig (a model id's part before
+    any '.' names one of these). ``llama3_8b`` is the port's own name; an
+    unknown name takes the default config. ``BRPC_TPU_F32`` in the
+    environment switches the dtype to f32."""
+    TC = transformer.TransformerConfig
+    if cfg_name == "tiny":
+        cfg = TC.tiny()
+    elif cfg_name == "mid":
+        # The bench's serving shape: tiny widths but a 256-position window,
+        # so long prompts have a genuinely expensive prefill bucket.
+        cfg = TC(vocab=256, d_model=128, n_layers=2, n_heads=4,
+                 n_kv_heads=4, d_ff=256, max_seq=256)
+    elif cfg_name == "deep":
+        # The prefix/flip bench shape: deep enough that a full-prompt
+        # prefill clearly dominates TTFT over the fixed RPC/queue overhead.
+        cfg = TC(vocab=256, d_model=256, n_layers=4, n_heads=4,
+                 n_kv_heads=4, d_ff=512, max_seq=256)
+    elif cfg_name == "llama3_8b":
+        cfg = TC.llama3_8b()
+    else:
+        cfg = TC()
+    if os.environ.get("BRPC_TPU_F32"):
+        cfg = dataclasses.replace(cfg, dtype=torch.float32)
+    return cfg
+
+
+def _flatten_params(params: dict, prefix: str = "") -> Dict[str, object]:
+    """Params tree -> flat {'a/b': leaf} dict, the shape the TPS1 codec
+    speaks. Torch tensors stay tensors; other leaves become numpy arrays."""
+    flat: Dict[str, object] = {}
+    for k, v in params.items():
+        if isinstance(v, dict):
+            flat.update(_flatten_params(v, prefix + k + "/"))
+        else:
+            flat[prefix + k] = (v if isinstance(v, torch.Tensor)
+                                else np.asarray(v))
+    return flat
+
+
+def _unflatten_params(flat: Dict[str, object]) -> dict:
+    out: dict = {}
+    for k, v in flat.items():
+        parts = k.split("/")
+        d = out
+        for p in parts[:-1]:
+            d = d.setdefault(p, {})
+        d[parts[-1]] = v
+    return out
+
+
+def _parse_param_map(spec: str) -> Dict[str, str]:
+    """``--params`` -> {model id: "addr1+addr2+..."}: a model's weights in
+    one ParamServer per group (``param_server.groups``)."""
+    out = {}
+    for tok in spec.split(","):
+        if "=" in tok:
+            name, addrs = tok.split("=", 1)
+            out[name] = addrs
+    return out
+
+
+def _land(a, device: torch.device) -> torch.Tensor:
+    """A decoded blob entry (a read-only view) -> a tensor of its own on
+    ``device``."""
+    if not isinstance(a, torch.Tensor):
+        with warnings.catch_warnings():
+            # Read-only memory: torch warns that it cannot guard writes;
+            # the copy below is what is kept.
+            warnings.simplefilter("ignore", UserWarning)
+            a = torch.from_numpy(a)
+    return a.to(device, copy=True)
+
+
+# The hot windowed metrics a worker's heartbeat window-tail delta carries
+# to the registry leader (the /fleet history and federated /metrics
+# source): the current windowed readings.
+SERIES_METRICS = (
+    "serving_ttft_us_latency_p50", "serving_ttft_us_latency_p99",
+    "serving_ttft_us_qps", "serving_queue_wait_us_latency_p99",
+    "serving_prefill_us_latency_p99", "serving_queue_depth",
+    "serving_batch_occupancy_latency", "serving_culled_requests",
+    "serving_shed_requests",
+    "kv_tier_fill_us_latency_p99", "kv_tier_host_pages", "kv_tier_spills",
+    # Transport health: bytes moved, summed EWMA egress MB/s and credit
+    # stalls.
+    "coll_link_bytes", "coll_link_tx_mbps", "coll_link_credit_stalls",
+)
+
+
+def series_tail(metric_values: dict) -> str:
+    """Render the 'sr=' heartbeat token ("name:val|name:val") from a
+    runtime.metrics() snapshot."""
+    toks = []
+    for k in SERIES_METRICS:
+        v = metric_values.get(k)
+        if v is not None:
+            toks.append(f"{k}:{v:g}")
+    return "|".join(toks)
+
+
+def _worker_load_fn(worker, model: str = ""):
+    """Live load of a worker for a lease's heartbeat (ROADMAP A 4b):
+    batcher queue depth, paged-pool occupancy, mean batch occupancy, the
+    local p99 TTFT, the prefix and page digests, the windowed-series tail,
+    the model tag and the drain state."""
+    def load() -> dict:
+        s = worker.batcher.stats()
+        occ = (s["occupancy_sum"] * 100 // s["occupancy_samples"]
+               if s["occupancy_samples"] else 0)
+        kv = 0
+        pool = getattr(worker, "pool", None)
+        if pool is not None:
+            kv = int(pool.stats().get("live_blocks", 0))
+        ttft = 0
+        series = ""
+        try:
+            m = runtime.metrics()
+            ttft = int(m.get("serving_ttft_us_latency_p99", 0))
+            series = series_tail(m)
+        except Exception:  # noqa: BLE001 — gauges are best-effort
+            pass
+        digest = ""
+        page_digest = ""
+        prefix = getattr(worker, "prefix", None)
+        if prefix is not None:
+            digest = prefix.digest()
+            page_digest = prefix.page_digest()
+        return {"queue_depth": int(s["queue_depth"]), "kv_pages_in_use": kv,
+                "occupancy_x100": int(occ), "p99_ttft_us": ttft,
+                "prefix_digest": digest, "page_digest": page_digest,
+                "series": series, "model": model,
+                "state": "drain" if getattr(worker, "draining", False)
+                         else ""}
+    return load
+
+
+class _WorkerFactory:
+    """Role -> worker constructor for one worker process, holding the
+    model it builds workers for: ``params`` (on ``device``), ``cfg`` and
+    ``model_id``. ``load`` pulls a model's weights over the TPS1 wire from
+    its ParamServer group(s) in ``param_addrs`` (model id -> "a+b+...");
+    the worker's cold start and ``retarget`` both go through it.
+    ``apply_adapter`` adds a small pulled delta onto the current weights.
+    ``port`` lets a flip or retarget rebuild on the same port. Calling the
+    factory returns (worker, default capacity).
+
+    Flags read from ``args`` (the worker's argv): ``--page-tokens``;
+    prefill ``--chunk-bytes``, ``--kv-timeout``, ``--limiter``,
+    ``--layerwise``, ``--max-prompt``; decode ``--batch``, ``--slots``;
+    ``--kv-blocks`` sizes both roles' pools (the reference sizes only the
+    decode worker's); ``--layers`` cuts every config's depth."""
+
+    def __init__(self, args: dict, params, cfg, model_id: str = "",
+                 param_addrs: Optional[Dict[str, str]] = None, device=None):
+        self.args = args
+        self.params = params
+        self.cfg = cfg
+        self.model_id = model_id
+        self.param_addrs = dict(param_addrs or {})
+        self.device = resolve_device(device)
+        self.fetch_wire_bytes = 0       # TPS1 blob bytes over the wire
+        self.fetch_effective_bytes = 0  # sum of decoded array nbytes
+
+    def __call__(self, role: str, port: int = 0):
+        args = self.args
+        page = int(args.get("--page-tokens", "16"))
+        kv_blocks = int(args.get("--kv-blocks", "0")) or None
+        if role == "prefill":
+            lw = int(args.get("--layerwise", "-1"))
+            worker = PrefillWorker(
+                self.params, self.cfg, kv_page_tokens=page,
+                kv_chunk_bytes=int(args.get("--chunk-bytes", "-1")),
+                kv_timeout_ms=int(args.get("--kv-timeout", "20000")),
+                limiter=args.get("--limiter", "auto"),
+                layerwise=None if lw < 0 else bool(lw),
+                max_prompt=int(args.get("--max-prompt", "0")) or None,
+                kv_blocks=kv_blocks, port=port, device=self.device)
+            return worker, 4
+        if role == "decode":
+            worker = DecodeWorker(
+                self.params, self.cfg, kv_page_tokens=page,
+                max_batch_size=int(args.get("--batch", "8")),
+                slots=int(args.get("--slots", "8")),
+                kv_blocks=kv_blocks, port=port, device=self.device)
+            return worker, worker.slots
+        raise ValueError(f"unknown role {role!r}")
+
+    def config(self, cfg_name: str) -> transformer.TransformerConfig:
+        """``_model_cfg(cfg_name)``, its depth cut to ``--layers``."""
+        cfg = _model_cfg(cfg_name)
+        layers = int(self.args.get("--layers", "0"))
+        return dataclasses.replace(cfg, n_layers=layers) if layers else cfg
+
+    def _pull(self, model_id: str) -> Dict[str, torch.Tensor]:
+        """Every group of ``model_id``'s weights (``pull_blob``: ranges
+        over several connections), each landed on the device before the
+        next is fetched, merged into one flat dict."""
+        spec = self.param_addrs.get(model_id)
+        if not spec:
+            raise ValueError(f"no param server for model {model_id!r}")
+        t0 = time.monotonic()
+        flat: Dict[str, torch.Tensor] = {}
+        addrs = spec.split("+")
+        for addr in addrs:
+            client = param_server.ParamClient(addr, retries=4,
+                                              timeout_ms=FETCH_TIMEOUT_MS)
+            try:
+                blob = client.pull_blob()
+            finally:
+                client.close()
+            effective = self._land_blob(blob, flat)
+            self.fetch_wire_bytes += len(blob)
+            self.fetch_effective_bytes += effective
+            runtime.app_counter_add("cluster_model_fetch_wire_bytes",
+                                    len(blob))
+            runtime.app_counter_add("cluster_model_fetch_effective_bytes",
+                                    effective)
+            del blob
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        runtime.app_counter_add("cluster_model_fetch_us",
+                                int((time.monotonic() - t0) * 1e6))
+        runtime.app_counter_add("cluster_model_fetch_groups", len(addrs))
+        return flat
+
+    def _land_blob(self, blob, flat: dict) -> int:
+        """Every array of a TPS1 blob, landed on the device into ``flat``;
+        returns their bytes. The blob's views die with this call."""
+        arrays = param_server.decode_arrays(blob, copy=False)
+        flat.update((k, _land(v, self.device)) for k, v in arrays.items())
+        return sum(v.numel() * v.element_size()
+                   if isinstance(v, torch.Tensor) else int(v.nbytes)
+                   for v in arrays.values())
+
+    def load(self, model_id: str, cfg) -> None:
+        """Pull ``model_id``'s full weights and install them, with
+        ``cfg``, as the build state. Pulls before touching the current
+        state: a failed fetch leaves the factory on the old model."""
+        flat = self._pull(model_id)
+        self.params = transformer.params_from_numpy(
+            _unflatten_params(flat), cfg, self.device)
+        self.cfg = cfg
+        self.model_id = model_id
+
+    def retarget(self, model_id: str) -> None:
+        """Cold-start weight fetch of another model; its id's part before
+        any '.' names its config."""
+        self.load(model_id, self.config(model_id.split(".", 1)[0]))
+        runtime.app_counter_add("cluster_model_retargets", 1)
+
+    def apply_adapter(self, adapter_id: str) -> None:
+        """LoRA-style adapter swap: pull a small delta dict (flat keys, a
+        subset of the model's) and add it, in f32, onto the current
+        weights. The model id grows a '.adapter' suffix."""
+        delta = self._pull(adapter_id)
+        flat = _flatten_params(self.params)
+        for k, v in delta.items():
+            if k not in flat:
+                raise ValueError(f"adapter key {k!r} not in model")
+            p = flat[k]
+            flat[k] = (p.float() + v.float()).to(p.dtype)
+        self.params = _unflatten_params(flat)
+        base = self.model_id.split(".", 1)[0] or "base"
+        self.model_id = f"{base}.{adapter_id}"
+        runtime.app_counter_add("cluster_model_adapter_swaps", 1)
+
+
+def _make_worker_factory(args: dict, params, cfg, model_id: str = "",
+                         param_addrs: Optional[Dict[str, str]] = None,
+                         device=None) -> _WorkerFactory:
+    return _WorkerFactory(args, params, cfg, model_id=model_id,
+                          param_addrs=param_addrs, device=device)
+
+
+def _no_registry() -> ValueError:
+    return ValueError("registry mode is not ported yet (ROADMAP A 4b): "
+                      "workers and routers take static lists")
+
+
+class WorkerRunner:
+    """The drain state machine and the role-flip / retarget / retire
+    executor around one worker.
+
+    States (``state``):
+      active    serving normally
+      draining  admissions shed (retriable ELIMIT with a live ETA);
+                in-flight work runs to completion (stragglers past the
+                drain timeout are cut with a retriable error, and the
+                router re-dispatches them byte-exactly)
+      spilling  resident prefix pages spill to the host tier and the
+                covered token chains are snapshotted
+      flipping  the worker is rebuilt under the new role (or model) on
+                the same port and the host chains are grafted into its
+                fresh index (``admit_host``)
+      active    again, or ``retired`` (drained; the process exits).
+
+    Ops arrive over the Admin RPC face and run one at a time on an
+    executor thread. The Admin server is apart from the worker's data
+    server, so its port (``admin=`` in the READY line) survives flips.
+    No lease yet: a runner with ``registry_addr`` raises (ROADMAP A 4b)."""
+
+    DRAIN_TIMEOUT_S = 60.0
+
+    def __init__(self, role: str, make_worker, *,
+                 registry_addr: Optional[str] = None,
+                 drain_timeout_s: float = DRAIN_TIMEOUT_S):
+        import queue
+
+        if registry_addr:
+            raise _no_registry()
+        self.role = role
+        self.make_worker = make_worker
+        self.drain_timeout_s = drain_timeout_s
+        self.state = "active"
+        self.flips = 0
+        self.retired = False
+        self.spilled_pages = 0
+        self.grafted_chains = 0
+        self.worker, _cap = make_worker(role)
+        self.retargets = 0  # model retargets + adapter swaps executed
+        self._ops: "queue.Queue" = queue.Queue()
+        self.stopped = threading.Event()
+        self._exec = threading.Thread(target=self._run_ops, daemon=True,
+                                      name="worker-runner")
+        self._exec.start()
+        self.admin = runtime.Server()
+        for name in ("flip", "retire", "drain", "undrain", "status",
+                     "retarget", "adapter"):
+            self.admin.add_method("Admin", name,
+                                  getattr(self, f"_rpc_{name}"))
+        self.admin_port = self.admin.start(0)
+
+    # ---- admin RPC face ----------------------------------------------------
+
+    def _rpc_flip(self, req: bytes) -> bytes:
+        role = req.decode().strip()
+        if role not in ("prefill", "decode"):
+            raise ValueError(f"unknown role {role!r}")
+        if role == self.role and self.state == "active":
+            return b"noop"
+        self.request_flip(role)
+        return b"ok"
+
+    def _rpc_retire(self, req: bytes) -> bytes:
+        self.request_retire()
+        return b"ok"
+
+    def _rpc_drain(self, req: bytes) -> bytes:
+        self.worker.begin_drain(req.decode().strip() or "drain")
+        if self.state == "active":
+            self.state = "draining"  # status must not claim health
+        return b"ok"
+
+    def _rpc_undrain(self, req: bytes) -> bytes:
+        """Reverse an operator Admin.drain (a flip or retire mid-execution
+        is not reversible)."""
+        if self.state not in ("active", "draining"):
+            raise ValueError(f"cannot undrain mid-{self.state}")
+        w = self.worker
+        w.draining = False
+        w.drain_reason = ""
+        self.state = "active"
+        return b"ok"
+
+    def _rpc_retarget(self, req: bytes) -> bytes:
+        """Model retarget: pull the named model's weights, drain, rebuild
+        on the same port."""
+        model = req.decode().strip()
+        if not model:
+            raise ValueError("empty model id")
+        if model == getattr(self.make_worker, "model_id", "") \
+                and self.state == "active":
+            return b"noop"
+        self._ops.put(("retarget", model))
+        return b"ok"
+
+    def _rpc_adapter(self, req: bytes) -> bytes:
+        """Adapter swap: pull the small delta, apply it, rebuild."""
+        adapter = req.decode().strip()
+        if not adapter:
+            raise ValueError("empty adapter id")
+        self._ops.put(("adapter", adapter))
+        return b"ok"
+
+    def _rpc_status(self, req: bytes) -> bytes:
+        w = self.worker
+        try:
+            active = w.in_flight() if hasattr(w, "in_flight") \
+                else w._inflight_handles
+        except Exception:  # noqa: BLE001 — mid-swap
+            active = -1
+        return (f"role={self.role} state={self.state} active={active} "
+                f"flips={self.flips} sheds={getattr(w, 'drain_sheds', 0)} "
+                f"spilled={self.spilled_pages} "
+                f"grafted={self.grafted_chains} "
+                f"retargets={self.retargets} "
+                f"model={getattr(self.make_worker, 'model_id', '') or '-'}"
+                ).encode()
+
+    # ---- op execution ------------------------------------------------------
+
+    def request_flip(self, role: str) -> None:
+        self._ops.put(("flip", role))
+
+    def request_retire(self) -> None:
+        self._ops.put(("retire", ""))
+
+    def _run_ops(self) -> None:
+        while True:
+            op = self._ops.get()
+            if op is None:
+                return
+            kind, arg = op
+            try:
+                if kind == "flip":
+                    self._do_flip(arg)
+                elif kind in ("retarget", "adapter"):
+                    self._do_retarget(arg, adapter=(kind == "adapter"))
+                elif kind == "retire":
+                    self._do_retire()
+                    return
+            except Exception:  # noqa: BLE001 — a failed op must not kill
+                traceback.print_exc()  # the executor
+                w = self.worker
+                if getattr(w, "_running", False):
+                    # Still serving (the op failed before teardown): a
+                    # healthy worker must not shed forever.
+                    w.draining = False
+                    w.drain_reason = ""
+                    self.state = "active"
+                else:
+                    self.state = "failed"
+
+    def _rebuild(self, role: str) -> None:
+        """Close the drained worker and build its successor on the same
+        port (a new port if that one cannot be bound again)."""
+        w = self.worker
+        port = w.port
+        w.close()  # stragglers get a retriable error -> re-dispatch
+        try:
+            self.worker, _cap = self.make_worker(role, port)
+        except OSError:
+            self.worker, _cap = self.make_worker(role, 0)
+
+    def _do_flip(self, new_role: str) -> None:
+        if new_role == self.role or self.retired:
+            return
+        w = self.worker
+        self.state = "draining"
+        w.begin_drain(f"flip:{new_role}")
+        w.drain_wait(self.drain_timeout_s)
+        # The hot prefix set survives the flip: resident pages spill to
+        # the process-wide host store, which outlives the worker object.
+        self.state = "spilling"
+        chains = []
+        prefix = getattr(w, "prefix", None)
+        if prefix is not None and getattr(prefix, "host_tier", False):
+            self.spilled_pages += prefix.spill()
+            chains = prefix.export_chains()
+        self.state = "flipping"
+        self._rebuild(new_role)
+        try:
+            new_prefix = getattr(self.worker, "prefix", None)
+            if chains and new_prefix is not None \
+                    and getattr(new_prefix, "host_tier", False):
+                for ch in chains:
+                    new_prefix.admit_host(ch, len(ch))
+                new_prefix.sync_native()
+                self.grafted_chains += len(chains)
+        except Exception:  # noqa: BLE001 — a failed graft just means the
+            traceback.print_exc()  # hot prefix re-prefills
+        self.role = new_role
+        self.flips += 1
+        runtime.app_counter_add("serving_role_flips", 1)
+        self.state = "active"
+
+    def _do_retarget(self, model_id: str, adapter: bool = False) -> None:
+        """A flip with the role held and the weights swapped, without the
+        spill and graft: the resident pages hold the old model's KV."""
+        if self.retired:
+            return
+        f = self.make_worker
+        # Fetch first, while the old model still serves: a failed pull
+        # leaves this worker active on its current weights.
+        if adapter:
+            f.apply_adapter(model_id)
+        else:
+            f.retarget(model_id)
+        self.state = "draining"
+        self.worker.begin_drain(f"retarget:{f.model_id}")
+        self.worker.drain_wait(self.drain_timeout_s)
+        self.state = "flipping"
+        self._rebuild(self.role)
+        self.retargets += 1
+        runtime.app_counter_add("serving_model_flips", 1)
+        self.state = "active"
+
+    def _do_retire(self) -> None:
+        """Drain, then exit: new admissions bounce retriably, in-flight
+        generations run out."""
+        self.retired = True
+        self.state = "draining"
+        self.worker.begin_drain("retire")
+        self.worker.drain_wait(self.drain_timeout_s)
+        self.state = "retired"
+        self.stopped.set()
+
+    # ---- teardown ----------------------------------------------------------
+
+    def close(self) -> None:
+        self._ops.put(None)
+        self.admin.stop()
+        self.admin.close()
+        self.worker.close()
+        self.stopped.set()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+
+def _worker_main(argv: List[str]) -> None:
+    """Subprocess entry: --role prefill|decode --cfg NAME --model ID
+    --params ID=ADDR[+ADDR...][,ID2=...] [--device cpu]
+    [--page-tokens N] [--chunk-bytes N] [--kv-timeout MS] [--limiter SPEC]
+    [--layerwise 0|1] [--max-prompt N] [--batch N] [--slots N]
+    [--kv-blocks N] [--kv-pool PAGE_BYTES:MAX_PAGES] [--layers N].
+
+    Pulls the weights of ``--model`` (id "" for a cluster's one unnamed
+    model) from its ParamServer group(s), builds the worker on ``cuda``
+    (``--device cpu`` for tests), prints "READY <port> admin=<port>" and
+    serves until stdin closes or an Admin.retire drains it out. Any
+    failure before that (no weights source, no card, a failed pull)
+    prints "FAILED <reason>" instead and exits 1; nothing falls back to a
+    local random init or to the CPU."""
+    args = dict(zip(argv[::2], argv[1::2]))
+    try:
+        if args.get("--registry"):
+            raise _no_registry()
+        role = args.get("--role", "decode")
+        model_id = args.get("--model", "")
+        factory = _make_worker_factory(
+            args, None, None, model_id=model_id,
+            param_addrs=_parse_param_map(args.get("--params", "")),
+            device=args.get("--device") or None)
+        cfg = factory.config(args.get("--cfg")
+                             or (model_id.split(".", 1)[0] or "tiny"))
+        if cfg.dtype == torch.float32:
+            torch.backends.cuda.matmul.allow_tf32 = False
+        if args.get("--kv-pool"):
+            page_bytes, max_pages = args["--kv-pool"].split(":")
+            runtime.kv_pool_configure(int(page_bytes), int(max_pages))
+        factory.load(model_id, cfg)
+        runner = WorkerRunner(role, factory)
+    except Exception as e:  # noqa: BLE001 — reported on the READY line
+        traceback.print_exc()
+        print(f"FAILED {type(e).__name__}: {e}", flush=True)
+        raise SystemExit(1)
+    print(f"READY {runner.worker.port} admin={runner.admin_port}",
+          flush=True)
+
+    def stdin_watch():
+        try:
+            while sys.stdin.read(1):
+                pass
+        except Exception:  # noqa: BLE001 — pipe torn down
+            pass
+        runner.stopped.set()
+
+    threading.Thread(target=stdin_watch, daemon=True,
+                     name="stdin-watch").start()
+    try:
+        runner.stopped.wait()
+    except KeyboardInterrupt:
+        pass
+    runner.close()
+
+
+def _reap(p: subprocess.Popen) -> None:
+    """Kill a worker process (if it still runs), wait for it and close its
+    pipes."""
+    try:
+        p.kill()
+        p.wait(timeout=10)
+    except (OSError, subprocess.TimeoutExpired):
+        pass  # teardown is best-effort
+    for f in (p.stdin, p.stdout):
+        f.close()
+
+
+class DisaggCluster:
+    """N prefill and M decode workers as subprocesses, fronted by an
+    in-process DisaggRouter over static lists.
+
+    The cluster serves every model's canonical weights itself, from one
+    ParamServer per group (``param_server.groups``), and each worker
+    pulls its model's at start-up. ``weights`` ({model id: flat dict,
+    ``_flatten_params``' names}) gives them; the cluster takes each entry
+    out of ``weights`` as it serves it, so a caller that keeps no other
+    reference does not hold a large model twice. A model without an
+    entry gets the port's seeded ``init_params`` (a CPU generator: not
+    the JAX package's weights for the same seed). Without ``models`` the
+    cluster serves one model, id ``""``, of ``cfg_name`` and ``seed``.
+    With ``models`` ({id: (cfg_name, seed)}; the first is the default),
+    ``spawn_worker(model=)`` picks a worker's model and ``retarget_worker``/``adapter_worker``
+    move it through the worker's drain state machine.
+
+    ``device`` "cpu" runs the workers on the CPU (tests); the default is
+    the card. ``n_layers`` cuts every model's depth, ``decode_kv_blocks``
+    sizes both roles' pools, ``max_prompt`` the prefill worker's,
+    ``kv_pool`` (page bytes, max pages) each worker's KV receive pool.
+    Workers start at once. One that fails before READY, or does not
+    print it within ``READY_TIMEOUT_S``, makes the cluster raise with its
+    line."""
+
+    def __init__(self, n_prefill: int = 1, n_decode: int = 2, *,
+                 cfg_name: str = "tiny", seed: int = 0,
+                 page_tokens: int = 16, decode_slots: int = 8,
+                 decode_kv_blocks: int = 0, max_prompt: int = 0,
+                 n_layers: int = 0,
+                 kv_chunk_bytes: int = -1, kv_timeout_ms: int = 20_000,
+                 prefill_limiter: str = "auto",
+                 use_registry: bool = False, f32: bool = False,
+                 models: Optional[Dict[str, tuple]] = None,
+                 weights: Optional[Dict[str, dict]] = None,
+                 kv_pool: Optional[tuple] = None,
+                 device: Optional[str] = None,
+                 **router_kwargs):
+        if use_registry:
+            raise _no_registry()
+        self.procs: List[subprocess.Popen] = []
+        self.prefill_addrs: List[str] = []
+        self.decode_addrs: List[str] = []
+        # addr -> (subprocess, admin addr)
+        self.workers: Dict[str, tuple] = {}
+        self.spawn_seconds: Dict[str, float] = {}
+        self.models: Dict[str, tuple] = dict(models or {})
+        self.param_servers: Dict[str, List[param_server.ParamServer]] = {}
+        self._param_addrs: Dict[str, str] = {}
+        self.router = None
+        served = self.models or {"": (cfg_name, seed)}
+        weights = {} if weights is None else weights
+        unknown = set(weights) - set(served)
+        if unknown:
+            raise KeyError(f"weights for unknown models {sorted(unknown)}")
+        env = dict(os.environ)
+        if f32:
+            env["BRPC_TPU_F32"] = "1"
+        self.default_model = next(iter(served))
+        self._spawn_cfg = {
+            "env": env, "cfg_name": cfg_name,
+            "page_tokens": page_tokens, "decode_slots": decode_slots,
+            "repo": os.path.dirname(os.path.dirname(
+                os.path.abspath(__file__))),
+            "extra": ("--chunk-bytes", str(kv_chunk_bytes),
+                      "--kv-timeout", str(kv_timeout_ms),
+                      "--limiter", prefill_limiter,
+                      "--kv-blocks", str(decode_kv_blocks),
+                      "--max-prompt", str(max_prompt),
+                      "--layers", str(n_layers),
+                      *(("--device", device) if device else ()),
+                      *(("--kv-pool", f"{kv_pool[0]}:{kv_pool[1]}")
+                        if kv_pool else ())),
+        }
+        router_kwargs.setdefault("page_tokens", page_tokens)
+        try:
+            for mid, (m_cfg, m_seed) in served.items():
+                flat = weights.pop(mid, None)
+                if flat is None:
+                    cfg = _model_cfg(m_cfg)
+                    if f32:
+                        cfg = dataclasses.replace(cfg, dtype=torch.float32)
+                    if n_layers:
+                        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+                    flat = _flatten_params(transformer.init_params(
+                        cfg, torch.Generator().manual_seed(m_seed),
+                        device="cpu"))
+                self._serve(mid, flat)
+                del flat
+            # Every worker starts (and pulls its weights) at once.
+            started = [self._start(role) for role in
+                       ["prefill"] * n_prefill + ["decode"] * n_decode]
+            for role, p, t0 in started:
+                addrs = (self.prefill_addrs if role == "prefill"
+                         else self.decode_addrs)
+                addrs.append(self._await_ready(role, p, t0))
+            self.router = DisaggRouter(self.prefill_addrs, self.decode_addrs,
+                                       **router_kwargs)
+        except BaseException:
+            self.close()
+            raise
+        self.port = self.router.port
+
+    def _serve(self, model_id: str, flat: Dict[str, object]) -> None:
+        """One ParamServer per group of ``flat``, named on every later
+        worker's argv as ``model_id=addr1+addr2+...``."""
+        servers = []
+        groups = param_server.groups(flat)
+        try:
+            while groups:
+                servers.append(param_server.ParamServer(groups.pop(0)))
+                servers[-1].start(0)
+        except BaseException:
+            for ps in servers:
+                ps.close()
+            raise
+        self.param_servers[model_id] = servers
+        self._param_addrs[model_id] = "+".join(
+            f"127.0.0.1:{ps._srv.port}" for ps in servers)
+
+    def spawn_worker(self, role: str, model: Optional[str] = None) -> str:
+        """Start one more worker subprocess serving ``model`` (default:
+        the cluster's default model); returns its address once it printed
+        READY. Both roles' flags ride every argv, so a flip rebuilds the
+        successor with its role's configuration."""
+        return self._await_ready(*self._start(role, model))
+
+    def _start(self, role: str, model: Optional[str] = None) -> tuple:
+        sc = self._spawn_cfg
+        mid = self.default_model if model is None else model
+        if mid not in self._param_addrs:
+            raise KeyError(f"unknown model {mid!r}")
+        cfg_name = self.models[mid][0] if mid in self.models \
+            else sc["cfg_name"]
+        param_map = ",".join(f"{m}={a}" for m, a in self._param_addrs.items())
+        t0 = time.monotonic()
+        p = subprocess.Popen(
+            [sys.executable, "-c", _WORKER_SRC, "--role", role,
+             "--cfg", cfg_name, "--model", mid, "--params", param_map,
+             "--page-tokens", str(sc["page_tokens"]),
+             "--slots", str(sc["decode_slots"]), *sc["extra"]],
+            stdin=subprocess.PIPE, stdout=subprocess.PIPE, text=True,
+            cwd=sc["repo"], env=sc["env"])
+        self.procs.append(p)  # close() reaps it whatever happens next
+        return role, p, t0
+
+    def _await_ready(self, role: str, p: subprocess.Popen,
+                     t0: float) -> str:
+        timeout_s = READY_TIMEOUT_S
+        ready, _, _ = select.select(
+            [p.stdout], [], [], max(0.0, t0 + timeout_s - time.monotonic()))
+        line = p.stdout.readline().strip() if ready else ""
+        if not line.startswith("READY "):
+            self.procs.remove(p)
+            _reap(p)
+            raise RuntimeError(
+                f"{role} worker failed to start: {line!r}" if ready else
+                f"{role} worker printed no READY within {timeout_s} s")
+        parts = line.split()
+        addr = f"127.0.0.1:{parts[1]}"
+        admin_addr = ""
+        for tok in parts[2:]:
+            if tok.startswith("admin="):
+                admin_addr = f"127.0.0.1:{tok[6:]}"
+        self.workers[addr] = (p, admin_addr)
+        self.spawn_seconds[addr] = time.monotonic() - t0
+        return addr
+
+    def _admin_call(self, addr: str, method: str, req: bytes = b"",
+                    timeout_ms: int = 5000) -> bytes:
+        """One RPC on a worker's Admin server (stable across flips)."""
+        _p, admin_addr = self.workers[addr]
+        if not admin_addr:
+            raise RuntimeError(f"worker {addr} has no admin server")
+        ch = runtime.Channel(admin_addr, timeout_ms=timeout_ms)
+        try:
+            return ch.call("Admin", method, req)
+        finally:
+            ch.close()
+
+    def flip_worker(self, addr: str, role: str) -> None:
+        """Ask ``addr``'s runner to migrate to ``role``. Returns at once;
+        poll ``worker_status(addr)`` for completion."""
+        self._admin_call(addr, "flip", role.encode())
+
+    def retire_worker(self, addr: str, wait_s: float = 75.0) -> None:
+        """Drain ``addr`` through its runner and reap the process.
+        ``wait_s`` must outlast the runner's drain timeout (60 s). Raises
+        KeyError for an address this cluster never spawned."""
+        if addr not in self.workers:
+            raise KeyError(f"unknown worker addr {addr} "
+                           "(flipped to a fallback port?)")
+        p, _admin = self.workers[addr]
+        try:
+            self._admin_call(addr, "retire")
+        except runtime.RpcError:
+            pass  # already dead: reaped below
+        try:
+            p.wait(timeout=wait_s)
+        except subprocess.TimeoutExpired:  # drain overran: hard stop
+            p.kill()
+            p.wait(timeout=10)
+        self.workers.pop(addr, None)
+
+    def retarget_worker(self, addr: str, model: str) -> None:
+        """Move ``addr`` to ``model`` (its weights pulled over TPS1).
+        Returns at once; poll ``worker_status(addr)["model"]``."""
+        if addr not in self.workers:
+            raise KeyError(f"unknown worker addr {addr}")
+        if model not in self.models:
+            raise KeyError(f"unknown model {model!r}")
+        self._admin_call(addr, "retarget", model.encode())
+
+    def adapter_worker(self, addr: str, adapter: str) -> None:
+        """Swap in the delta published as ``adapter`` (``add_adapter``)
+        on ``addr``'s current weights; it serves as <base>.<adapter>."""
+        if addr not in self.workers:
+            raise KeyError(f"unknown worker addr {addr}")
+        self._admin_call(addr, "adapter", adapter.encode())
+
+    def add_adapter(self, adapter_id: str,
+                    delta: Dict[str, object]) -> None:
+        """Publish a LoRA-style delta (flat 'a/b' keys, a subset of a
+        model's). Workers spawned before this call cannot find it."""
+        self._serve(adapter_id, dict(delta))
+
+    def worker_status(self, addr: str) -> dict:
+        """The runner's status line as a dict (role, state, active,
+        flips, sheds, spilled, grafted, retargets, model)."""
+        body = self._admin_call(addr, "status").decode()
+        out: dict = {}
+        for tok in body.split():
+            k, _, v = tok.partition("=")
+            out[k] = int(v) if v.lstrip("-").isdigit() else v
+        return out
+
+    def kill_prefill(self, index: int = 0) -> None:
+        """SIGKILL one prefill worker."""
+        self.procs[index].kill()
+
+    def kill_decode(self, index: int = 0) -> None:
+        """SIGKILL one decode worker."""
+        self.procs[len(self.prefill_addrs) + index].kill()
+
+    def close(self) -> None:
+        if self.router is not None:
+            self.router.close()
+            self.router = None
+        for p in self.procs:
+            _reap(p)
+        self.procs = []
+        for servers in self.param_servers.values():
+            for ps in servers:
+                ps.close()
+        self.param_servers = {}
 
     def __enter__(self):
         return self

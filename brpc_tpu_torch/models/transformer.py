@@ -146,15 +146,22 @@ def init_params(cfg: TransformerConfig, generator: torch.Generator,
 def params_from_numpy(tree, cfg: TransformerConfig, device=None) -> Params:
     """The reference's parameter pytree as numpy arrays (``jax.tree.map(
     np.asarray, params)``) -> this package's parameters on ``device``:
-    matrices and embedding in the model dtype, gains in f32."""
+    matrices and embedding in the model dtype, gains in f32. A leaf may
+    also be a torch tensor (a bf16 one off the TPS1 wire, or one already
+    on the device); it is cast, without a round trip through numpy."""
     dev = resolve_device(device)
 
-    def mat(a):
-        return torch.tensor(np.asarray(a, np.float32), dtype=cfg.dtype,
+    def cast(a, dtype):
+        if isinstance(a, torch.Tensor):
+            return a.to(device=dev, dtype=dtype)
+        return torch.tensor(np.asarray(a, np.float32), dtype=dtype,
                             device=dev)
 
+    def mat(a):
+        return cast(a, cfg.dtype)
+
     def gain(a):
-        return torch.tensor(np.asarray(a, np.float32), device=dev)
+        return cast(a, torch.float32)
 
     layers = tree["layers"]
     out_layers = {name: mat(layers[name]) for name in _MATRICES}

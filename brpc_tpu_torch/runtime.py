@@ -1,5 +1,6 @@
 """ctypes surface of the native RPC runtime, as far as the serving paths
-need it: Server, Channel (with a retry policy) and bidirectional streams,
+need it: Server (unary handlers), Channel (unary calls, a retry policy) and
+bidirectional streams, the process's framed-protocol body cap,
 the request batcher, error codes, the flight recorder's stamps and notes,
 the KV transfer of disaggregated serving (layer-wise sender, receive pool,
 claim), the host-tier KV page store with the peer page pull, and the
@@ -16,11 +17,14 @@ import ctypes
 import json
 import queue
 import threading
+import time
 import traceback
-from typing import Optional, Sequence
+from typing import Callable, Optional, Sequence
 
 from brpc_tpu_torch import native
 
+_HANDLER = ctypes.CFUNCTYPE(None, ctypes.c_void_p, ctypes.c_void_p,
+                            ctypes.POINTER(ctypes.c_char), ctypes.c_size_t)
 _STREAM_SINK = ctypes.CFUNCTYPE(None, ctypes.c_void_p, ctypes.c_uint64,
                                 ctypes.POINTER(ctypes.c_char),
                                 ctypes.c_size_t)
@@ -54,6 +58,19 @@ def _lib() -> ctypes.CDLL:
             ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
         lib.trpc_server_stop.argtypes = [ctypes.c_void_p]
         lib.trpc_server_destroy.argtypes = [ctypes.c_void_p]
+        lib.trpc_server_add_method.argtypes = [
+            ctypes.c_void_p, ctypes.c_char_p, ctypes.c_char_p, _HANDLER,
+            ctypes.c_void_p]
+        lib.trpc_call_respond.argtypes = [
+            ctypes.c_void_p, ctypes.c_char_p, ctypes.c_size_t, ctypes.c_int,
+            ctypes.c_char_p]
+        lib.trpc_call_remaining_us.argtypes = [ctypes.c_void_p]
+        lib.trpc_call_remaining_us.restype = ctypes.c_longlong
+        lib.trpc_call.argtypes = [
+            ctypes.c_void_p, ctypes.c_char_p, ctypes.c_char_p,
+            ctypes.c_char_p, ctypes.c_size_t, c_char_pp,
+            ctypes.POINTER(ctypes.c_size_t), ctypes.c_char_p,
+            ctypes.c_size_t]
         lib.trpc_channel_create.argtypes = [
             ctypes.c_char_p, ctypes.c_char_p, ctypes.c_int, ctypes.c_int]
         lib.trpc_channel_create.restype = ctypes.c_void_p
@@ -146,7 +163,8 @@ def _lib() -> ctypes.CDLL:
         lib.trpc_dump_metrics.argtypes = [c_char_pp]
         lib.trpc_dump_metrics.restype = ctypes.c_size_t
         for fn in (lib.trpc_init, lib.trpc_server_start,
-                   lib.trpc_server_stop, lib.trpc_stream_close,
+                   lib.trpc_server_stop, lib.trpc_server_add_method,
+                   lib.trpc_call, lib.trpc_stream_close,
                    lib.trpc_stream_open3, lib.trpc_flight_stamp,
                    lib.trpc_flight_route, lib.trpc_batcher_add_method,
                    lib.trpc_batcher_next_batch, lib.trpc_batcher_emit,
@@ -162,6 +180,7 @@ def _lib() -> ctypes.CDLL:
                    lib.trpc_kv_abort, lib.trpc_kv_stats, lib.trpc_kv_pull):
             fn.restype = ctypes.c_int
         for fn in (lib.trpc_server_destroy, lib.trpc_channel_destroy,
+                   lib.trpc_call_respond,
                    lib.trpc_buf_free, lib.trpc_batcher_destroy,
                    lib.trpc_kv_tier_note_fill):
             fn.restype = None
@@ -183,7 +202,9 @@ ECLOSE = 1014          # connection closed by peer
 EFAILEDSOCKET = 1015   # the socket was failed during the call
 EREJECT = 1016         # request rejected outright (no retry)
 EINTERNAL = 2001
+ERESPONSE = 2002       # response parse/format error
 EREQUEST = 2003
+ENOMETHOD = 2005       # service/method not found on the server
 # OS errno values the transport also surfaces (Linux numbers).
 ECONNRESET = 104
 ENOTCONN = 107
@@ -234,14 +255,102 @@ class RetryPolicy:
         self.retriable = list(retriable) if retriable is not None else None
 
 
+def _native_bytes(ptr, n: int):
+    """A writable ctypes array over ``n`` bytes at a native pointer, no
+    copy. (``ctypes.string_at`` takes its size as a C int and fails past
+    2 GiB.)"""
+    return (ctypes.c_char * n).from_address(
+        ctypes.cast(ptr, ctypes.c_void_p).value)
+
+
+class NativeBuffer:
+    """A response buffer owned by the native runtime, exposed without a
+    copy: ``view`` is a read-only memoryview of it. ``release()`` (or
+    garbage collection) frees it; nothing derived from ``view`` may
+    outlive that."""
+
+    def __init__(self, lib, ptr, length: int):
+        self._lib = lib
+        self._ptr = ptr
+        self.view = (memoryview(_native_bytes(ptr, length)).cast("B")
+                     .toreadonly() if length else memoryview(b""))
+
+    def __len__(self) -> int:
+        return len(self.view)
+
+    def release(self) -> None:
+        if self._ptr is not None:
+            self.view.release()
+            self._lib.trpc_buf_free(self._ptr)
+            self._ptr = None
+
+    def __del__(self):
+        try:
+            self.release()
+        except Exception:  # noqa: BLE001 — interpreter may be tearing down
+            pass
+
+
+_handler_ctx = threading.local()
+
+
+def remaining_budget_ms() -> Optional[float]:
+    """Remaining deadline budget of the RPC being handled on this thread
+    (None when the client sent no deadline, or outside a handler); it
+    shrinks as the handler runs, clamped at 0."""
+    deadline = getattr(_handler_ctx, "deadline_mono", None)
+    if deadline is None:
+        return None
+    return max(0.0, (deadline - time.monotonic()) * 1000.0)
+
+
 class Server:
-    """An RPC server; the batcher registers its methods on it before
-    ``start``."""
+    """An RPC server. ``add_method`` registers unary handlers, and the
+    batcher its methods, before ``start``."""
 
     def __init__(self):
         self._lib = _lib()
         self._h = self._lib.trpc_server_create()
+        self._callbacks = []  # keeps the handler trampolines alive
         self.port: Optional[int] = None
+
+    def add_method(self, service: str, method: str,
+                   fn: Callable[[bytes], bytes]) -> None:
+        """Serve ``service.method`` with ``fn(request) -> response``
+        (``bytes`` or a ``bytearray``; sync, on a native worker thread). A raise fails the call with EAPP and
+        the exception's text; ``remaining_budget_ms()`` reads the caller's
+        deadline inside ``fn``."""
+        lib = self._lib
+
+        @_HANDLER
+        def trampoline(_arg, call, req_ptr, req_len):
+            try:
+                req = (bytes(_native_bytes(req_ptr, req_len)) if req_len
+                       else b"")
+                # Restored on exit, so a nested handler on the same worker
+                # thread sees its own budget.
+                prev = getattr(_handler_ctx, "deadline_mono", None)
+                rem_us = lib.trpc_call_remaining_us(call)
+                _handler_ctx.deadline_mono = (
+                    time.monotonic() + rem_us / 1e6 if rem_us >= 0 else None)
+                try:
+                    rsp = fn(req)
+                finally:
+                    _handler_ctx.deadline_mono = prev
+                if rsp is None:
+                    rsp = b""
+                elif not isinstance(rsp, bytes):  # a bytearray: no copy
+                    rsp = (ctypes.c_char * len(rsp)).from_buffer(rsp)
+                lib.trpc_call_respond(call, rsp, len(rsp), 0, None)
+            except Exception as e:  # noqa: BLE001 — surface as RPC error
+                lib.trpc_call_respond(call, None, 0, EAPP,
+                                      str(e).encode()[:200])
+
+        self._callbacks.append(trampoline)
+        rc = lib.trpc_server_add_method(self._h, service.encode(),
+                                        method.encode(), trampoline, None)
+        if rc != 0:
+            raise OSError(rc, "add_method failed")
 
     def start(self, port: int = 0) -> int:
         bound = ctypes.c_int(0)
@@ -261,6 +370,8 @@ class Server:
             self._h = None
 
     def __del__(self):
+        # The native server must not outlive the trampolines that
+        # _callbacks keeps alive: destroy it before they are freed.
         try:
             self.close()
         except Exception:  # noqa: BLE001 — interpreter may be tearing down
@@ -268,8 +379,8 @@ class Server:
 
 
 class Channel:
-    """Client stub to ``"ip:port"``; ``open_stream_rx`` opens the serving
-    gateway's token-delivery stream. ``retry_policy`` replaces the bare
+    """Client stub to ``"ip:port"``: ``call`` makes a unary call,
+    ``open_stream_rx`` opens the serving gateway's token-delivery stream. ``retry_policy`` replaces the bare
     ``max_retry`` with backoff-spaced retries gated on an errno
     whitelist."""
 
@@ -294,6 +405,29 @@ class Channel:
                 codes, n_codes)
         if not self._h:
             raise OSError(f"channel init failed for {addr!r}")
+
+    def call(self, service: str, method: str, request: bytes = b"") -> bytes:
+        """One unary call; RpcError with the server's code and text on
+        failure."""
+        buf = self.call_view(service, method, request)
+        try:
+            return bytes(buf.view)
+        finally:
+            buf.release()
+
+    def call_view(self, service: str, method: str,
+                  request: bytes = b"") -> "NativeBuffer":
+        """Like ``call``, but the response stays in the runtime's buffer,
+        returned as a zero-copy view (``NativeBuffer``)."""
+        rsp_ptr = ctypes.POINTER(ctypes.c_char)()
+        rsp_len = ctypes.c_size_t(0)
+        err = ctypes.create_string_buffer(256)
+        rc = self._lib.trpc_call(self._h, service.encode(), method.encode(),
+                                 request, len(request), ctypes.byref(rsp_ptr),
+                                 ctypes.byref(rsp_len), err, len(err))
+        if rc != 0:
+            raise RpcError(rc, err.value.decode(errors="replace"))
+        return NativeBuffer(self._lib, rsp_ptr, rsp_len.value)
 
     def open_stream_rx(self, service: str, method: str,
                        request: bytes = b"") -> "ReadableStream":
@@ -610,6 +744,27 @@ def kv_abort(channel: "Channel", handle: int) -> int:
     unclaimed assembly now (a committed transfer nobody will adopt).
     Best-effort: returns the errno without raising."""
     return _lib().trpc_kv_abort(channel._h, handle)
+
+
+def set_max_body_size(nbytes: int) -> None:
+    """Set this process's cap on a received framed-protocol body, the
+    native flag ``trpc_max_body_size`` (256 MiB by default,
+    ``cpp/trpc/policy/trpc_protocol.cc:46``). The flag is settable only
+    through a server's ``/flags`` page, so a loopback server is started
+    for the one request."""
+    import urllib.request
+
+    srv = Server()
+    try:
+        port = srv.start(0)
+        body = urllib.request.urlopen(
+            f"http://127.0.0.1:{port}/flags?trpc_max_body_size={int(nbytes)}",
+            timeout=10).read().decode()
+    finally:
+        srv.stop()
+        srv.close()
+    if f"trpc_max_body_size = {int(nbytes)}" not in body:
+        raise OSError(f"trpc_max_body_size not set: {body.strip()!r}")
 
 
 def http_vars(addr: str, prefix: str = "") -> dict:

@@ -9,7 +9,11 @@ a wave that pushes the cached pages out to the host tier, and re-sent
 conversations that fill back from it), then the main path's cold swarm,
 then the same lengths through the disaggregated path (the port's router,
 a layer-wise prefill worker and a decode worker, each on its own CUDA
-stream), whose f32 exactness phase 4 also checks. Before the serving
+stream), whose f32 exactness phase 4 also checks, and then once more
+through worker processes: a DisaggCluster whose prefill and decode
+workers pull the weights over TPS1 at start-up from ParamServers in this
+process and run on the card beside it (phase 4 runs its f32 script
+through such a cluster too). Before the serving
 phases, the parallelism path: K5 (the ring-attention block fold) at
 Llama-3-8B's attention width over S 32768 as 8 in-process ranks, held
 against its plain fold step by step and against dense attention at S
@@ -38,6 +42,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import faulthandler
+import gc
 import json
 import os
 import re
@@ -1741,12 +1746,13 @@ def phase_exactness(cfg) -> dict:
               [(p0, 40, r0)], [(a, 8, ab[0]), (b, 8, ab[1])],
               [(p, 8, t2[i]) for i, p in enumerate(turn2)]]
     disagg_res = exact_disagg(params, cfg, script)
+    cluster_res = exact_cluster(params, cfg, script)
     del params
     torch.cuda.empty_cache()
     return {"streams": [out["tokens"][i] for i in range(len(prompts))],
             "chat_streams": [t for _, t in chats], "resumes": resumes,
             "cow_copies": cows, "disagg": disagg_res,
-            "launches": total_launches}
+            "cluster": cluster_res, "launches": total_launches}
 
 
 def disagg_fleet(params, cfg, **kw):
@@ -1818,15 +1824,7 @@ def exact_disagg(params, cfg, script) -> dict:
     try:
         if not pw.layerwise:
             raise AssertionError("the prefill worker is not layer-wise")
-        for wave in script:
-            for n in sorted({n for _, n, _ in wave}):
-                part = [(p, want) for p, m, want in wave if m == n]
-                got = run_swarm(router, [p for p, _ in part], n)["tokens"]
-                for i, (p, want) in enumerate(part):
-                    if got[i] != want:
-                        raise AssertionError(
-                            f"f32 disagg stream (prompt {len(p)}): "
-                            f"{got[i]} != plain {want}")
+        run_waves(router, script, "disagg")
         wait_idle(dw)
         check_worker_launches(pw, dw, cfg.n_layers)
         res = {"prefill": pw.stats(), "decode": dw.stats(),
@@ -1849,6 +1847,147 @@ def exact_disagg(params, cfg, script) -> dict:
         f"prefill {res['prefill_launches']} decode "
         f"{res['decode_launches']}")
     return {k: res[k] for k in ("prefill_launches", "decode_launches")}
+
+
+def run_waves(server, script, what: str) -> None:
+    """``script``'s waves through ``server`` (anything with a ``port``),
+    each wave's prompts concurrently by their number of new tokens; every
+    stream must equal its expected one."""
+    for wave in script:
+        for n in sorted({n for _, n, _ in wave}):
+            part = [(p, want) for p, m, want in wave if m == n]
+            got = run_swarm(server, [p for p, _ in part], n)["tokens"]
+            for i, (p, want) in enumerate(part):
+                if got[i] != want:
+                    raise AssertionError(
+                        f"f32 {what} stream (prompt {len(p)}): "
+                        f"{got[i]} != plain {want}")
+
+
+def cluster_launches(cluster, addr: str, timeout_s: float = 60.0) -> dict:
+    """A worker process's kernel launches, off its /vars, once it holds no
+    sequence and two reads 0.2 s apart agree (a worker adds a batch's
+    launches to its counters after the batch)."""
+    from brpc_tpu_torch import disagg, runtime
+
+    prefix = disagg.LAUNCH_COUNTER_PREFIX
+    deadline = time.monotonic() + timeout_s
+    prev = None
+    while True:
+        cur = {k[len(prefix):]: int(v)
+               for k, v in runtime.http_vars(addr, prefix).items()}
+        if cur == prev and cluster.worker_status(addr)["active"] == 0:
+            return cur
+        if time.monotonic() > deadline:
+            raise AssertionError(f"worker {addr} did not settle: "
+                                 f"{cluster.worker_status(addr)}")
+        prev = cur
+        time.sleep(0.2)
+
+
+# Kernels each worker process must have launched: K2 (under
+# prefill_stream) on a prefill worker, K1 and K3 fused on a decode worker.
+CLUSTER_KERNELS = {"prefill": ("prefill_attention",),
+                   "decode": ("paged_decode_attention", "add_rms_norm")}
+
+
+def check_cluster_launches(cluster) -> dict:
+    out = {"prefill": [cluster_launches(cluster, a)
+                       for a in cluster.prefill_addrs],
+           "decode": [cluster_launches(cluster, a)
+                      for a in cluster.decode_addrs]}
+    for role, names in CLUSTER_KERNELS.items():
+        for i, got in enumerate(out[role]):
+            for name in names:
+                if got.get(name, 0) <= 0:
+                    raise AssertionError(f"{role} worker process {i} "
+                                         f"launched {name} "
+                                         f"{got.get(name, 0)} times: {got}")
+    return out
+
+
+def cold_starts(cluster) -> dict:
+    """Each worker process's cold start: seconds from spawn to READY, and
+    its weight pull's seconds, wire and effective bytes and groups (the
+    worker's own counters, off its /vars)."""
+    from brpc_tpu_torch import runtime
+
+    out = {}
+    for role, addrs in (("prefill", cluster.prefill_addrs),
+                        ("decode", cluster.decode_addrs)):
+        for i, addr in enumerate(addrs):
+            v = runtime.http_vars(addr, "cluster_model_fetch")
+            out[f"{role}{i}"] = {
+                "ready_s": cluster.spawn_seconds[addr],
+                "fetch_s": v["cluster_model_fetch_us"] / 1e6,
+                "wire_bytes": int(v["cluster_model_fetch_wire_bytes"]),
+                "effective_bytes": int(
+                    v["cluster_model_fetch_effective_bytes"]),
+                "groups": int(v["cluster_model_fetch_groups"])}
+    return out
+
+
+def fmt_cold_starts(starts: dict) -> str:
+    return "; ".join(
+        f"{who}: ready {s['ready_s']:.1f} s, pull {s['fetch_s']:.2f} s of "
+        f"{s['wire_bytes']} wire bytes ({s['effective_bytes']} effective, "
+        f"{s['groups']} groups, {s['wire_bytes'] / s['fetch_s'] / 1e9:.2f} "
+        f"GB/s)" for who, s in starts.items())
+
+
+def worker_memory(cluster) -> dict:
+    """Device memory: the rows of ``nvidia-smi
+    --query-compute-apps=pid,used_memory`` (pid and MiB of every process
+    on the card; in a container the pids may be another namespace's),
+    this process's and the worker processes' pids, and each worker
+    process's own allocator reservation (``torch_cuda_reserved_bytes``,
+    off its /vars)."""
+    from brpc_tpu_torch import disagg, runtime
+
+    out = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid,used_memory",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=30).stdout
+    res = {"nvidia_smi": [ln.strip() for ln in out.splitlines()
+                          if ln.strip()],
+           "pids": {"this process": os.getpid()}, "reserved_gib": {}}
+    for role, addrs in (("prefill", cluster.prefill_addrs),
+                        ("decode", cluster.decode_addrs)):
+        for i, addr in enumerate(addrs):
+            res["pids"][f"{role}{i}"] = cluster.workers[addr][0].pid
+            v = runtime.http_vars(addr, disagg.DEVICE_MEMORY_COUNTER)
+            res["reserved_gib"][f"{role}{i}"] = round(
+                v.get(disagg.DEVICE_MEMORY_COUNTER, 0) / 2**30, 3)
+    return res
+
+
+def exact_cluster(params, cfg, script) -> dict:
+    """``script`` through worker processes: DisaggCluster(1, 1, f32=True)
+    serving the phase's weights from host memory; the prefill and decode
+    worker processes pull them over TPS1 and run on this card. Every
+    stream must equal its expected one; each worker process must have
+    launched its kernels (CLUSTER_KERNELS)."""
+    from brpc_tpu_torch import disagg
+
+    # The cluster takes the host copy out of the dict: it is freed once
+    # the cluster's servers hold the weights' blobs.
+    cluster = disagg.DisaggCluster(
+        1, 1, cfg_name="llama3_8b", n_layers=cfg.n_layers, f32=True,
+        weights={"": {k: v.cpu() for k, v in
+                      disagg._flatten_params(params).items()}},
+        decode_slots=4, decode_kv_blocks=64, max_prompt=128,
+        worker_timeout_ms=600_000)
+    try:
+        starts = cold_starts(cluster)
+        run_waves(cluster, script, "worker-process")
+        launches = check_cluster_launches(cluster)
+    finally:
+        cluster.close()
+    n = sum(len(w) for w in script)
+    log(f"[exact] worker processes: the same {n} requests through "
+        f"DisaggCluster(1, 1, f32) identical to the plain rollout; cold "
+        f"starts {fmt_cold_starts(starts)}; launches {launches}")
+    return {"cold_starts": starts, "launches": launches}
 
 
 def flight_ttfts(n: int) -> tuple:
@@ -2494,6 +2633,7 @@ def phase_disagg(params, cfg, card: str, main_res: dict) -> dict:
         == wave1["tokens"][DISAGG_SPLICE],
         "launches": launches, "peak_mem_gib": peak,
         "pool_write": pool_write,
+        "wave1_streams": [wave1["tokens"][i] for i in range(len(prompts))],
     }
     log(f"[disagg] Llama-3-8B bf16 {cfg.n_layers} layers, {card}: "
         f"{len(prompts)} concurrent requests through router -> layer-wise "
@@ -2531,6 +2671,76 @@ def phase_disagg(params, cfg, card: str, main_res: dict) -> dict:
         f"{main_res['ttft_p99_ms']:.1f} ms, decode step "
         f"{res['decode_step_ms']:.2f} vs {main_res['decode_step_ms']:.2f} "
         f"ms, peak memory {peak:.2f} vs {main_res['peak_mem_gib']:.2f} GiB")
+    return res
+
+
+def phase_disagg_procs(weights: dict, cfg, card: str, main_res: dict,
+                       inproc: dict) -> dict:
+    """The disagg phase's first wave (the same prompts) through worker
+    processes at full width and depth: DisaggCluster(1, 1) serving
+    ``weights`` ({"": flat dict in host memory}, which the cluster takes
+    out of the dict), a prefill and a decode worker process on this card
+    beside this one."""
+    from brpc_tpu_torch import disagg, kv_cache
+
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(0, cfg.vocab, n).tolist() for n in MAIN_LENGTHS]
+    max_new = MAIN_NEW_TOKENS
+    blocks = len(prompts) * kv_cache.pages_for(max(MAIN_LENGTHS) + max_new,
+                                               16) + 1
+    t0 = time.monotonic()
+    cluster = disagg.DisaggCluster(
+        1, 1, cfg_name="llama3_8b", weights=weights, decode_slots=8,
+        decode_kv_blocks=blocks, max_prompt=1024,
+        kv_pool=kv_pool_budget(cfg), worker_timeout_ms=600_000)
+    try:
+        up_s = time.monotonic() - t0
+        starts = cold_starts(cluster)
+        mem_idle = worker_memory(cluster)
+        wave = run_swarm(cluster, prompts, max_new)
+        launches = check_cluster_launches(cluster)
+        mem = worker_memory(cluster)
+        groups = len(cluster.param_servers[""])
+    finally:
+        cluster.close()
+    streams = [wave["tokens"][i] for i in range(len(prompts))]
+    for toks in streams:
+        if not all(0 <= t < cfg.vocab for t in toks):
+            raise AssertionError("token id out of vocabulary")
+    ttft = sorted(wave["ttft_s"].values())
+    n_tok = sum(len(t) for t in streams)
+    res = {
+        "card": card, "requests": len(prompts),
+        "prompt_lengths": MAIN_LENGTHS, "new_tokens": max_new,
+        "cluster_up_s": up_s, "param_server_groups": groups,
+        "cold_starts": starts, "device_memory": mem,
+        "device_memory_idle": mem_idle,
+        "tokens_per_s": n_tok / wave["wall_s"],
+        "ttft_p50_ms": 1e3 * ttft[len(ttft) // 2],
+        "ttft_p99_ms": 1e3 * ttft[min(len(ttft) - 1,
+                                      int(0.99 * len(ttft)))],
+        "launches": launches,
+        "streams_equal_in_process": sum(
+            a == b for a, b in zip(streams, inproc["wave1_streams"])),
+    }
+    log(f"[disagg-procs] Llama-3-8B bf16 {cfg.n_layers} layers, {card}: "
+        f"cluster up in {up_s:.1f} s ({groups} ParamServer groups); cold "
+        f"starts {fmt_cold_starts(starts)}")
+    log(f"[disagg-procs] device memory by process (nvidia-smi), idle "
+        f"{json.dumps(mem_idle)}, after the wave {json.dumps(mem)}")
+    log(f"[disagg-procs] {len(prompts)} concurrent requests through router "
+        f"-> prefill worker process -> decode worker process, {n_tok} "
+        f"tokens in {wave['wall_s']:.3f} s = {res['tokens_per_s']:.2f} "
+        f"tok/s; TTFT p50 {res['ttft_p50_ms']:.1f} ms p99 "
+        f"{res['ttft_p99_ms']:.1f} ms; against the in-process disagg run "
+        f"{inproc['tokens_per_s']:.2f} tok/s, p50 "
+        f"{inproc['ttft_p50_ms']:.1f}, p99 {inproc['ttft_p99_ms']:.1f}, and "
+        f"phase 5 (colocated) {main_res['tokens_per_s']:.2f} tok/s, p50 "
+        f"{main_res['ttft_p50_ms']:.1f}, p99 {main_res['ttft_p99_ms']:.1f}; "
+        f"{res['streams_equal_in_process']} of {len(prompts)} streams equal "
+        f"to the in-process run's (bf16: batch shapes may differ)")
+    log(f"[disagg-procs] launches prefill worker {launches['prefill']} "
+        f"decode worker {launches['decode']}")
     return res
 
 
@@ -2608,6 +2818,20 @@ def main() -> int:
                           args.report_dir)
     report["main"] = main_res
     report["disagg"] = phase_disagg(params, cfg, card, main_res)
+    # The worker processes load the weights themselves: this process keeps
+    # a host copy to serve them from and releases its device copy.
+    from brpc_tpu_torch import disagg
+
+    weights = {"": {k: v.cpu()
+                    for k, v in disagg._flatten_params(params).items()}}
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[disagg-procs] this process's device copy of the weights "
+        f"released: {torch.cuda.memory_allocated() / 2**30:.2f} GiB still "
+        f"allocated here")
+    report["disagg_procs"] = phase_disagg_procs(weights, cfg, card,
+                                                main_res, report["disagg"])
     report["kernel_cases"] = cases
     with open(os.path.join(args.report_dir, "chip_smoke_report.json"),
               "w") as f:
