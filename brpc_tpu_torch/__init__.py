@@ -7,8 +7,11 @@ arrays held as torch tensors on an NVIDIA card and the attention and
 normalisation of the serving path in hand-written CUDA kernels.
 
 - ``brpc_tpu_torch.native`` / ``runtime``: the native builder and the ctypes
-  surface the serving paths need (Server, Channel, NativeBatcher, flight
-  records, the KV transfer, the host KV page store, the metrics dump).
+  surface the serving paths need (Server, Channel, ParallelChannel,
+  NativeBatcher, flight records, the KV transfer, the host KV page store,
+  the metrics dump).
+- ``brpc_tpu_torch.mesh_bridge``: rank shards gathered over RPC and landed
+  on the devices straight from the RPC buffer, and scattered back.
 - ``brpc_tpu_torch.models.transformer``: the Llama-style model, its prefill
   (whole or layer-streamed), the paged suffix prefill of a prefix-cache hit and the batched paged
   decode step.

@@ -423,14 +423,17 @@ class PrefixIndex:
 
     def serves_other(self, blk: int, keep: int, rows) -> bool:
         """Whether an entry on ``blk`` serves one of the page's rows from
-        ``keep`` on with another token than ``rows`` (the tokens a resume
-        is about to write there, in place, from row ``keep`` on): writing
-        them would change what that entry serves."""
+        ``keep`` on with another token than ``rows`` (the prompt's tokens
+        a resume is about to write there, in place, from row ``keep`` on),
+        or serves a row past them: the sequence's decode writes those
+        rows with tokens not known yet. Writing either would change what
+        that entry serves."""
         rows = np.asarray(rows, np.int32)
         with self._mu:
             for _parent, key, _kind in self._by_block.get(blk, ()):
-                toks = np.frombuffer(key, np.int32)[keep:keep + len(rows)]
-                if not np.array_equal(toks, rows[:len(toks)]):
+                toks = np.frombuffer(key, np.int32)[keep:]
+                if len(toks) > len(rows) or not np.array_equal(
+                        toks, rows[:len(toks)]):
                     return True
         return False
 
@@ -1039,14 +1042,16 @@ def prefix_resume(pool: PagedKvPool, params, cfg, page_tokens: int,
     suffix from position ``use`` through the block table, writing its rows
     in place. A mid-page tail that another holder still references
     (refcount > 1 after our retain), or on which ``index`` keeps an entry
-    that serves one of the rows the resume writes with another token, is
+    that serves one of the rows the resume writes with another token, or
+    a row past the prompt (which the sequence's decode writes next), is
     copied first into a fresh block (copy-on-write) and the table points
     at the copy before any suffix row lands, so the other holder's page
     stays byte-unchanged. Otherwise we write into the tail in place. (The
     reference writes in place whenever the refcount is 1, which corrupts
     a page that an earlier resume admitted onto the same block once no
     sequence holds it: the prompt p, then p + x and p + y with p's
-    sequence gone, then p + x again.)
+    sequence gone, then p + x again; or p, then p + x + z, then p + x
+    decoding past its prompt, then p + x + z + w.)
 
     Returns (first_token_logits, blocks): the sequence's full block list,
     one caller-owned reference per block. On pool exhaustion releases

@@ -1,6 +1,8 @@
 """ctypes surface of the native RPC runtime, as far as the serving paths
-need it: Server (unary handlers), Channel (unary calls, a retry policy) and
-bidirectional streams, the process's framed-protocol body cap,
+need it: Server (unary handlers, TCP or the device fabric), Channel (unary
+calls, a retry policy) and bidirectional streams, the fan-out
+ParallelChannel with its progressive gather and the wire-integrity rail,
+the process's framed-protocol body cap,
 the request batcher, error codes, the flight recorder's stamps and notes,
 the KV transfer of disaggregated serving (layer-wise sender, receive pool,
 claim), the host-tier KV page store with the peer page pull, and the
@@ -19,7 +21,7 @@ import queue
 import threading
 import time
 import traceback
-from typing import Callable, Optional, Sequence
+from typing import Callable, List, Optional, Sequence
 
 from brpc_tpu_torch import native
 
@@ -162,6 +164,43 @@ def _lib() -> ctypes.CDLL:
             ctypes.c_longlong, ctypes.c_int]
         lib.trpc_dump_metrics.argtypes = [c_char_pp]
         lib.trpc_dump_metrics.restype = ctypes.c_size_t
+        lib.trpc_server_start_device.argtypes = [
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
+        lib.trpc_pchan_create5.argtypes = [
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
+            ctypes.c_int, ctypes.c_longlong]
+        lib.trpc_pchan_create5.restype = ctypes.c_void_p
+        lib.trpc_pchan_add.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+        lib.trpc_pchan_call.argtypes = [
+            ctypes.c_void_p, ctypes.c_char_p, ctypes.c_char_p,
+            ctypes.c_char_p, ctypes.c_size_t, c_char_pp,
+            ctypes.POINTER(ctypes.c_size_t), ctypes.c_char_p,
+            ctypes.c_size_t]
+        lib.trpc_pchan_call_ranks.argtypes = [
+            ctypes.c_void_p, ctypes.c_char_p, ctypes.c_char_p,
+            ctypes.c_char_p, ctypes.c_size_t, c_char_pp,
+            ctypes.POINTER(ctypes.c_size_t), ctypes.POINTER(ctypes.c_int),
+            ctypes.POINTER(ctypes.c_ulonglong), ctypes.c_int,
+            ctypes.c_char_p, ctypes.c_size_t]
+        lib.trpc_pchan_destroy.argtypes = [ctypes.c_void_p]
+        lib.trpc_pchan_gather_begin.argtypes = [
+            ctypes.c_void_p, ctypes.c_char_p, ctypes.c_char_p,
+            ctypes.c_char_p, ctypes.c_size_t]
+        lib.trpc_pchan_gather_begin.restype = ctypes.c_void_p
+        lib.trpc_pchan_gather_wait_rank.argtypes = [
+            ctypes.c_void_p, ctypes.c_int, c_char_pp,
+            ctypes.POINTER(ctypes.c_size_t), ctypes.c_char_p,
+            ctypes.c_size_t]
+        lib.trpc_pchan_gather_wait_prefix.argtypes = [
+            ctypes.c_void_p, ctypes.c_ulonglong, c_char_pp,
+            ctypes.POINTER(ctypes.c_size_t), ctypes.POINTER(ctypes.c_int),
+            ctypes.c_char_p, ctypes.c_size_t]
+        lib.trpc_pchan_gather_end.argtypes = [
+            ctypes.c_void_p, ctypes.c_char_p, ctypes.c_size_t]
+        lib.trpc_pchan_gather_mode.argtypes = [ctypes.c_void_p]
+        lib.trpc_coll_crc_enable.argtypes = [ctypes.c_int]
+        lib.trpc_coll_crc_enabled.argtypes = []
         for fn in (lib.trpc_init, lib.trpc_server_start,
                    lib.trpc_server_stop, lib.trpc_server_add_method,
                    lib.trpc_call, lib.trpc_stream_close,
@@ -177,12 +216,19 @@ def _lib() -> ctypes.CDLL:
                    lib.trpc_kv_pool_configure, lib.trpc_kv_send_layer,
                    lib.trpc_kv_send_commit, lib.trpc_kv_recv_claim,
                    lib.trpc_kv_recv_copy_layer, lib.trpc_kv_recv_release,
-                   lib.trpc_kv_abort, lib.trpc_kv_stats, lib.trpc_kv_pull):
+                   lib.trpc_kv_abort, lib.trpc_kv_stats, lib.trpc_kv_pull,
+                   lib.trpc_server_start_device, lib.trpc_pchan_add,
+                   lib.trpc_pchan_call, lib.trpc_pchan_call_ranks,
+                   lib.trpc_pchan_gather_wait_rank,
+                   lib.trpc_pchan_gather_wait_prefix,
+                   lib.trpc_pchan_gather_end, lib.trpc_pchan_gather_mode,
+                   lib.trpc_coll_crc_enabled):
             fn.restype = ctypes.c_int
         for fn in (lib.trpc_server_destroy, lib.trpc_channel_destroy,
                    lib.trpc_call_respond,
                    lib.trpc_buf_free, lib.trpc_batcher_destroy,
-                   lib.trpc_kv_tier_note_fill):
+                   lib.trpc_kv_tier_note_fill, lib.trpc_pchan_destroy,
+                   lib.trpc_coll_crc_enable):
             fn.restype = None
         rc = lib.trpc_init(0)
         if rc != 0:
@@ -263,6 +309,13 @@ def _native_bytes(ptr, n: int):
         ctypes.cast(ptr, ctypes.c_void_p).value)
 
 
+def _native_view(ptr, n: int) -> memoryview:
+    """A read-only memoryview of ``n`` native bytes at ``ptr``, no copy."""
+    if not n:
+        return memoryview(b"")
+    return memoryview(_native_bytes(ptr, n)).cast("B").toreadonly()
+
+
 class NativeBuffer:
     """A response buffer owned by the native runtime, exposed without a
     copy: ``view`` is a read-only memoryview of it. ``release()`` (or
@@ -272,8 +325,7 @@ class NativeBuffer:
     def __init__(self, lib, ptr, length: int):
         self._lib = lib
         self._ptr = ptr
-        self.view = (memoryview(_native_bytes(ptr, length)).cast("B")
-                     .toreadonly() if length else memoryview(b""))
+        self.view = _native_view(ptr, length)
 
     def __len__(self) -> int:
         return len(self.view)
@@ -360,6 +412,14 @@ class Server:
         self.port = bound.value
         return self.port
 
+    def start_device(self, slice_: int, chip: int) -> None:
+        """Listen on the device fabric's coordinate ``ici://slice/chip``
+        (shared memory between the processes of one namespace, env
+        ``TRPC_FABRIC_NS``; ``cpp/trpc/device_transport.h``)."""
+        rc = self._lib.trpc_server_start_device(self._h, slice_, chip)
+        if rc != 0:
+            raise OSError(rc, "server start_device failed")
+
     def stop(self) -> None:
         if self._h:
             self._lib.trpc_server_stop(self._h)
@@ -379,7 +439,8 @@ class Server:
 
 
 class Channel:
-    """Client stub to ``"ip:port"``: ``call`` makes a unary call,
+    """Client stub to ``"ip:port"`` or a device-fabric coordinate
+    ``"ici://slice/chip"``: ``call`` makes a unary call,
     ``open_stream_rx`` opens the serving gateway's token-delivery stream. ``retry_policy`` replaces the bare
     ``max_retry`` with backoff-spaced retries gated on an errno
     whitelist."""
@@ -511,6 +572,255 @@ class ReadableStream:
 
 # Keeps rx-sink trampolines alive until their stream's close callback.
 _rx_sinks: dict = {}
+
+
+# ---- fan-out: ParallelChannel and the progressive gather ---------------------
+
+def coll_crc_enable(on: bool = True) -> None:
+    """Arm (or disarm) the wire-integrity rail: a crc32c over each
+    collective, KV and ``__rd`` frame, checked before any fold, stash or
+    commit; a mismatch drops the frame (the sender retries). Off by
+    default; env ``TRPC_COLL_CRC=1`` arms it at start-up."""
+    _lib().trpc_coll_crc_enable(1 if on else 0)
+
+
+def coll_crc_enabled() -> bool:
+    return bool(_lib().trpc_coll_crc_enabled())
+
+
+class GatherHandle:
+    """An in-flight progressive gather (``ParallelChannel.gather_begin``).
+
+    Star gathers (``mode == "rank"``): ``wait_rank(r)`` blocks until rank
+    r's response landed and returns it. Ring gathers (``mode ==
+    "prefix"``): ``wait_prefix(n)`` returns the rank-ordered concat as far
+    as it has arrived. Both return read-only zero-copy memoryviews of
+    buffers the handle owns: they must not outlive ``end()``, which waits
+    for the whole collective and frees them. A failed collective raises
+    ``RpcError`` from whichever call observes it (all-or-nothing)."""
+
+    def __init__(self, lib, h, nranks: int):
+        self._lib = lib
+        self._h = h
+        self.nranks = nranks
+        self.mode = "prefix" if lib.trpc_pchan_gather_mode(h) == 1 else "rank"
+
+    def _check(self, rc: int, err) -> None:
+        if rc != 0:
+            raise RpcError(rc, err.value.decode(errors="replace"))
+
+    def wait_prefix(self, min_total: int):
+        """Block until at least ``min_total`` bytes of the concat arrived
+        (or it completed); ``(view of the whole prefix so far, done)``.
+        Views from earlier calls stay valid until ``end()`` (the buffer's
+        growth retires old storage, never frees it)."""
+        if self._h is None:
+            raise RuntimeError("gather already ended")
+        data = ctypes.POINTER(ctypes.c_char)()
+        n = ctypes.c_size_t(0)
+        done = ctypes.c_int(0)
+        err = ctypes.create_string_buffer(256)
+        self._check(self._lib.trpc_pchan_gather_wait_prefix(
+            self._h, min_total, ctypes.byref(data), ctypes.byref(n),
+            ctypes.byref(done), err, len(err)), err)
+        return _native_view(data, n.value), bool(done.value)
+
+    def wait_rank(self, rank: int) -> memoryview:
+        if self._h is None:
+            raise RuntimeError("gather already ended")
+        data = ctypes.POINTER(ctypes.c_char)()
+        n = ctypes.c_size_t(0)
+        err = ctypes.create_string_buffer(256)
+        self._check(self._lib.trpc_pchan_gather_wait_rank(
+            self._h, rank, ctypes.byref(data), ctypes.byref(n), err,
+            len(err)), err)
+        return _native_view(data, n.value)
+
+    def end(self) -> None:
+        if self._h is not None:
+            h, self._h = self._h, None
+            err = ctypes.create_string_buffer(256)
+            self._check(self._lib.trpc_pchan_gather_end(h, err, len(err)),
+                        err)
+
+    def __del__(self):
+        try:
+            self.end()
+        except Exception:  # noqa: BLE001 — interpreter may be tearing down
+            pass
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        try:
+            self.end()
+        except RpcError:
+            if exc[0] is None:  # don't mask the body's own exception
+                raise
+
+
+class RankResult:
+    """One rank's outcome in a partial-success gather (``call_ranks``):
+    ``data`` is None and ``error`` its errno when the rank failed."""
+
+    __slots__ = ("rank", "data", "error")
+
+    def __init__(self, rank: int, data: Optional[bytes], error: int):
+        self.rank = rank
+        self.data = data
+        self.error = error
+
+    @property
+    def ok(self) -> bool:
+        return self.error == 0
+
+    def __repr__(self):
+        return (f"RankResult(rank={self.rank}, ok={self.ok}, "
+                f"error={self.error}, len={len(self.data or b'')})")
+
+
+class ParallelChannel:
+    """Fan-out over Channels: one call broadcast to every rank, the
+    responses gathered in rank order (the concat of the rank payloads).
+    With ``lower_to_collective`` the broadcast is one collective frame on
+    the wire (``cpp/trpc/policy/collective.cc``), all-or-nothing.
+
+    ``schedule``: ``star`` (the root asks every rank), ``ring`` (a chain
+    that carries the concat, cut into ``chunk_bytes`` frames: -1 the
+    default, env ``TRPC_COLL_CHUNK_BYTES`` or 256 KiB; 0 unchunked),
+    ``mesh2d`` (rings per row of ``mesh=(rows, cols)``, rank (i, j) =
+    ``subs[i * cols + j]``) or ``auto`` (picked from measured links;
+    ``advise_bytes`` keys the pick when the response size is known).
+    ``reduce_op`` folds the payloads instead of concatenating them,
+    ``reduce_scatter`` leaves each rank its slice. ``fail_limit > 0``
+    lets a call succeed with up to that many dead ranks (``call_ranks``
+    reports each rank); it forces one unicast per rank."""
+
+    _SCHEDULES = ("star", "ring", "mesh2d", "auto")
+
+    def __init__(self, subs: Sequence[Channel],
+                 lower_to_collective: bool = True, timeout_ms: int = 5000,
+                 schedule: str = "star", reduce_op: int = 0,
+                 reduce_scatter: bool = False, fail_limit: int = 0,
+                 chunk_bytes: int = -1, mesh: Optional[tuple] = None,
+                 advise_bytes: int = 0):
+        if schedule not in self._SCHEDULES:
+            raise ValueError(
+                "schedule must be one of 'star', 'ring', 'mesh2d', 'auto'")
+        if schedule == "mesh2d" and mesh is None:
+            raise ValueError("mesh2d schedule needs mesh=(rows, cols)")
+        rows, cols = mesh if mesh is not None else (0, 0)
+        self._lib = _lib()
+        self._h = self._lib.trpc_pchan_create5(
+            1 if lower_to_collective else 0, timeout_ms,
+            self._SCHEDULES.index(schedule), reduce_op,
+            1 if reduce_scatter else 0, fail_limit, chunk_bytes, rows, cols,
+            advise_bytes)
+        if not self._h:
+            raise OSError("pchan create failed")
+        self._per_rank = fail_limit > 0 or not lower_to_collective
+        self._subs = list(subs)  # the native pchan does not own them
+        try:
+            for sub in self._subs:
+                rc = self._lib.trpc_pchan_add(self._h, sub._h)
+                if rc != 0:
+                    raise OSError(rc, "pchan add failed")
+        except Exception:
+            self.close()
+            raise
+
+    def call(self, service: str, method: str, request: bytes = b"") -> bytes:
+        buf = self.call_view(service, method, request)
+        try:
+            return bytes(buf.view)
+        finally:
+            buf.release()
+
+    def call_view(self, service: str, method: str,
+                  request: bytes = b"") -> NativeBuffer:
+        """``call`` whose gathered response stays in the runtime's buffer,
+        returned as a zero-copy view (``NativeBuffer``)."""
+        rsp = ctypes.POINTER(ctypes.c_char)()
+        rsp_len = ctypes.c_size_t(0)
+        err = ctypes.create_string_buffer(256)
+        rc = self._lib.trpc_pchan_call(
+            self._h, service.encode(), method.encode(), request,
+            len(request), ctypes.byref(rsp), ctypes.byref(rsp_len), err,
+            len(err))
+        if rc != 0:
+            raise RpcError(rc, err.value.decode(errors="replace"))
+        return NativeBuffer(self._lib, rsp, rsp_len.value)
+
+    def gather_begin(self, service: str, method: str,
+                     request: bytes = b"") -> GatherHandle:
+        """Start the collective and return a ``GatherHandle`` that yields
+        each rank's payload as soon as it lands: per rank on star pchans,
+        as a growing in-order prefix on ring gathers. Other pchans (mesh2d,
+        reduce, fail_limit, unlowered) raise ValueError."""
+        h = self._lib.trpc_pchan_gather_begin(
+            self._h, service.encode(), method.encode(), request,
+            len(request))
+        if not h:
+            raise ValueError(
+                "gather_begin needs a star- or ring-gather-lowered pchan "
+                "with fail_limit 0")
+        return GatherHandle(self._lib, h, len(self._subs))
+
+    def call_ranks(self, service: str, method: str,
+                   request: bytes = b"") -> List[RankResult]:
+        """Partial-success gather: one ``RankResult`` per rank, in rank
+        order. Raises RpcError only when more than ``fail_limit`` ranks
+        failed, and ValueError on a lowered all-or-nothing pchan."""
+        if not self._per_rank:
+            raise ValueError(
+                "call_ranks needs fail_limit > 0 (or "
+                "lower_to_collective=False); a lowered collective gather "
+                "is all-or-nothing with no per-rank report — use call()")
+        n = len(self._subs)
+        rsp = ctypes.POINTER(ctypes.c_char)()
+        rsp_len = ctypes.c_size_t(0)
+        rank_err = (ctypes.c_int * n)()
+        rank_len = (ctypes.c_ulonglong * n)()
+        err = ctypes.create_string_buffer(256)
+        rc = self._lib.trpc_pchan_call_ranks(
+            self._h, service.encode(), method.encode(), request,
+            len(request), ctypes.byref(rsp), ctypes.byref(rsp_len),
+            rank_err, rank_len, n, err, len(err))
+        if rc != 0:
+            raise RpcError(rc, err.value.decode(errors="replace"))
+        buf = NativeBuffer(self._lib, rsp, rsp_len.value)
+        try:
+            out: List[RankResult] = []
+            off = 0
+            for i in range(n):
+                if rank_err[i] == 0:
+                    size = int(rank_len[i])
+                    out.append(RankResult(
+                        i, bytes(buf.view[off:off + size]), 0))
+                    off += size
+                else:
+                    out.append(RankResult(i, None, int(rank_err[i])))
+            return out
+        finally:
+            buf.release()
+
+    def close(self) -> None:
+        if self._h:
+            self._lib.trpc_pchan_destroy(self._h)
+            self._h = None
+
+    def __del__(self):
+        try:
+            self.close()
+        except Exception:  # noqa: BLE001 — interpreter may be tearing down
+            pass
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
 
 
 # Priority lanes of the serving batcher (mirror trpc::BatcherLane).

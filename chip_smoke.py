@@ -24,7 +24,13 @@ their plain backwards, the ring's backward against dense autograd at S
 8192 and timed at S 32768, one f32 train_step at Llama-3-8B width (2
 layers) against the plain autograd step, the bf16 step at width (4
 layers, tokens [2, 2049]) beside the plain one, and the dp x tp dry-run
-twin in an NCCL world of one.
+twin in an NCCL world of one. Last, device landing: four rank processes
+on the device fabric each hold a tensor-parallel quarter of one
+Llama-3-8B layer; the mesh bridge gathers them over a star and a ring
+pchan onto the card, bit-equal to the source, and a 1-layer Llama-3-8B
+built from the landed bytes streams tokens bit-equal to the same model
+loaded with .to("cuda"); then the pipelined lane, the H2D sources and a
+scatter round trip.
 
     python3 chip_smoke.py            # all phases, one card
     python3 chip_smoke.py --profile  # + two short profiled swarms
@@ -46,6 +52,7 @@ import gc
 import json
 import os
 import re
+import select
 import struct
 import subprocess
 import sys
@@ -2744,6 +2751,448 @@ def phase_disagg_procs(weights: dict, cfg, card: str, main_res: dict,
     return res
 
 
+# ---- the landing phase: rank shards gathered over RPC onto the card ---------
+
+LANDING_RANKS = 4
+LANDING_SLICE = 7             # the phase's device-fabric coordinates
+LANDING_STREAM_ITERS = 8
+LANDING_PROMPTS = (16, 100, 300, 1000)
+LANDING_NEW = 16
+# Host-to-device rate of the card's link: PCIe Gen5 x16, one direction.
+PCIE_BYTES_PER_S = 64e9
+# A rank process's send arena (MB) and retain budget (MB). Handed-off
+# blocks may pin only half of the arena (cpp/trpc/device_transport.h:86),
+# and the default 256 MB (TRPC_DEVICE_ARENA_MB, :94) would let a rank
+# keep one 104 MiB frame in flight; a depth-2 stream needs two.
+LANDING_ARENA_MB = 1024
+LANDING_RETAIN_MB = 512
+# trpc_max_body_size of the phase's processes. A ring hop carries the
+# concat so far, cut into chunk frames, and a chunked message is capped
+# as a whole (cpp/trpc/policy/trpc_protocol.cc:1732, :1875): the hop into
+# rank 3 carries 312 MiB and the root's pickup 416 MiB, over the default
+# 256 MiB. (The star root receives one 104 MiB frame a rank.)
+LANDING_BODY_CAP = 1 << 30
+# The phase's processes arm the wire-integrity rail (crc32c over each
+# collective frame, checked end to end; a mismatch is dropped and
+# resent). Without it the first ring gather over fresh fabric links can
+# deliver a rank's payload tail corrupted (shared native code, both
+# packages; ROADMAP §C 13); the phase logs the mismatches the rail caught.
+
+# A rank process: an empty ShardServer on the device fabric (and on TCP
+# for its /vars); the parent puts its shard in, and closes stdin to stop
+# it.
+_RANK_SRC = r"""
+import sys
+sys.path.insert(0, sys.argv[1])
+from brpc_tpu_torch import mesh_bridge, runtime
+runtime.set_max_body_size(int(sys.argv[4]))
+mesh_bridge.enable_wire_integrity()
+srv = mesh_bridge.ShardServer({})
+port = srv.start(0)
+srv.start_device(int(sys.argv[2]), int(sys.argv[3]))
+print("READY", port, flush=True)
+sys.stdin.read()
+srv.close()
+"""
+
+
+def start_rank_servers(k: int, slice_: int) -> tuple:
+    """k rank processes on ``ici://slice_/r``: (processes, their TCP
+    addresses)."""
+    env = dict(os.environ, TRPC_DEVICE_ARENA_MB=str(LANDING_ARENA_MB),
+               TRPC_FABRIC_RETAIN_MB=str(LANDING_RETAIN_MB))
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", _RANK_SRC, HERE, str(slice_), str(r),
+         str(LANDING_BODY_CAP)],
+        stdin=subprocess.PIPE, stdout=subprocess.PIPE, env=env, text=True)
+        for r in range(k)]
+    addrs = []
+    try:
+        for r, p in enumerate(procs):
+            ready, _, _ = select.select([p.stdout], [], [], 120)
+            line = p.stdout.readline() if ready else ""
+            if not line.startswith("READY "):
+                raise AssertionError(f"rank process {r} did not start "
+                                     f"(exit {p.poll()}, said {line!r})")
+            addrs.append(f"127.0.0.1:{int(line.split()[1])}")
+    except BaseException:
+        stop_rank_servers(procs)
+        raise
+    return procs, addrs
+
+
+def stop_rank_servers(procs: list) -> None:
+    for p in procs:
+        try:
+            p.stdin.close()
+        except OSError:
+            pass
+    for p in procs:
+        try:
+            p.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            p.wait()
+
+
+def land_from_buffer(buf, register: bool) -> dict:
+    """Host seconds of landing one gathered buffer on the card: its rows
+    copied from the runtime's pageable buffer, or (``register``) with the
+    buffer page-locked by ``cudaHostRegister`` first and unregistered
+    after the copies."""
+    from brpc_tpu_torch import mesh_bridge
+
+    cudart = torch.cuda.cudart()
+    flat = np.frombuffer(buf.view, np.uint8)
+    ptr, n = flat.ctypes.data, flat.nbytes
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    if register:
+        rc = cudart.cudaHostRegister(ptr, n, 0)
+        if int(rc) != 0:
+            raise AssertionError(f"cudaHostRegister failed: {rc}")
+    t1 = time.perf_counter()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    # The bridge's own landing of a gathered buffer (gather_to_mesh's core;
+    # its copy stream waits for the current stream, which waits for it).
+    landing = mesh_bridge._assemble_on_devices(buf, "w", [torch.device(
+        "cuda", torch.cuda.current_device())])
+    end.record()
+    landing.synchronize()
+    t2 = time.perf_counter()
+    if register:
+        rc = cudart.cudaHostUnregister(ptr)
+        if int(rc) != 0:
+            raise AssertionError(f"cudaHostUnregister failed: {rc}")
+    t3 = time.perf_counter()
+    del flat
+    torch.cuda.synchronize()
+    return {"register_ms": 1e3 * (t1 - t0), "copy_ms": 1e3 * (t2 - t1),
+            "copy_events_ms": start.elapsed_time(end),
+            "unregister_ms": 1e3 * (t3 - t2), "total_ms": 1e3 * (t3 - t0)}
+
+
+def phase_landing(card: str) -> dict:
+    """Device landing at full width: four rank processes on the device
+    fabric each hold a tensor-parallel quarter of one Llama-3-8B layer's
+    matrices, packed into one bf16 array ``w`` (109 MB a rank); the
+    port's mesh bridge gathers them over a star and a ring pchan and lands
+    them on the card, and a 1-layer Llama-3-8B built from the landed
+    bytes streams greedy tokens through the ServingEngine (K2, K3, K3
+    fused, K1) bit-equal to the same model loaded with ``.to("cuda")``.
+    Then the pipelined lane (star, and ring through the prefix lane), the
+    two H2D sources, the pinned and pageable yardsticks, and a scatter
+    round trip."""
+    from brpc_tpu_torch import mesh_bridge, runtime
+    from brpc_tpu_torch.models import transformer
+
+    k = LANDING_RANKS
+    cfg = dataclasses.replace(transformer.TransformerConfig.llama3_8b(),
+                              n_layers=1)
+    params = transformer.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(3), device="cuda")
+    host = {n: params["layers"][n].cpu() for n in mesh_bridge.TP_AXIS}
+    shapes = {n: tuple(t.shape) for n, t in host.items()}
+    packed = mesh_bridge.pack_tp_shards(host, k)
+    per_rank = packed[0].numel()
+    nbytes = k * per_rank * 2
+    if per_rank != 54_525_952:
+        raise AssertionError(f"{per_rank} elements a rank, want 54525952")
+    bound = nbytes / PCIE_BYTES_PER_S * 1e3
+    t_phase = time.monotonic()
+    os.environ["TRPC_FABRIC_NS"] = f"chip-landing-{os.getpid()}"
+    runtime.set_max_body_size(LANDING_BODY_CAP)
+    mesh_bridge.enable_wire_integrity()
+    crc0 = crc_errors()
+    t0 = time.monotonic()
+    procs, addrs = start_rank_servers(k, LANDING_SLICE)
+    res = {"card": card, "ranks": k, "bytes_per_rank": per_rank * 2,
+           "bytes": nbytes, "bound_ms": bound,
+           "ranks_up_s": time.monotonic() - t0}
+    chans = [runtime.Channel(f"ici://{LANDING_SLICE}/{r}", timeout_ms=120_000)
+             for r in range(k)]
+    pchans = {}
+    try:
+        for r in range(k):
+            if chans[r].call(mesh_bridge.SERVICE, "put",
+                             mesh_bridge.encode_arrays({"w": packed[r]})
+                             ) != b"ok":
+                raise AssertionError(f"rank {r} refused its shard")
+        pchans = {s: runtime.ParallelChannel(chans, timeout_ms=120_000,
+                                             schedule=s)
+                  for s in ("star", "ring")}
+        src = torch.stack(packed).to("cuda")
+        landed = {}
+        for s, pc in pchans.items():
+            mesh_bridge.reset_stats()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = mesh_bridge.gather_to_mesh(pc, "w")
+            torch.cuda.synchronize()
+            ms = 1e3 * (time.perf_counter() - t0)
+            st = mesh_bridge.stats()
+            if len(out) != 1 or not torch.equal(out[0], src):
+                raise AssertionError(f"{s} landing differs from the source")
+            if st["staging_copy_bytes"] or st["zero_copy_bytes"] != nbytes:
+                raise AssertionError(f"{s} landing counters {st}")
+            landed[s] = out
+            res[f"gather_{s}_ms"] = ms
+            log(f"[landing] {s} gather_to_mesh of {k} x {per_rank * 2} "
+                f"bytes onto the card: {ms:.2f} ms host clock "
+                f"({nbytes / ms / 1e6:.3f} GB/s), torch.equal to the "
+                f"source, {st}")
+        res["serving"] = landing_serving(params, cfg, host, shapes,
+                                         landed["star"][0])
+        res["stream"] = {}
+        for s, pc in pchans.items():
+            res["stream"][s] = landing_stream(pc, src, nbytes, s)
+        res["sources"] = landing_sources(pchans["star"], nbytes)
+        res["yardsticks"] = landing_yardsticks(packed, nbytes)
+        res["device_ms"] = landing_device_ms(pchans["star"])
+        # Scatter round trip: put the landed rows back negated (exact in
+        # bf16), then read the servers' arrays over RPC.
+        flipped = [-landed["star"][0]]
+        t0 = time.perf_counter()
+        mesh_bridge.scatter_from_mesh(flipped, chans, "w")
+        res["scatter_ms"] = 1e3 * (time.perf_counter() - t0)
+        back = mesh_bridge.rpc_all_gather(pchans["star"], "w")
+        for r in range(k):
+            if not torch.equal(back[r], flipped[0][r].cpu()):
+                raise AssertionError(f"rank {r} holds other bytes after the "
+                                     f"scatter")
+        res["crc_errors"] = {"root": crc_errors() - crc0}
+        for r, addr in enumerate(addrs):
+            res["crc_errors"][f"rank{r}"] = crc_errors(addr)
+    finally:
+        for pc in pchans.values():
+            pc.close()
+        for ch in chans:
+            ch.close()
+        stop_rank_servers(procs)
+    res["phase_s"] = time.monotonic() - t_phase
+    y, sources = res["yardsticks"], res["sources"]
+    log(f"[landing] {card}: one landing of {nbytes} bytes, star "
+        f"{res['gather_star_ms']:.2f} ms, ring {res['gather_ring_ms']:.2f} "
+        f"ms (host clock, RPC included), device {res['device_ms']} ms; "
+        f"bound {bound:.2f} ms at {PCIE_BYTES_PER_S / 1e9:.0f} GB/s; pinned "
+        f"copy_ {y['pinned_ms']:.2f} ms, pageable .to {y['pageable_ms']:.2f} "
+        f"ms; sources {json.dumps(sources)}; scatter round trip "
+        f"{res['scatter_ms']:.1f} ms; frames the crc32c rail dropped and "
+        f"had resent: {res['crc_errors']}; phase {res['phase_s']:.1f} s")
+    return res
+
+
+def crc_errors(addr: str = "") -> int:
+    """Frames the wire-integrity rail rejected (``coll_link_crc_errors``),
+    in this process or, with ``addr``, in the server there."""
+    from brpc_tpu_torch import runtime
+
+    name = "coll_link_crc_errors"
+    v = runtime.http_vars(addr, name) if addr else runtime.metrics()
+    return int(v.get(name, 0))
+
+
+def landing_serving(params, cfg, host, shapes, rows) -> dict:
+    """The landed rows unpacked on the card into a 1-layer Llama-3-8B
+    (embedding, head and norms loaded directly), against the same model
+    whose layer matrices were moved with ``.to("cuda")``: equal weights,
+    bit-equal token streams through the ServingEngine (each prompt alone,
+    so both engines run the same batch shapes) and bit-equal last
+    logits."""
+    from brpc_tpu_torch import mesh_bridge, ops, serving
+    from brpc_tpu_torch.models import transformer
+
+    def model(layers):
+        return {**params, "layers": {**params["layers"], **layers}}
+
+    landed = model(mesh_bridge.unpack_tp_shards(rows, shapes))
+    direct = model({n: t.to("cuda") for n, t in host.items()})
+    for n in mesh_bridge.TP_AXIS:
+        if not torch.equal(landed["layers"][n], direct["layers"][n]):
+            raise AssertionError(f"landed {n} differs from .to('cuda')")
+    rng = np.random.default_rng(11)
+    prompts = [rng.integers(0, cfg.vocab, n).tolist()
+               for n in LANDING_PROMPTS]
+    streams, logits, launches = {}, {}, {}
+    blocks = len(prompts) * ((max(LANDING_PROMPTS) + LANDING_NEW) // 16
+                             + 1) + 1
+    for name, p in (("landed", landed), ("direct", direct)):
+        eng = serving.ServingEngine(
+            p, cfg, max_batch_size=4, slots=4, max_prompt=1024,
+            kv_blocks=blocks, prefix_cache=False, kv_host_tier=False)
+        try:
+            ops.reset_launch_counts()
+            streams[name] = [run_swarm(eng, [q], LANDING_NEW)["tokens"][0]
+                             for q in prompts]
+            launches[name] = ops.launch_counts()
+        finally:
+            eng.close()
+        seq = torch.tensor([prompts[-1] + streams[name][-1][:-1]],
+                           device="cuda")
+        logits[name] = transformer.forward(p, seq, cfg)[0, -1]
+    if streams["landed"] != streams["direct"]:
+        raise AssertionError(f"landed model's streams {streams['landed']} "
+                             f"!= direct {streams['direct']}")
+    if not torch.equal(logits["landed"], logits["direct"]):
+        raise AssertionError("landed model's last logits differ")
+    if not torch.isfinite(logits["landed"]).all():
+        raise AssertionError("last logits not finite")
+    used = launches["landed"]
+    for kname in ("prefill_attention", "rms_norm", "add_rms_norm",
+                  "paged_decode_attention"):
+        if not used.get(kname):
+            raise AssertionError(f"{kname} never launched on the landed "
+                                 f"model: {used}")
+    log(f"[landing] 1-layer Llama-3-8B from the landed bytes: "
+        f"{len(prompts)} prompts ({'/'.join(map(str, LANDING_PROMPTS))} "
+        f"tokens, {LANDING_NEW} new each) stream bit-equal to the "
+        f".to('cuda') model's, last logits torch.equal; launches "
+        f"{ {k: v for k, v in used.items() if v} }")
+    return {"streams_equal": True, "logits_equal": True,
+            "launches": {k: v for k, v in used.items() if v}}
+
+
+class _Timed:
+    """Accumulates the host seconds spent in some methods while active:
+    the stream's split between waiting for the RPC (``GatherHandle``'s
+    waits) and the host-to-device copies (``_Landing.put``, the host wait
+    on a landing's event)."""
+
+    def __init__(self, targets):
+        self.targets = targets  # [(owner, method name, bucket)]
+        self.s = {bucket: 0.0 for _o, _m, bucket in targets}
+        self._orig = []
+
+    def __enter__(self):
+        for owner, name, bucket in self.targets:
+            fn = getattr(owner, name)
+            self._orig.append((owner, name, fn))
+
+            def timed(*a, _fn=fn, _b=bucket, **kw):
+                t0 = time.perf_counter()
+                try:
+                    return _fn(*a, **kw)
+                finally:
+                    self.s[_b] += time.perf_counter() - t0
+            setattr(owner, name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, fn in self._orig:
+            setattr(owner, name, fn)
+
+
+def landing_stream(pc, src, nbytes: int, schedule: str) -> dict:
+    """``gather_to_mesh_stream`` over ``LANDING_STREAM_ITERS`` gathers at
+    depth 2, every landing checked against the source, with the host's
+    time split between waiting for ranks to arrive and the H2D copies."""
+    from brpc_tpu_torch import mesh_bridge, runtime
+
+    h = pc.gather_begin(mesh_bridge.SERVICE, "get")
+    mode = h.mode
+    h.end()
+    want = "prefix" if schedule == "ring" else "rank"
+    if mode != want:
+        raise AssertionError(f"{schedule} handle mode {mode}, want {want}")
+    mesh_bridge.reset_stats()
+    n = LANDING_STREAM_ITERS
+    got, check_s = 0, 0.0
+    with _Timed([(runtime.GatherHandle, "wait_rank", "receive"),
+                 (runtime.GatherHandle, "wait_prefix", "receive"),
+                 (mesh_bridge._Landing, "put", "h2d"),
+                 (mesh_bridge._Landing, "synchronize", "h2d")]) as timed:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for out in mesh_bridge.gather_to_mesh_stream(pc, "w", iters=n,
+                                                     depth=2):
+            t1 = time.perf_counter()
+            if not torch.equal(out[0], src):
+                raise AssertionError(f"{schedule} stream landing {got} "
+                                     f"differs")
+            got += 1
+            check_s += time.perf_counter() - t1
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0 - check_s
+    st = mesh_bridge.stats()
+    if got != n or st["staging_copy_bytes"] != 0 \
+            or st["zero_copy_bytes"] != n * nbytes:
+        raise AssertionError(f"{schedule} stream: {got} landings, {st}")
+    res = {"mode": mode, "iters": n, "ms_per_landing": 1e3 * wall / n,
+           "gbps": n * nbytes / wall / 1e9,
+           "receive_wait_ms": 1e3 * timed.s["receive"] / n,
+           "h2d_ms": 1e3 * timed.s["h2d"] / n, "stats": st}
+    log(f"[landing] stream {schedule} ({mode} lane), {n} gathers at depth "
+        f"2: {res['ms_per_landing']:.2f} ms a landing = "
+        f"{res['gbps']:.3f} GB/s (the checks excluded); of a landing's "
+        f"host time {res['receive_wait_ms']:.2f} ms waiting for ranks to "
+        f"arrive, {res['h2d_ms']:.2f} ms in the H2D copies; "
+        f"staging_copy_bytes {st['staging_copy_bytes']}, zero_copy_bytes "
+        f"{st['zero_copy_bytes']}")
+    return res
+
+
+def landing_device_ms(pc):
+    """Device time of one star landing (its copies), by torch.profiler;
+    None when the profiler sees no device activity."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from brpc_tpu_torch import mesh_bridge
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        mesh_bridge.gather_to_mesh(pc, "w")
+        torch.cuda.synchronize()
+    us = sum(getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0.0))
+             for e in prof.key_averages()
+             if getattr(e, "device_type", None)
+             == torch.autograd.DeviceType.CUDA)
+    return us / 1e3 if us else None
+
+
+def landing_sources(pc, nbytes: int) -> dict:
+    """The two H2D sources, each on a fresh gathered buffer: the
+    runtime's pageable buffer as it is, and the same registered."""
+    from brpc_tpu_torch import mesh_bridge
+
+    out = {"pageable": [], "registered": []}
+    for register in (False, True):
+        buf = pc.call_view(mesh_bridge.SERVICE, "get")
+        try:
+            out["registered" if register else "pageable"].append(
+                land_from_buffer(buf, register))
+        finally:
+            buf.release()
+    for name, runs in out.items():
+        log(f"[landing] H2D from the gathered buffer, {name}: " + "; ".join(
+            f"total {r['total_ms']:.2f} ms (register {r['register_ms']:.2f}"
+            f", copies {r['copy_ms']:.2f}, CUDA events around the copies "
+            f"{r['copy_events_ms']:.2f}, unregister "
+            f"{r['unregister_ms']:.2f}) = {nbytes / r['total_ms'] / 1e6:.2f}"
+            f" GB/s" for r in runs))
+    return out
+
+
+def landing_yardsticks(packed, nbytes: int) -> dict:
+    """The same bytes moved by plain torch: a pinned ``copy_`` (the
+    link's ceiling) and a pageable ``.to`` (the plain way)."""
+    flat = torch.cat(packed)
+    pinned = torch.empty_like(flat).pin_memory()
+    pinned.copy_(flat)
+    dst = torch.empty_like(flat, device="cuda")
+    res = {"pinned_ms": time_ms(lambda: dst.copy_(pinned, non_blocking=True),
+                                iters=5, warmup=1),
+           "pageable_ms": time_ms(lambda: flat.to("cuda"), iters=5,
+                                  warmup=1)}
+    log(f"[landing] yardsticks for {nbytes} bytes: pinned copy_ "
+        f"{res['pinned_ms']:.3f} ms ({nbytes / res['pinned_ms'] / 1e6:.2f} "
+        f"GB/s), pageable .to {res['pageable_ms']:.3f} ms "
+        f"({nbytes / res['pageable_ms'] / 1e6:.2f} GB/s)")
+    return res
+
+
 def main() -> int:
     faulthandler.enable()
     # The host tier keeps its pages on the heap: in the registered send
@@ -2832,6 +3281,9 @@ def main() -> int:
         f"allocated here")
     report["disagg_procs"] = phase_disagg_procs(weights, cfg, card,
                                                 main_res, report["disagg"])
+    del weights
+    gc.collect()
+    report["landing"] = phase_landing(card)
     report["kernel_cases"] = cases
     with open(os.path.join(args.report_dir, "chip_smoke_report.json"),
               "w") as f:

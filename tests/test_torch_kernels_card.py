@@ -587,3 +587,80 @@ def test_backward_kernels_match_plain_on_card(cuda_device):
     x = torch.zeros((1, 64, 2, 16), device=cuda_device)
     with pytest.raises(ValueError, match="Dh must be one of"):
         attention.causal_attention_forward(x, x, x)
+
+
+@pytest.mark.cuda
+def test_mesh_bridge_lands_shards_on_card(cuda_device, monkeypatch):
+    """Rank shards gathered over RPC land on the card bit-equal to the
+    source (f32 and bf16; star and ring; gather_to_mesh and the stream's
+    per-rank and prefix lanes), with no staging copy, and no native
+    buffer or gather handle is freed before its landing's copies have
+    completed (their CUDA events)."""
+    import os
+
+    from brpc_tpu_torch import mesh_bridge, runtime
+
+    os.environ.setdefault("TRPC_FABRIC_NS", f"card-landing-{os.getpid()}")
+    # The crc32c rail, as chip_smoke.py's landing phase runs it: the first
+    # ring gather over fresh fabric links can corrupt a rank's payload
+    # tail (ROADMAP §C 13), which the rail drops and has resent.
+    mesh_bridge.enable_wire_integrity()
+    synced, early, freed = [], [], []
+    sync = mesh_bridge._Landing.synchronize
+
+    def tracked_sync(self):
+        sync(self)
+        synced.append(self)
+
+    def guard(free, live):
+        # A buffer or handle may go only right after a landing's host
+        # wait, once that landing's events have completed.
+        def wrapped(self, *a):
+            if live(self):
+                freed.append(type(self).__name__)
+                if not synced or not all(ev.query()
+                                         for ev in synced[-1]._events):
+                    early.append(type(self).__name__)
+                synced.clear()
+            return free(self, *a)
+        return wrapped
+
+    monkeypatch.setattr(mesh_bridge._Landing, "synchronize", tracked_sync)
+    monkeypatch.setattr(runtime.NativeBuffer, "release", guard(
+        runtime.NativeBuffer.release, lambda b: b._ptr is not None))
+    monkeypatch.setattr(runtime.GatherHandle, "end", guard(
+        runtime.GatherHandle.end, lambda h: h._h is not None))
+    gen = torch.Generator().manual_seed(4)
+    for dtype, slice_ in ((torch.float32, 17), (torch.bfloat16, 18)):
+        shards = [torch.randn((512, 1024), generator=gen).to(dtype)
+                  for _ in range(4)]
+        want = torch.stack(shards).to(cuda_device)
+        servers = [mesh_bridge.ShardServer({"w": s}) for s in shards]
+        for r, s in enumerate(servers):
+            s.start_device(slice_, r)
+        chans = [runtime.Channel(f"ici://{slice_}/{r}", timeout_ms=30_000)
+                 for r in range(4)]
+        try:
+            for sched, kw in (("star", {}), ("ring", {"chunk_bytes": 4096})):
+                case = f"{dtype} {sched}"
+                with runtime.ParallelChannel(chans, schedule=sched,
+                                             **kw) as pc:
+                    mesh_bridge.reset_stats()
+                    out = mesh_bridge.gather_to_mesh(pc, "w")
+                    assert len(out) == 1 and out[0].is_cuda, case
+                    assert torch.equal(out[0], want), case
+                    for i, landing in enumerate(
+                            mesh_bridge.gather_to_mesh_stream(pc, "w",
+                                                              iters=3)):
+                        assert torch.equal(landing[0], want), (case, i)
+                    st = mesh_bridge.stats()
+                    assert st["staging_copy_bytes"] == 0, (case, st)
+                    assert st["zero_copy_bytes"] == \
+                        4 * want.numel() * want.element_size(), (case, st)
+        finally:
+            for ch in chans:
+                ch.close()
+            for s in servers:
+                s.close()
+    mesh_bridge.enable_wire_integrity(False)
+    assert freed and not early, (freed, early)

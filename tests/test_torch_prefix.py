@@ -429,8 +429,15 @@ def test_prefix_hit_skips_prefill_byte_exact(models):
     assert ts["kv_prefix_hits"] == 1 and ts["kv_prefix_misses"] == 1
     assert ts["kv_prefix_bytes_shared"] > 0
     assert ts["kv_prefix_blocks_shared"] >= 2
-    assert {k: ts[k] for k in PREFIX_COUNTERS} == \
-        {k: js[k] for k in PREFIX_COUNTERS}
+    # The first run, once finished, left an entry on the prompt's tail
+    # page that serves rows past the prompt (its decoded tokens); the
+    # port copies that tail before the resend's decode writes those rows,
+    # where the reference writes in place (ROADMAP §C 1). The other
+    # counters are the reference's.
+    assert ts["kv_prefix_cow_copies"] == js["kv_prefix_cow_copies"] + 1 == 1
+    assert {k: ts[k] for k in PREFIX_COUNTERS
+            if k != "kv_prefix_cow_copies"} == \
+        {k: js[k] for k in PREFIX_COUNTERS if k != "kv_prefix_cow_copies"}
 
 
 def test_cow_divergence_byte_exact(models):
@@ -460,6 +467,44 @@ def test_cow_divergence_byte_exact(models):
     assert ts["kv_prefix_cow_copies"] >= 1
     assert ts["kv_prefix_hits"] >= 2
     assert ts["kv_prefix_cow_copies"] == js["kv_prefix_cow_copies"]
+
+
+def test_decode_past_a_resumed_prompt_keeps_longer_entries():
+    """A decode must not write a tail page's rows that an index entry of
+    a longer prompt serves. p (ending mid-page) is cached; p + x + z
+    resumes off it in place and leaves an entry on the same tail page;
+    p + x resumes off p's entry (its rows agree with that longer entry)
+    and then decodes past its prompt, into rows where the longer entry
+    holds z. The resume copies that tail first, so a later p + x + z + w
+    resuming off the longer entry streams what a cold prefill without
+    the prefix cache streams. One case per head layout and seed."""
+    for n_kv_heads in (4, 2):
+        cfg = dataclasses.replace(tt.TransformerConfig.tiny(),
+                                  dtype=torch.float32, n_kv_heads=n_kv_heads)
+        params = tt.init_params(cfg, torch.Generator().manual_seed(0),
+                                device="cpu")
+        for seed in (0, 1):
+            rng = np.random.default_rng(seed)
+            p, x, z, w = (rng.integers(0, cfg.vocab, n).tolist()
+                          for n in (20, 3, 5, 4))
+            steps = ((p, 1), (p + x + z, 1), (p + x, 8), (p + x + z + w, 8))
+            got = {}
+            for cached in (True, False):
+                eng = serving.ServingEngine(params, cfg, device="cpu",
+                                            prefix_cache=cached, **ENGINE_KW)
+                try:
+                    addr = f"127.0.0.1:{eng.port}"
+                    got[cached] = []
+                    for prompt, n in steps:
+                        got[cached].append(serving.generate(addr, prompt, n))
+                        stats = _settled_stats(eng)
+                finally:
+                    eng.close()
+                if cached:
+                    assert stats["resumes"] == 3, (n_kv_heads, seed, stats)
+                    assert stats["kv_prefix_cow_copies"] == 1, \
+                        (n_kv_heads, seed, stats)
+            assert got[True] == got[False], (n_kv_heads, seed)
 
 
 def test_concurrent_identical_prompts_idempotent(models):
@@ -507,8 +552,16 @@ def test_eviction_pressure_keeps_hot_prefix_correct(models):
     assert tres == jres == ures
     assert ts["kv_prefix_evictions"] > 0 or ts.get("kv_tier_spills", 0) > 0
     assert ts["kv_alloc_failures"] == 0
-    assert {k: ts[k] for k in PREFIX_COUNTERS} == \
-        {k: js[k] for k in PREFIX_COUNTERS}
+    # Each of the 5 resends of the hot prompt resumes off a tail page on
+    # which the previous run's finished sequence left an entry serving
+    # rows past the prompt: the port copies that tail first (ROADMAP
+    # §C 1), the reference writes in place. The other counters are the
+    # reference's.
+    assert ts["kv_prefix_hits"] == 5
+    assert ts["kv_prefix_cow_copies"] == js["kv_prefix_cow_copies"] + 5
+    assert {k: ts[k] for k in PREFIX_COUNTERS
+            if k != "kv_prefix_cow_copies"} == \
+        {k: js[k] for k in PREFIX_COUNTERS if k != "kv_prefix_cow_copies"}
 
 
 def test_prefix_metrics_surface(models):
