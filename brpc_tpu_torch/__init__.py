@@ -7,9 +7,9 @@ arrays held as torch tensors on an NVIDIA card and the attention and
 normalisation of the serving path in hand-written CUDA kernels.
 
 - ``brpc_tpu_torch.native`` / ``runtime``: the native builder and the ctypes
-  surface the serving paths need (Server, Channel, ParallelChannel,
-  NativeBatcher, flight records, the KV transfer, the host KV page store,
-  the metrics dump).
+  surface the serving paths need (Server with the lease registry, Channel,
+  ParallelChannel, NativeBatcher, flight records, the KV transfer, the
+  host KV page store, the collective observatory, the metrics dump).
 - ``brpc_tpu_torch.mesh_bridge``: rank shards gathered over RPC and landed
   on the devices straight from the RPC buffer, and scattered back.
 - ``brpc_tpu_torch.models.transformer``: the Llama-style model, its prefill
@@ -22,7 +22,10 @@ normalisation of the serving path in hand-written CUDA kernels.
 - ``brpc_tpu_torch.serving``: continuous-batching engine (prefix cache and
   host tier on by default) and streaming client over the native batcher.
 - ``brpc_tpu_torch.disagg`` / ``cluster``: disaggregated serving (prefill
-  worker, decode worker, static-list router) on the reference's wire.
+  worker, decode worker, router) on the reference's wire, from worker
+  processes whose membership is a static list or the lease registry
+  (replicated, with the autoscaler and the model-mix advisor closing the
+  loop).
 
 Every entry point runs on ``cuda`` unless the caller passes
 ``device="cpu"``; without a card and without that argument it raises.

@@ -40,9 +40,15 @@ with a router. After each batch a worker adds its kernel launches to the
 process's app counters (``torch_launches_<kernel>``), which a parent reads
 off the worker's ``/vars``.
 
-The router and the cluster take static worker lists; the lease registry
-(``registry=``, ``--registry``, ``use_registry=``), the autoscaler and the
-model-mix advisor are not ported yet (ROADMAP A 4b).
+Membership is a static worker list or the lease registry
+(``cluster.py``): with ``registry=`` the router's pools follow the
+registry's watches, workers started with ``--registry`` hold a TTL lease
+whose heartbeats carry their live load (and may carry role advice, which
+a worker with ``--accept-advice`` acts on), and ``DisaggCluster(
+use_registry=True)`` runs the registry in process or, with
+``registry_replicas``, as replica subprocesses. Its ``Autoscaler``
+replaces expelled workers and scales on the leader's ``/fleet``
+aggregates; its ``ModelMixAdvisor`` moves workers between models.
 
 Wire payloads (little-endian):
   Prefill.run request:  <u64 handle> <i64 budget_us> <u32 prompt_len>
@@ -901,7 +907,14 @@ class _WorkerPool:
         x (1 + p99_ttft_s) x (1 + fail_score) [x AFFINITY_WEIGHT]
     where a worker whose prefix digest holds the request's affinity key is
     scaled by AFFINITY_WEIGHT. Membership is the static list given at
-    construction (registry-fed membership is not ported yet)."""
+    construction, or what ``update_members`` installs from a registry
+    watch.
+
+    Static stability: ``set_stale(True)`` (the watch lost the whole
+    control plane) freezes the member set and ignores its reported queue
+    depths and TTFTs, so picks and ``load_snapshot`` run on router-local
+    signals (inflight, measured TTFT, the failure score) until a fresh
+    watch reconciles."""
 
     FAIL_HALF_LIFE_S = 2.0
     FAIL_TTL_S = 10.0
@@ -918,6 +931,30 @@ class _WorkerPool:
         self.drained_picks = 0  # picks that skipped a draining worker
         self.warming_skips = 0  # picks that skipped a not-yet-ready worker
         self.affinity_picks = 0  # picks the prefix-locality term decided
+        self._stale = False     # control plane unreachable: frozen set
+
+    def update_members(self, members: List[cluster.Member]) -> None:
+        """Install a fresh member set. Local signals of workers that stay
+        carry over; an expelled worker's are dropped (a re-registered one
+        is a new process). Requests in flight to a dropped worker run on:
+        ``note_done`` tolerates a missing key."""
+        with self._mu:
+            fresh = {m.addr: m for m in members}
+            for gone in set(self._members) - set(fresh):
+                self._fail.pop(gone, None)
+                self._ttft.pop(gone, None)
+                self._inflight.pop(gone, None)
+            self._members = fresh
+
+    def set_stale(self, stale: bool) -> None:
+        """The control-plane outage toggle (see the class docstring)."""
+        with self._mu:
+            self._stale = stale
+
+    @property
+    def stale(self) -> bool:
+        with self._mu:
+            return self._stale
 
     def addrs(self) -> List[str]:
         with self._mu:
@@ -960,14 +997,22 @@ class _WorkerPool:
         dq = self._ttft.get(addr)
         if dq:
             return sorted(dq)[max(int(len(dq) * 0.99) - 1, 0)]
+        if self._stale:
+            return 0.0  # the heartbeat value describes a frozen world
         return member.p99_ttft_us / 1e6
+
+    def fail_score(self, addr: str) -> float:
+        with self._mu:
+            return self._fail_score_locked(addr, time.monotonic())
 
     def load_snapshot(self) -> dict:
         """(inflight + reported queue depth, capacity) totals: the
         pressure gate's overload signal. A draining worker's capacity does
-        not count; its load does."""
+        not count; its load does. While stale, only the local inflight
+        counts."""
         with self._mu:
-            load = sum(self._inflight.get(a, 0) + m.queue_depth
+            load = sum(self._inflight.get(a, 0) +
+                       (0 if self._stale else m.queue_depth)
                        for a, m in self._members.items())
             cap = sum(max(m.capacity, 1) for m in self._members.values()
                       if not m.draining)
@@ -1006,7 +1051,8 @@ class _WorkerPool:
                 if model and m.model != model:
                     continue  # wrong weights are never a fallback
                 fail = self._fail_score_locked(addr, now)
-                score = ((1.0 + self._inflight.get(addr, 0) + m.queue_depth)
+                reported_qd = 0 if self._stale else m.queue_depth
+                score = ((1.0 + self._inflight.get(addr, 0) + reported_qd)
                          / max(m.capacity, 1)
                          * (1.0 + self._p99_ttft_s_locked(addr, m))
                          * (1.0 + fail))
@@ -1053,7 +1099,9 @@ class _WorkerPool:
 class _TierStats:
     """Per-SLO-tier attribution at the router (the one place that sees
     every tier's admission verdict): completions, sheds, errors, delivered
-    tokens, and a TTFT reservoir per tier."""
+    tokens, and a TTFT reservoir per tier. A registry-fed router's own
+    lease carries ``series()`` as its sr= tail, so the leader's /fleet
+    has per-tier TTFT and goodput."""
 
     WINDOW = 512
 
@@ -1064,6 +1112,7 @@ class _TierStats:
         self.shed = {t: 0 for t in serving.TIERS}
         self.errors = {t: 0 for t in serving.TIERS}
         self.good_tokens = {t: 0 for t in serving.TIERS}
+        self._t0 = time.monotonic()
 
     def note_ok(self, tier: str, ttft_s: Optional[float],
                 tokens: int) -> None:
@@ -1081,6 +1130,34 @@ class _TierStats:
         with self._mu:
             self.errors[tier] += 1
 
+    @staticmethod
+    def _p99_us(dq) -> int:
+        if not dq:
+            return 0
+        s = sorted(dq)
+        return int(s[max(int(len(s) * 0.99) - 1, 0)] * 1e6)
+
+    def ttft_p99_us(self, tier: str) -> int:
+        with self._mu:
+            return self._p99_us(self._ttft[tier])
+
+    def series(self) -> str:
+        """The sr= heartbeat tail, 'name:val|...' (12 metrics): per tier
+        the TTFT p99 in us, the cumulative ok and shed totals, and the
+        goodput since the router started in tokens/s x1000."""
+        up_s = max(time.monotonic() - self._t0, 1e-3)
+        parts = []
+        with self._mu:
+            for t in serving.TIERS:
+                tps = int(self.good_tokens[t] / up_s * 1000)
+                parts += [
+                    f"serving_tier_{t}_ttft_p99_us:"
+                    f"{self._p99_us(self._ttft[t])}",
+                    f"serving_tier_{t}_ok_total:{self.ok[t]}",
+                    f"serving_tier_{t}_shed_total:{self.shed[t]}",
+                    f"serving_tier_{t}_goodput_tps_x1000:{tps}"]
+        return "|".join(parts)
+
     def snapshot(self) -> dict:
         with self._mu:
             return {t: {"ok": self.ok[t], "shed": self.shed[t],
@@ -1092,21 +1169,28 @@ class _TierStats:
 class DisaggRouter:
     """The front door: owns the Serve.generate batcher (the colocated
     engine's admission: lanes, deadline cull, ELIMIT), picks a prefill and
-    a decode worker from the static ``prefill_addrs``/``decode_addrs``, and
-    relays the decode worker's token stream to the client 1:1, so
-    ``ServingClient.generate`` works unchanged against it.
+    a decode worker, and relays the decode worker's token stream to the
+    client 1:1, so ``ServingClient.generate`` works unchanged against it.
+
+    Membership: static ``prefill_addrs``/``decode_addrs``, or a
+    ``registry`` address (several replicas comma-separated), whose two
+    longpoll watches feed the pools: a worker whose lease expires stops
+    being picked within one watch round trip, a fresh one takes traffic
+    once its first heartbeat lands, and while the whole control plane is
+    unreachable the pools serve on the frozen set (``registry_stale`` in
+    ``stats()``). The router then holds a lease of its own, role
+    ``router``, whose renews carry the per-tier series tail.
 
     Admission charges per-tenant token budgets (``tenants.set_budget``)
     and a pressure gate over decode load that sheds the batch lane first
-    with a retriable ELIMIT and a retry_after_ms hint; the gate arms only
-    with explicit thresholds (static members report no real capacity).
+    with a retriable ELIMIT and a retry_after_ms hint; the gate arms with
+    a registry (members report real capacities) or explicit thresholds.
 
     A failed prefill, transfer or adopt before any relayed token
     re-prefills on another worker with a fresh handle; a decode worker
     dying mid generation is re-dispatched with the delivered tokens
     suppressed, so the client's stream stays byte-exact with no
-    duplicates. ``registry=`` (lease-registry membership) is not ported
-    yet and raises ValueError."""
+    duplicates."""
 
     def __init__(self, prefill_addrs: Optional[Sequence[str]] = None,
                  decode_addrs: Optional[Sequence[str]] = None, *,
@@ -1119,15 +1203,15 @@ class DisaggRouter:
                  shed_batch_pressure: Optional[float] = None,
                  shed_standard_pressure: Optional[float] = None,
                  shed_interactive_pressure: Optional[float] = None,
+                 membership_wait_s: float = 5.0,
                  page_tokens: int = 16,
                  prefix_affinity: bool = True,
                  prefix_splice: bool = True,
                  port: int = 0, autostart: bool = True):
-        if registry is not None:
-            raise ValueError("registry mode is not ported yet: pass static "
-                             "prefill_addrs and decode_addrs")
-        if not prefill_addrs or not decode_addrs:
-            raise ValueError("need at least one prefill and one decode node")
+        if registry is None and (not prefill_addrs or not decode_addrs):
+            raise ValueError(
+                "need a registry or at least one prefill and one decode node")
+        self.registry = registry
         self.retries = retries
         self.worker_timeout_ms = worker_timeout_ms
         # page_tokens must match the workers': the affinity key names the
@@ -1144,13 +1228,14 @@ class DisaggRouter:
         self.splice_rejects = 0     # splice tried, the worker said miss
         self.drain_bounces = 0      # attempts bounced off a draining worker
 
-        self.prefills = _WorkerPool(prefill_addrs)
-        self.decodes = _WorkerPool(decode_addrs)
+        self.prefills = _WorkerPool(prefill_addrs or ())
+        self.decodes = _WorkerPool(decode_addrs or ())
         self.tenants = cluster.TenantGovernor(default_rate=tenant_rate)
         # Static members default to capacity 1, which would understate an
-        # 8-slot worker and shed real traffic: the gate arms only when a
-        # threshold is given.
-        if shed_batch_pressure is None and shed_standard_pressure is None \
+        # 8-slot worker and shed real traffic: without a registry the gate
+        # arms only when a threshold is given.
+        if registry is None and shed_batch_pressure is None \
+                and shed_standard_pressure is None \
                 and shed_interactive_pressure is None:
             self.shed_batch_pressure = float("inf")
             self.shed_standard_pressure = float("inf")
@@ -1167,18 +1252,52 @@ class DisaggRouter:
 
         self._mu = threading.Lock()
         self._channels = {}
+        self._watchers: List[cluster.MembershipWatcher] = []
         self.tier_stats = _TierStats()
-        self.server = runtime.Server()
-        self.batcher = runtime.NativeBatcher(
-            max_batch_size=max_batch_size,
-            max_queue_delay_us=max_queue_delay_us,
-            max_queue_len=max_queue_len, limiter=limiter)
-        self.batcher.add_method(self.server, serving.SERVICE,
-                                serving.METHOD_INTERACTIVE,
-                                runtime.LANE_INTERACTIVE)
-        self.batcher.add_method(self.server, serving.SERVICE,
-                                serving.METHOD_BATCH, runtime.LANE_BATCH)
-        self.port = self.server.start(port)
+        self._lease: Optional[cluster.WorkerLease] = None
+        try:
+            if registry is not None:
+                # A lost control plane flips a pool into static stability
+                # (frozen set, local signals); a reconciled watch flips it
+                # back, and update_members refreshes the set without
+                # dropping work in flight.
+                self._watchers = [
+                    cluster.MembershipWatcher(
+                        registry, role, pool.update_members,
+                        on_stale=pool.set_stale)
+                    for role, pool in (("prefill", self.prefills),
+                                       ("decode", self.decodes))]
+                deadline = time.monotonic() + membership_wait_s
+                while ((not self.prefills.addrs()
+                        or not self.decodes.addrs())
+                       and time.monotonic() < deadline):
+                    time.sleep(0.02)
+            self.server = runtime.Server()
+            self.batcher = runtime.NativeBatcher(
+                max_batch_size=max_batch_size,
+                max_queue_delay_us=max_queue_delay_us,
+                max_queue_len=max_queue_len, limiter=limiter)
+            self.batcher.add_method(self.server, serving.SERVICE,
+                                    serving.METHOD_INTERACTIVE,
+                                    runtime.LANE_INTERACTIVE)
+            self.batcher.add_method(self.server, serving.SERVICE,
+                                    serving.METHOD_BATCH, runtime.LANE_BATCH)
+            self.port = self.server.start(port)
+            if registry is not None:
+                # The router's own lease: its renews carry the per-tier
+                # series to the leader's /fleet. The role is outside the
+                # prefill/decode pair, so no advice ever flips it.
+                self._lease = cluster.WorkerLease(
+                    registry, "router", f"127.0.0.1:{self.port}",
+                    capacity=max_concurrency, ttl_ms=2000,
+                    load_fn=lambda: {"series": self.tier_stats.series()})
+        except BaseException:
+            # A half-built router is out of close()'s reach.
+            for w in self._watchers:
+                w.close()
+            if self._lease is not None:
+                self._lease.close()
+            raise
         self._pool = ThreadPoolExecutor(max_workers=max_concurrency,
                                         thread_name_prefix="disagg-router")
         self._running = False
@@ -1656,11 +1775,23 @@ class DisaggRouter:
                  affinity_picks=self.decodes.affinity_picks,
                  prefill_workers=len(self.prefills.addrs()),
                  decode_workers=len(self.decodes.addrs()),
+                 # Serving on the frozen member set (static stability);
+                 # reconnects grow by backoff steps during an outage.
+                 registry_stale=int(self.prefills.stale
+                                    or self.decodes.stale),
+                 watch_reconnects=sum(w.reconnects
+                                      for w in self._watchers),
                  tiers=self.tier_stats.snapshot())
         return s
 
     def close(self) -> None:
         self._running = False
+        if self._lease is not None:
+            self._lease.close()
+            self._lease = None
+        for w in self._watchers:
+            w.close()
+        self._watchers = []
         self.server.stop()
         self.batcher.stop()
         if not serving.join_loop(self._thread, type(self).__name__):
@@ -1972,11 +2103,6 @@ def _make_worker_factory(args: dict, params, cfg, model_id: str = "",
                           param_addrs=param_addrs, device=device)
 
 
-def _no_registry() -> ValueError:
-    return ValueError("registry mode is not ported yet (ROADMAP A 4b): "
-                      "workers and routers take static lists")
-
-
 class WorkerRunner:
     """The drain state machine and the role-flip / retarget / retire
     executor around one worker.
@@ -1990,34 +2116,45 @@ class WorkerRunner:
       spilling  resident prefix pages spill to the host tier and the
                 covered token chains are snapshotted
       flipping  the worker is rebuilt under the new role (or model) on
-                the same port and the host chains are grafted into its
-                fresh index (``admit_host``)
-      active    again, or ``retired`` (drained; the process exits).
+                the same port, the host chains are grafted into its fresh
+                index (``admit_host``), and the lease re-registers under
+                the new role (replace by address: one atomic change for
+                subscribers; hb=0 holds router traffic until the first
+                heartbeat of the new role)
+      active    again, or ``retired`` (drained, the lease left; the
+                process exits).
 
-    Ops arrive over the Admin RPC face and run one at a time on an
-    executor thread. The Admin server is apart from the worker's data
-    server, so its port (``admin=`` in the READY line) survives flips.
-    No lease yet: a runner with ``registry_addr`` raises (ROADMAP A 4b)."""
+    Ops arrive over the Admin RPC face, or with ``accept_advice`` from
+    the registry's role advice, and run one at a time on an executor
+    thread. The Admin server is apart from the worker's data server, so
+    its port (``admin=`` in the READY line) survives flips.
+
+    With ``registry_addr`` the runner holds the worker's lease there
+    (``capacity`` 0 takes the worker's default: a decode worker's slots,
+    4 for a prefill worker), renewed every ``ttl_ms / 3`` with the live
+    load of ``_load``."""
 
     DRAIN_TIMEOUT_S = 60.0
 
     def __init__(self, role: str, make_worker, *,
-                 registry_addr: Optional[str] = None,
+                 registry_addr: Optional[str] = None, capacity: int = 0,
+                 ttl_ms: int = 2000, accept_advice: bool = False,
                  drain_timeout_s: float = DRAIN_TIMEOUT_S):
         import queue
 
-        if registry_addr:
-            raise _no_registry()
         self.role = role
         self.make_worker = make_worker
+        self.capacity = capacity
+        self.accept_advice = accept_advice
         self.drain_timeout_s = drain_timeout_s
         self.state = "active"
         self.flips = 0
         self.retired = False
         self.spilled_pages = 0
         self.grafted_chains = 0
-        self.worker, _cap = make_worker(role)
+        self.worker, default_cap = make_worker(role)
         self.retargets = 0  # model retargets + adapter swaps executed
+        self.lease: Optional[cluster.WorkerLease] = None
         self._ops: "queue.Queue" = queue.Queue()
         self.stopped = threading.Event()
         self._exec = threading.Thread(target=self._run_ops, daemon=True,
@@ -2029,6 +2166,34 @@ class WorkerRunner:
             self.admin.add_method("Admin", name,
                                   getattr(self, f"_rpc_{name}"))
         self.admin_port = self.admin.start(0)
+        if registry_addr:
+            try:
+                self.lease = cluster.WorkerLease(
+                    registry_addr, role, f"127.0.0.1:{self.worker.port}",
+                    capacity=capacity or default_cap, ttl_ms=ttl_ms,
+                    load_fn=self._load,
+                    on_advice=self._on_advice if accept_advice else None)
+            except BaseException:  # no lease: nothing may keep serving
+                self.close()
+                raise
+
+    # ---- heartbeat plumbing ------------------------------------------------
+
+    def _load(self) -> dict:
+        """The lease's load_fn. Mid flip, while the old worker is closed
+        and its successor is being built, the heartbeat goes on with
+        st=drain and no load sample: the lease must not lapse."""
+        model = getattr(self.make_worker, "model_id", "")
+        try:
+            return _worker_load_fn(self.worker, model)()
+        except Exception:  # noqa: BLE001 — mid-swap: report drain, renew
+            return {"state": "drain", "model": model}
+
+    def _on_advice(self, advice_role: str) -> None:
+        """Registry role advice (on the lease's renew thread, once per
+        suggestion): schedule the flip."""
+        if advice_role and advice_role != self.role:
+            self.request_flip(advice_role)
 
     # ---- admin RPC face ----------------------------------------------------
 
@@ -2131,16 +2296,32 @@ class WorkerRunner:
                 else:
                     self.state = "failed"
 
-    def _rebuild(self, role: str) -> None:
+    def _rebuild(self, role: str) -> int:
         """Close the drained worker and build its successor on the same
-        port (a new port if that one cannot be bound again)."""
+        port (a new port, and the lease's address with it, if that one
+        cannot be bound again); returns the successor's default
+        capacity."""
         w = self.worker
         port = w.port
         w.close()  # stragglers get a retriable error -> re-dispatch
         try:
-            self.worker, _cap = self.make_worker(role, port)
+            self.worker, default_cap = self.make_worker(role, port)
         except OSError:
-            self.worker, _cap = self.make_worker(role, 0)
+            self.worker, default_cap = self.make_worker(role, 0)
+            if self.lease is not None:
+                self.lease.addr = f"127.0.0.1:{self.worker.port}"
+        return default_cap
+
+    def _reregister(self, role: str, default_cap: int) -> None:
+        """The lease's last step of a flip or retarget: the successor's
+        capacity, re-registered under ``role`` (hb=0 again)."""
+        if self.lease is None:
+            return
+        self.lease.capacity = self.capacity or default_cap
+        try:
+            self.lease.set_role(role)
+        except Exception:  # noqa: BLE001 — registry briefly down: the
+            traceback.print_exc()  # renew loop re-registers anyway
 
     def _do_flip(self, new_role: str) -> None:
         if new_role == self.role or self.retired:
@@ -2158,7 +2339,7 @@ class WorkerRunner:
             self.spilled_pages += prefix.spill()
             chains = prefix.export_chains()
         self.state = "flipping"
-        self._rebuild(new_role)
+        default_cap = self._rebuild(new_role)
         try:
             new_prefix = getattr(self.worker, "prefix", None)
             if chains and new_prefix is not None \
@@ -2172,6 +2353,7 @@ class WorkerRunner:
         self.role = new_role
         self.flips += 1
         runtime.app_counter_add("serving_role_flips", 1)
+        self._reregister(new_role, default_cap)
         self.state = "active"
 
     def _do_retarget(self, model_id: str, adapter: bool = False) -> None:
@@ -2190,17 +2372,23 @@ class WorkerRunner:
         self.worker.begin_drain(f"retarget:{f.model_id}")
         self.worker.drain_wait(self.drain_timeout_s)
         self.state = "flipping"
-        self._rebuild(self.role)
+        default_cap = self._rebuild(self.role)
         self.retargets += 1
         runtime.app_counter_add("serving_model_flips", 1)
+        # Same role: the first heartbeat after hb=0 carries the new md=.
+        self._reregister(self.role, default_cap)
         self.state = "active"
 
     def _do_retire(self) -> None:
-        """Drain, then exit: new admissions bounce retriably, in-flight
+        """Drain, leave the lease (routers stop picking at once, with no
+        TTL wait), then exit: new admissions bounce retriably, in-flight
         generations run out."""
         self.retired = True
         self.state = "draining"
         self.worker.begin_drain("retire")
+        if self.lease is not None:
+            self.lease.close()
+            self.lease = None
         self.worker.drain_wait(self.drain_timeout_s)
         self.state = "retired"
         self.stopped.set()
@@ -2209,6 +2397,9 @@ class WorkerRunner:
 
     def close(self) -> None:
         self._ops.put(None)
+        if self.lease is not None:
+            self.lease.close()
+            self.lease = None
         self.admin.stop()
         self.admin.close()
         self.worker.close()
@@ -2226,19 +2417,25 @@ def _worker_main(argv: List[str]) -> None:
     --params ID=ADDR[+ADDR...][,ID2=...] [--device cpu]
     [--page-tokens N] [--chunk-bytes N] [--kv-timeout MS] [--limiter SPEC]
     [--layerwise 0|1] [--max-prompt N] [--batch N] [--slots N]
-    [--kv-blocks N] [--kv-pool PAGE_BYTES:MAX_PAGES] [--layers N].
+    [--kv-blocks N] [--kv-pool PAGE_BYTES:MAX_PAGES] [--layers N]
+    [--registry ADDR[,ADDR...] [--capacity N] [--ttl MS]
+     [--accept-advice 0|1]].
 
     Pulls the weights of ``--model`` (id "" for a cluster's one unnamed
     model) from its ParamServer group(s), builds the worker on ``cuda``
     (``--device cpu`` for tests), prints "READY <port> admin=<port>" and
     serves until stdin closes or an Admin.retire drains it out. Any
-    failure before that (no weights source, no card, a failed pull)
-    prints "FAILED <reason>" instead and exits 1; nothing falls back to a
-    local random init or to the CPU."""
+    failure before that (no weights source, no card, a failed pull, a
+    registry that takes no lease) prints "FAILED <reason>" instead and
+    exits 1; nothing falls back to a local random init or to the CPU.
+
+    With ``--registry`` the worker holds a lease there, registered after
+    the weights have landed; a SIGKILL leaves it to expire, which is how
+    the fleet learns. With ``--accept-advice 1`` the registry's role
+    advice is acted on: drain, spill, rebuild under the advised role on
+    the same port, re-register."""
     args = dict(zip(argv[::2], argv[1::2]))
     try:
-        if args.get("--registry"):
-            raise _no_registry()
         role = args.get("--role", "decode")
         model_id = args.get("--model", "")
         factory = _make_worker_factory(
@@ -2253,7 +2450,11 @@ def _worker_main(argv: List[str]) -> None:
             page_bytes, max_pages = args["--kv-pool"].split(":")
             runtime.kv_pool_configure(int(page_bytes), int(max_pages))
         factory.load(model_id, cfg)
-        runner = WorkerRunner(role, factory)
+        runner = WorkerRunner(
+            role, factory, registry_addr=args.get("--registry") or None,
+            capacity=int(args.get("--capacity", "0")),
+            ttl_ms=int(args.get("--ttl", "2000")),
+            accept_advice=bool(int(args.get("--accept-advice", "0"))))
     except Exception as e:  # noqa: BLE001 — reported on the READY line
         traceback.print_exc()
         print(f"FAILED {type(e).__name__}: {e}", flush=True)
@@ -2290,9 +2491,380 @@ def _reap(p: subprocess.Popen) -> None:
         f.close()
 
 
+# ---- the closed loop: fleet telemetry, autoscaler, model-mix advisor ----------
+
+def fetch_fleet(registry_addr: str, span_s: int = 60,
+                timeout_s: float = 3.0) -> Optional[dict]:
+    """The registry leader's /fleet?format=json aggregates (qps-weighted
+    TTFT p50/p99, fleet queue depth, mean occupancy, per-member series).
+    ``registry_addr`` may name several replicas: the first that answers
+    with leader:true wins (a follower's /fleet is not the fleet's). None
+    when no leader answers."""
+    import json
+    import urllib.request
+
+    for addr in registry_addr.split(","):
+        addr = addr.strip()
+        if not addr:
+            continue
+        try:
+            body = urllib.request.urlopen(
+                f"http://{addr}/fleet?format=json&window_s={span_s}",
+                timeout=timeout_s).read().decode()
+            doc = json.loads(body)
+        except Exception:  # noqa: BLE001 — replica down: try the next
+            continue
+        if doc.get("leader"):
+            return doc
+    return None
+
+
+class Autoscaler:
+    """The fleet controller of the closed loop: reads the registry's live
+    membership of ``role`` and the leader's /fleet aggregates, and spawns
+    (``spawn_fn(role)``) or retires (``retire_fn(addr)``, through the
+    worker's drain state machine, so scale-down sheds nothing) workers.
+
+      - Replacement: below ``min_workers`` live (a worker died and was
+        expelled) it spawns at once, guarded only by the cooldown.
+      - Scale up: ``confirm`` consecutive hot polls (TTFT p99 over
+        ``scale_up_p99_ms`` or queue pressure over ``scale_up_pressure``)
+        and an expired ``up_cooldown_s``.
+      - Scale down: idle (pressure under ``scale_down_pressure``, TTFT
+        healthy) for ``scale_down_idle_s`` without a break, and
+        ``down_cooldown_s``; the least-loaded retirable worker goes.
+      - Never below ``min_workers`` or above ``max_workers``.
+
+    With ``lead_time_s`` > 0 the pressure is evaluated where the qps
+    trend (a least-squares slope over recent polls) puts it
+    ``lead_time_s`` ahead, so a rising edge spawns before the queue
+    builds. ``trace`` holds (t, workers, qps, ttft_p99_us) per poll and
+    ``actions`` (t, "up"/"replace"/"down", addr) per action."""
+
+    def __init__(self, registry_addr: str, spawn_fn, retire_fn=None, *,
+                 role: str = "decode",
+                 scale_up_p99_ms: float = 250.0,
+                 scale_up_pressure: float = 1.25,
+                 scale_down_pressure: float = 0.5,
+                 scale_down_idle_s: float = 6.0,
+                 up_cooldown_s: float = 4.0, down_cooldown_s: float = 8.0,
+                 min_workers: int = 1, max_workers: int = 8,
+                 confirm: int = 2, lead_time_s: float = 0.0,
+                 poll_s: float = 0.5, autostart: bool = True):
+        self.registry_addr = registry_addr
+        self.spawn_fn = spawn_fn
+        self.retire_fn = retire_fn
+        self.role = role
+        self.scale_up_p99_ms = scale_up_p99_ms
+        self.scale_up_pressure = scale_up_pressure
+        self.scale_down_pressure = scale_down_pressure
+        self.scale_down_idle_s = scale_down_idle_s
+        self.up_cooldown_s = up_cooldown_s
+        self.down_cooldown_s = down_cooldown_s
+        self.min_workers = min_workers
+        self.max_workers = max_workers
+        self.confirm = confirm
+        self.lead_time_s = lead_time_s
+        self.poll_s = poll_s
+        self.scale_ups = 0
+        self.scale_downs = 0
+        self.trace: deque = deque(maxlen=8192)   # (t, n, qps, ttft_p99_us)
+        self.actions: deque = deque(maxlen=1024)  # (t, kind, addr)
+        self._qps_hist: deque = deque(maxlen=32)  # (t, qps) slope window
+        self._hot_polls = 0
+        self._idle_since: Optional[float] = None
+        self._cooldown_until = 0.0
+        # Workers whose retire failed for good: never picked again, or an
+        # idle fleet would pick the same phantom every window.
+        self._unretirable: set = set()
+        self._eps = cluster._Endpoints(registry_addr, timeout_ms=2000)
+        self._stop = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+        if autostart:
+            self.start()
+
+    # ---- sensors -----------------------------------------------------------
+
+    def _members(self) -> List[cluster.Member]:
+        body = self._eps.call("list", self.role.encode(),
+                              wait=self._stop.wait).decode()
+        return cluster.parse_members(body)[1]
+
+    def _qps_slope(self) -> float:
+        """Least-squares slope (qps per second) over the sample window."""
+        pts = list(self._qps_hist)
+        if len(pts) < 3 or pts[-1][0] - pts[0][0] < 1.0:
+            return 0.0
+        t0 = pts[0][0]
+        xs = [t - t0 for t, _ in pts]
+        ys = [q for _, q in pts]
+        n = len(pts)
+        mx, my = sum(xs) / n, sum(ys) / n
+        den = sum((x - mx) ** 2 for x in xs)
+        if den <= 0:
+            return 0.0
+        return sum((x - mx) * (y - my) for x, y in zip(xs, ys)) / den
+
+    # ---- one control decision ---------------------------------------------
+
+    def _act_up(self, now: float, kind: str) -> str:
+        addr = self.spawn_fn(self.role)
+        self.scale_ups += 1
+        self.actions.append((now, kind, addr))
+        self._cooldown_until = now + self.up_cooldown_s
+        return "up"
+
+    def poll_once(self) -> Optional[str]:
+        """One sense -> decide -> act pass: "up" or "down" when an action
+        fired, else None."""
+        now = time.monotonic()
+        try:
+            members = self._members()
+        except Exception:  # noqa: BLE001 — control plane down: never
+            return None    # scale blind
+        live = [m for m in members if not m.draining]
+        n = len(live)
+        pressure = (sum(m.queue_depth for m in live)
+                    / max(sum(max(m.capacity, 1) for m in live), 1))
+        fleet = fetch_fleet(self.registry_addr, span_s=5) or {}
+        agg = fleet.get("aggregate", {})
+        qps = float(agg.get("qps", 0.0))
+        ttft_p99_us = float(agg.get("ttft_p99_us", 0.0))
+        self._qps_hist.append((now, qps))
+        self.trace.append((now, n, qps, ttft_p99_us))
+
+        # Predictive lead: the pressure scaled by the projected qps ratio,
+        # capped, and only on a real qps base (a trough's near-zero qps
+        # would amplify one queued request into a hot poll).
+        eff_pressure = pressure
+        if self.lead_time_s > 0 and qps >= 0.5:
+            projected = max(qps + self._qps_slope() * self.lead_time_s,
+                            0.0)
+            eff_pressure = pressure * min(projected / qps, 3.0)
+
+        if n < self.min_workers and n < self.max_workers:
+            # Replacement: below the floor, no confirm streak; only the
+            # cooldown guards a crash loop.
+            if now >= self._cooldown_until:
+                return self._act_up(now, "replace")
+            return None
+
+        hot = (eff_pressure > self.scale_up_pressure
+               or (ttft_p99_us > 0
+                   and ttft_p99_us > self.scale_up_p99_ms * 1000))
+        idle = (pressure < self.scale_down_pressure
+                and (ttft_p99_us <= 0
+                     or ttft_p99_us <= self.scale_up_p99_ms * 1000))
+        if hot:
+            self._hot_polls += 1
+            self._idle_since = None
+        else:
+            self._hot_polls = 0
+            if idle and self._idle_since is None:
+                self._idle_since = now
+            elif not idle:
+                self._idle_since = None
+
+        if (hot and self._hot_polls >= self.confirm
+                and now >= self._cooldown_until and n < self.max_workers):
+            action = self._act_up(now, "up")
+            self._hot_polls = 0
+            return action
+        if (self.retire_fn is not None and self._idle_since is not None
+                and now - self._idle_since >= self.scale_down_idle_s
+                and now >= self._cooldown_until and n > self.min_workers):
+            cands = [m for m in live if m.addr not in self._unretirable]
+            if not cands:
+                return None
+            victim = min(cands, key=lambda m: m.queue_depth).addr
+            # The retire runs off this thread past a short grace (a drain
+            # can take tens of seconds, and the loop must keep sensing);
+            # fast outcomes land inline.
+            box: dict = {}
+
+            def run_retire():
+                try:
+                    self.retire_fn(victim)
+                    box["ok"] = True
+                except Exception:  # noqa: BLE001 — phantom/unreachable
+                    box["ok"] = False
+
+            t = threading.Thread(target=run_retire, daemon=True,
+                                 name="autoscale-retire")
+            t.start()
+            t.join(timeout=1.0)
+            self._cooldown_until = now + self.down_cooldown_s
+            self._idle_since = None
+            if box.get("ok") is False:
+                self._unretirable.add(victim)
+                return None
+            self.scale_downs += 1
+            self.actions.append((now, "down", victim))
+            return "down"
+        return None
+
+    # ---- loop / teardown ---------------------------------------------------
+
+    def start(self) -> None:
+        if self._thread is not None:
+            return
+        self._thread = threading.Thread(target=self._loop, daemon=True,
+                                        name="autoscaler")
+        self._thread.start()
+
+    def _loop(self) -> None:
+        while not self._stop.wait(self.poll_s):
+            try:
+                self.poll_once()
+            except Exception:  # noqa: BLE001 — a failed poll (a spawn that
+                traceback.print_exc()  # failed) must not kill the loop
+
+    def stats(self) -> dict:
+        return {"scale_ups": self.scale_ups,
+                "scale_downs": self.scale_downs,
+                "workers": self.trace[-1][1] if self.trace else 0,
+                "actions": list(self.actions)}
+
+    def close(self) -> None:
+        self._stop.set()
+        if self._thread is not None:
+            self._thread.join(timeout=10)
+            self._thread = None
+        self._eps.close()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+
+class ModelMixAdvisor:
+    """The model-mix side of the closed loop: where the Autoscaler changes
+    how many workers serve, this changes what they serve. Each poll groups
+    the registry's members of ``role`` by their md= model tag and computes
+    each model's pressure (reported queue depth over the capacity of its
+    non-draining workers). When one model runs hot (over
+    ``hot_pressure``) while another idles (a gap over ``gap``) for
+    ``confirm`` consecutive polls, and the cooldown has passed, it moves
+    one worker, the cold model's least loaded, with
+    ``retarget_fn(addr, hot_model)`` (the cluster's Admin.retarget: a
+    drain and a cold start of the hot model's weights). ``min_workers``
+    keeps a floor under every model. ``trace`` holds (t, pressures,
+    counts) per poll and ``actions`` (t, addr, cold, hot) per move."""
+
+    def __init__(self, registry_addr: str, retarget_fn, *,
+                 role: str = "decode",
+                 hot_pressure: float = 1.0, gap: float = 0.75,
+                 confirm: int = 3, cooldown_s: float = 8.0,
+                 min_workers: int = 1, poll_s: float = 0.5,
+                 autostart: bool = True):
+        self.registry_addr = registry_addr
+        self.retarget_fn = retarget_fn
+        self.role = role
+        self.hot_pressure = hot_pressure
+        self.gap = gap
+        self.confirm = confirm
+        self.cooldown_s = cooldown_s
+        self.min_workers = min_workers
+        self.poll_s = poll_s
+        self.moves = 0
+        self.trace: deque = deque(maxlen=8192)
+        self.actions: deque = deque(maxlen=1024)
+        self._streak = 0
+        self._cooldown_until = 0.0
+        # Workers whose retarget failed for good: never picked again.
+        self._unmovable: set = set()
+        self._eps = cluster._Endpoints(registry_addr, timeout_ms=2000)
+        self._stop = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+        if autostart:
+            self.start()
+
+    def _members(self) -> List[cluster.Member]:
+        body = self._eps.call("list", self.role.encode(),
+                              wait=self._stop.wait).decode()
+        return cluster.parse_members(body)[1]
+
+    def poll_once(self) -> Optional[tuple]:
+        """One sense -> decide -> act round: (addr, hot model) when a move
+        was made, else None."""
+        members = self._members()
+        by_model: Dict[str, List[cluster.Member]] = {}
+        for m in members:
+            if m.model:
+                by_model.setdefault(m.model, []).append(m)
+        now = time.monotonic()
+        if len(by_model) < 2:
+            self._streak = 0
+            return None
+        press = {}
+        for mdl, ms in by_model.items():
+            cap = sum(max(m.capacity, 1) for m in ms if not m.draining)
+            press[mdl] = (sum(m.queue_depth for m in ms) / cap
+                          if cap > 0 else float("inf"))
+        hot = max(press, key=lambda k: press[k])
+        cold = min(press, key=lambda k: press[k])
+        self.trace.append((now, dict(press),
+                           {m: len(v) for m, v in by_model.items()}))
+        donors = [m for m in by_model[cold]
+                  if not m.draining and m.addr not in self._unmovable]
+        if (press[hot] < self.hot_pressure
+                or press[hot] - press[cold] < self.gap
+                or len(by_model[cold]) <= self.min_workers
+                or not donors):
+            self._streak = 0
+            return None
+        self._streak += 1
+        if self._streak < self.confirm or now < self._cooldown_until:
+            return None
+        victim = min(donors, key=lambda m: m.queue_depth)
+        try:
+            self.retarget_fn(victim.addr, hot)
+        except Exception:  # noqa: BLE001 — dead/unknown donor: skip it
+            self._unmovable.add(victim.addr)
+            return None
+        self.moves += 1
+        self.actions.append((now, victim.addr, cold, hot))
+        # The move takes a drain and a cold start to land: deciding again
+        # off the pre-move pressure would over-steal.
+        self._cooldown_until = now + self.cooldown_s
+        self._streak = 0
+        return (victim.addr, hot)
+
+    def _loop(self) -> None:
+        while not self._stop.wait(self.poll_s):
+            try:
+                self.poll_once()
+            except Exception:  # noqa: BLE001 — registry failover window:
+                pass           # the next poll rotates endpoints
+
+    def start(self) -> None:
+        if self._thread is None:
+            self._thread = threading.Thread(target=self._loop, daemon=True,
+                                            name="model-mix-advisor")
+            self._thread.start()
+
+    def close(self) -> None:
+        self._stop.set()
+        if self._thread is not None:
+            self._thread.join(timeout=5)
+            self._thread = None
+        self._eps.close()
+
+
 class DisaggCluster:
     """N prefill and M decode workers as subprocesses, fronted by an
-    in-process DisaggRouter over static lists.
+    in-process DisaggRouter.
+
+    Membership is static lists, or with ``use_registry`` the lease
+    registry: in process, or with ``registry_replicas`` N as N replica
+    subprocesses (``cluster.RegistryCluster``, each with its own WAL).
+    Every worker then holds a lease of ``registry_ttl_ms`` (and with
+    ``accept_advice`` acts on role advice), the router follows the
+    registry's watches, a SIGKILLed worker is expelled when its lease
+    expires, and ``start_autoscaler`` / ``start_model_advisor`` close the
+    loop (spawn and retire workers, move them between models).
 
     The cluster serves every model's canonical weights itself, from one
     ParamServer per group (``param_server.groups``), and each worker
@@ -2322,14 +2894,14 @@ class DisaggCluster:
                  n_layers: int = 0,
                  kv_chunk_bytes: int = -1, kv_timeout_ms: int = 20_000,
                  prefill_limiter: str = "auto",
-                 use_registry: bool = False, f32: bool = False,
+                 use_registry: bool = False, registry_ttl_ms: int = 1500,
+                 registry_replicas: int = 0, accept_advice: bool = False,
+                 f32: bool = False,
                  models: Optional[Dict[str, tuple]] = None,
                  weights: Optional[Dict[str, dict]] = None,
                  kv_pool: Optional[tuple] = None,
                  device: Optional[str] = None,
                  **router_kwargs):
-        if use_registry:
-            raise _no_registry()
         self.procs: List[subprocess.Popen] = []
         self.prefill_addrs: List[str] = []
         self.decode_addrs: List[str] = []
@@ -2340,6 +2912,9 @@ class DisaggCluster:
         self.param_servers: Dict[str, List[param_server.ParamServer]] = {}
         self._param_addrs: Dict[str, str] = {}
         self.router = None
+        self.registry = None
+        self.autoscaler: Optional[Autoscaler] = None
+        self.model_advisor: Optional[ModelMixAdvisor] = None
         served = self.models or {"": (cfg_name, seed)}
         weights = {} if weights is None else weights
         unknown = set(weights) - set(served)
@@ -2354,6 +2929,8 @@ class DisaggCluster:
             "page_tokens": page_tokens, "decode_slots": decode_slots,
             "repo": os.path.dirname(os.path.dirname(
                 os.path.abspath(__file__))),
+            "registry_ttl_ms": registry_ttl_ms,
+            "accept_advice": accept_advice,
             "extra": ("--chunk-bytes", str(kv_chunk_bytes),
                       "--kv-timeout", str(kv_timeout_ms),
                       "--limiter", prefill_limiter,
@@ -2366,6 +2943,15 @@ class DisaggCluster:
         }
         router_kwargs.setdefault("page_tokens", page_tokens)
         try:
+            if use_registry and registry_replicas > 0:
+                # The replicated, persistent control plane as subprocesses
+                # that can be SIGKILLed like pods; workers and the router
+                # take the whole endpoint list and fail over themselves.
+                self.registry = cluster.RegistryCluster(
+                    registry_replicas, default_ttl_ms=registry_ttl_ms)
+            elif use_registry:
+                self.registry = cluster.Registry(
+                    default_ttl_ms=registry_ttl_ms)
             for mid, (m_cfg, m_seed) in served.items():
                 flat = weights.pop(mid, None)
                 if flat is None:
@@ -2386,8 +2972,12 @@ class DisaggCluster:
                 addrs = (self.prefill_addrs if role == "prefill"
                          else self.decode_addrs)
                 addrs.append(self._await_ready(role, p, t0))
-            self.router = DisaggRouter(self.prefill_addrs, self.decode_addrs,
-                                       **router_kwargs)
+            if self.registry is not None:
+                self.router = DisaggRouter(registry=self.registry.addr,
+                                           **router_kwargs)
+            else:
+                self.router = DisaggRouter(self.prefill_addrs,
+                                           self.decode_addrs, **router_kwargs)
         except BaseException:
             self.close()
             raise
@@ -2414,7 +3004,9 @@ class DisaggCluster:
         """Start one more worker subprocess serving ``model`` (default:
         the cluster's default model); returns its address once it printed
         READY. Both roles' flags ride every argv, so a flip rebuilds the
-        successor with its role's configuration."""
+        successor with its role's configuration. With a registry the new
+        worker registers itself and the router's watch picks it up: the
+        Autoscaler's spawn actuator."""
         return self._await_ready(*self._start(role, model))
 
     def _start(self, role: str, model: Optional[str] = None) -> tuple:
@@ -2425,12 +3017,16 @@ class DisaggCluster:
         cfg_name = self.models[mid][0] if mid in self.models \
             else sc["cfg_name"]
         param_map = ",".join(f"{m}={a}" for m, a in self._param_addrs.items())
+        reg_args = (("--registry", self.registry.addr,
+                     "--ttl", str(sc["registry_ttl_ms"]),
+                     "--accept-advice", str(int(sc["accept_advice"])))
+                    if self.registry is not None else ())
         t0 = time.monotonic()
         p = subprocess.Popen(
             [sys.executable, "-c", _WORKER_SRC, "--role", role,
              "--cfg", cfg_name, "--model", mid, "--params", param_map,
              "--page-tokens", str(sc["page_tokens"]),
-             "--slots", str(sc["decode_slots"]), *sc["extra"]],
+             "--slots", str(sc["decode_slots"]), *sc["extra"], *reg_args],
             stdin=subprocess.PIPE, stdout=subprocess.PIPE, text=True,
             cwd=sc["repo"], env=sc["env"])
         self.procs.append(p)  # close() reaps it whatever happens next
@@ -2476,9 +3072,10 @@ class DisaggCluster:
         self._admin_call(addr, "flip", role.encode())
 
     def retire_worker(self, addr: str, wait_s: float = 75.0) -> None:
-        """Drain ``addr`` through its runner and reap the process.
-        ``wait_s`` must outlast the runner's drain timeout (60 s). Raises
-        KeyError for an address this cluster never spawned."""
+        """Drain ``addr`` through its runner (which leaves its lease) and
+        reap the process: the Autoscaler's retire actuator. ``wait_s``
+        must outlast the runner's drain timeout (60 s). Raises KeyError
+        for an address this cluster never spawned."""
         if addr not in self.workers:
             raise KeyError(f"unknown worker addr {addr} "
                            "(flipped to a fallback port?)")
@@ -2526,6 +3123,39 @@ class DisaggCluster:
             out[k] = int(v) if v.lstrip("-").isdigit() else v
         return out
 
+    def start_autoscaler(self, **kw) -> Autoscaler:
+        """An Autoscaler on this cluster's registry, acting through
+        ``spawn_worker`` and ``retire_worker``; ``kw`` passes its knobs."""
+        if self.registry is None:
+            raise RuntimeError("autoscaling needs use_registry=True")
+        if self.autoscaler is None:
+            self.autoscaler = Autoscaler(
+                self.registry.addr, self.spawn_worker, self.retire_worker,
+                **kw)
+        return self.autoscaler
+
+    def stop_autoscaler(self) -> None:
+        if self.autoscaler is not None:
+            self.autoscaler.close()
+            self.autoscaler = None
+
+    def start_model_advisor(self, **kw) -> ModelMixAdvisor:
+        """A ModelMixAdvisor on this cluster's registry, acting through
+        ``retarget_worker``; ``kw`` passes its knobs."""
+        if self.registry is None:
+            raise RuntimeError("model-mix advice needs use_registry=True")
+        if not self.models:
+            raise RuntimeError("model-mix advice needs models={...}")
+        if self.model_advisor is None:
+            self.model_advisor = ModelMixAdvisor(
+                self.registry.addr, self.retarget_worker, **kw)
+        return self.model_advisor
+
+    def stop_model_advisor(self) -> None:
+        if self.model_advisor is not None:
+            self.model_advisor.close()
+            self.model_advisor = None
+
     def kill_prefill(self, index: int = 0) -> None:
         """SIGKILL one prefill worker."""
         self.procs[index].kill()
@@ -2535,6 +3165,8 @@ class DisaggCluster:
         self.procs[len(self.prefill_addrs) + index].kill()
 
     def close(self) -> None:
+        self.stop_autoscaler()
+        self.stop_model_advisor()
         if self.router is not None:
             self.router.close()
             self.router = None
@@ -2545,6 +3177,9 @@ class DisaggCluster:
             for ps in servers:
                 ps.close()
         self.param_servers = {}
+        if self.registry is not None:
+            self.registry.close()
+            self.registry = None
 
     def __enter__(self):
         return self

@@ -18,6 +18,7 @@ import platform
 import re
 import shutil
 import subprocess
+import threading
 from concurrent.futures import ThreadPoolExecutor
 
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -26,6 +27,7 @@ _BUILD_DIR = os.path.join(_REPO, "build", "torch_native")
 _LIB_PATH = os.path.join(_BUILD_DIR, "libtpurpc.so")
 
 _lib = None
+_lib_mu = threading.Lock()
 
 def _lib_srcs() -> list:
     """Library .cc list, parsed out of cpp/CMakeLists.txt's set(*_SRCS ...)
@@ -120,10 +122,15 @@ def build(force: bool = False) -> str:
 
 
 def lib() -> ctypes.CDLL:
-    """Load (building if needed) and return the native library handle."""
+    """Load (building if needed) and return the native library handle:
+    one ``CDLL`` object per process, also when the first calls come from
+    several threads at once (a second object would miss the argtypes and
+    restypes ``runtime`` configures on the first)."""
     global _lib
     if _lib is None:
-        _lib = ctypes.CDLL(build())
+        with _lib_mu:
+            if _lib is None:
+                _lib = ctypes.CDLL(build())
     return _lib
 
 

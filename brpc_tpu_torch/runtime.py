@@ -1,12 +1,13 @@
 """ctypes surface of the native RPC runtime, as far as the serving paths
-need it: Server (unary handlers, TCP or the device fabric), Channel (unary
-calls, a retry policy) and bidirectional streams, the fan-out
-ParallelChannel with its progressive gather and the wire-integrity rail,
-the process's framed-protocol body cap,
-the request batcher, error codes, the flight recorder's stamps and notes,
-the KV transfer of disaggregated serving (layer-wise sender, receive pool,
-claim), the host-tier KV page store with the peer page pull, and the
-metrics dump.
+need it: Server (unary handlers, TCP or the device fabric, the lease
+registry), Channel (unary calls, a retry policy, naming urls with a load
+balancer) and bidirectional streams, the fan-out ParallelChannel with its
+progressive gather and the wire-integrity rail, the collective
+observatory's records and link stats, the process's framed-protocol body
+cap, the request batcher, error codes, the flight recorder's stamps and
+notes, the KV transfer of disaggregated serving (layer-wise sender,
+receive pool, claim), the host-tier KV page store with the peer page
+pull, and the metrics dump.
 
 The C ABI is ``cpp/trpc/c_api.h``; the library is this package's own build
 (``native.lib()``). Handlers and stream sinks run on native worker threads
@@ -201,6 +202,22 @@ def _lib() -> ctypes.CDLL:
         lib.trpc_pchan_gather_mode.argtypes = [ctypes.c_void_p]
         lib.trpc_coll_crc_enable.argtypes = [ctypes.c_int]
         lib.trpc_coll_crc_enabled.argtypes = []
+        lib.trpc_server_add_registry.argtypes = [
+            ctypes.c_void_p, ctypes.c_longlong]
+        lib.trpc_server_add_registry2.argtypes = [
+            ctypes.c_void_p, ctypes.c_longlong, ctypes.c_char_p,
+            ctypes.c_char_p, ctypes.c_char_p]
+        lib.trpc_registry_counts.argtypes = [
+            ctypes.c_void_p, ctypes.POINTER(ctypes.c_longlong), ctypes.c_int]
+        lib.trpc_coll_epoch_bump.argtypes = []
+        lib.trpc_coll_epoch_bump.restype = ctypes.c_ulonglong
+        lib.trpc_coll_records.argtypes = [c_char_pp, ctypes.c_size_t]
+        lib.trpc_coll_records.restype = ctypes.c_size_t
+        lib.trpc_link_stats.argtypes = [c_char_pp]
+        lib.trpc_link_stats.restype = ctypes.c_size_t
+        lib.trpc_coll_observe_enable.argtypes = [ctypes.c_int]
+        lib.trpc_coll_observe_enabled.argtypes = []
+        lib.trpc_coll_observe_reset.argtypes = []
         for fn in (lib.trpc_init, lib.trpc_server_start,
                    lib.trpc_server_stop, lib.trpc_server_add_method,
                    lib.trpc_call, lib.trpc_stream_close,
@@ -222,13 +239,16 @@ def _lib() -> ctypes.CDLL:
                    lib.trpc_pchan_gather_wait_rank,
                    lib.trpc_pchan_gather_wait_prefix,
                    lib.trpc_pchan_gather_end, lib.trpc_pchan_gather_mode,
-                   lib.trpc_coll_crc_enabled):
+                   lib.trpc_coll_crc_enabled, lib.trpc_server_add_registry,
+                   lib.trpc_server_add_registry2, lib.trpc_registry_counts,
+                   lib.trpc_coll_observe_enabled):
             fn.restype = ctypes.c_int
         for fn in (lib.trpc_server_destroy, lib.trpc_channel_destroy,
                    lib.trpc_call_respond,
                    lib.trpc_buf_free, lib.trpc_batcher_destroy,
                    lib.trpc_kv_tier_note_fill, lib.trpc_pchan_destroy,
-                   lib.trpc_coll_crc_enable):
+                   lib.trpc_coll_crc_enable, lib.trpc_coll_observe_enable,
+                   lib.trpc_coll_observe_reset):
             fn.restype = None
         rc = lib.trpc_init(0)
         if rc != 0:
@@ -251,6 +271,9 @@ EINTERNAL = 2001
 ERESPONSE = 2002       # response parse/format error
 EREQUEST = 2003
 ENOMETHOD = 2005       # service/method not found on the server
+ENOLEASE = 2007        # membership lease expired or unknown: re-register
+ENOTLEADER = 2008      # registry write hit a follower; the error text
+                       # names the leader ("leader=host:port")
 # OS errno values the transport also surfaces (Linux numbers).
 ECONNRESET = 104
 ENOTCONN = 107
@@ -404,6 +427,45 @@ class Server:
         if rc != 0:
             raise OSError(rc, "add_method failed")
 
+    def add_registry(self, default_ttl_ms: int = 3000, *,
+                     wal_path: str = "", self_addr: str = "",
+                     peers: str = "") -> None:
+        """Attach the lease registry (call before ``start``): a "Cluster"
+        service with register/renew/leave/list/watch, the fleet's control
+        plane (``brpc_tpu_torch/cluster.py`` is its client side; channels
+        subscribe with ``registry://host:port[/role]`` naming urls).
+
+        ``wal_path`` journals membership facts, so a restarted replica
+        recovers its lease table under a one-TTL expiry grace. ``peers``
+        (every replica's address, ``self_addr`` included) makes this one
+        replica of a replicated registry: the replicas elect a leader and
+        a write to a follower fails with ENOTLEADER naming the leader."""
+        if wal_path or peers:
+            rc = self._lib.trpc_server_add_registry2(
+                self._h, default_ttl_ms, wal_path.encode(),
+                self_addr.encode(), peers.encode())
+        else:
+            rc = self._lib.trpc_server_add_registry(self._h, default_ttl_ms)
+        if rc != 0:
+            raise OSError(rc, "add_registry failed")
+
+    REGISTRY_COUNT_KEYS = ("members", "registers", "renews", "expels",
+                           "index", "role", "term", "commit_index",
+                           "failovers", "grace_holds", "advices")
+
+    def registry_counts(self) -> dict:
+        """The registry's counters: members, registers, renews, lease
+        expels, the membership index, the replication state (role: 0
+        follower, 1 leader, 2 candidate; term; commit index; failovers;
+        grace holds) and the role-flip advices."""
+        out = (ctypes.c_longlong * len(self.REGISTRY_COUNT_KEYS))()
+        n = self._lib.trpc_registry_counts(self._h, out,
+                                           len(self.REGISTRY_COUNT_KEYS))
+        if n < 0:
+            raise OSError(-n, "server has no registry")
+        return {k: int(out[i])
+                for i, k in enumerate(self.REGISTRY_COUNT_KEYS[:n])}
+
     def start(self, port: int = 0) -> int:
         bound = ctypes.c_int(0)
         rc = self._lib.trpc_server_start(self._h, port, ctypes.byref(bound))
@@ -439,18 +501,21 @@ class Server:
 
 
 class Channel:
-    """Client stub to ``"ip:port"`` or a device-fabric coordinate
-    ``"ici://slice/chip"``: ``call`` makes a unary call,
-    ``open_stream_rx`` opens the serving gateway's token-delivery stream. ``retry_policy`` replaces the bare
-    ``max_retry`` with backoff-spaced retries gated on an errno
-    whitelist."""
+    """Client stub to ``"ip:port"``, a device-fabric coordinate
+    ``"ici://slice/chip"``, or a naming url with a load balancer, e.g.
+    ``Channel("registry://a:p,b:p,c:p/decode", lb="la")`` (the registry's
+    live membership, followed natively): ``call`` makes a unary call,
+    ``open_stream_rx`` opens the serving gateway's token-delivery stream.
+    ``retry_policy`` replaces the bare ``max_retry`` with backoff-spaced
+    retries gated on an errno whitelist."""
 
     def __init__(self, addr: str, timeout_ms: int = -1, max_retry: int = -1,
-                 retry_policy: Optional[RetryPolicy] = None):
+                 retry_policy: Optional[RetryPolicy] = None, *,
+                 lb: str = ""):
         self._lib = _lib()
         if retry_policy is None:
-            self._h = self._lib.trpc_channel_create(addr.encode(), b"",
-                                                    timeout_ms, max_retry)
+            self._h = self._lib.trpc_channel_create(
+                addr.encode(), lb.encode(), timeout_ms, max_retry)
         else:
             rp = retry_policy
             if rp.retriable is not None:
@@ -461,7 +526,7 @@ class Channel:
             else:
                 codes, n_codes = None, 0
             self._h = self._lib.trpc_channel_create_ex(
-                addr.encode(), b"", timeout_ms, rp.max_retry,
+                addr.encode(), lb.encode(), timeout_ms, rp.max_retry,
                 rp.backoff_base_ms, rp.backoff_max_ms, int(rp.jitter * 100),
                 codes, n_codes)
         if not self._h:
@@ -586,6 +651,61 @@ def coll_crc_enable(on: bool = True) -> None:
 
 def coll_crc_enabled() -> bool:
     return bool(_lib().trpc_coll_crc_enabled())
+
+
+def coll_epoch_bump() -> int:
+    """Advance this process's collective membership epoch, fencing the
+    frames of every collective started under the old one, and return the
+    new value: the out-of-band death signal of a registry watch."""
+    return int(_lib().trpc_coll_epoch_bump())
+
+
+# ---- the collective and fabric observatory (cpp/trpc/coll_observatory.h) ----
+
+def _json_out(fn, *args):
+    """Call a native ``(char** out, ...) -> length`` dump and parse its
+    malloc'd JSON."""
+    lib = _lib()
+    out = ctypes.POINTER(ctypes.c_char)()
+    n = fn(ctypes.byref(out), *args)
+    try:
+        return json.loads(ctypes.string_at(out, n).decode(errors="replace"))
+    finally:
+        lib.trpc_buf_free(out)
+
+
+def coll_records(max_items: int = 0) -> dict:
+    """The observatory's /coll surface: ``records`` (one per collective,
+    newest first: schedule, ranks, chunking, wire and effective bytes,
+    per-hop ``hops`` with transit, span, fold and overlap,
+    ``critical_hop``, ``skew``, the straggler verdict), the ``advisor``
+    table, totals and the ``debug`` occupancy counters. ``max_items`` 0
+    dumps the whole ring."""
+    return _json_out(_lib().trpc_coll_records, max_items)
+
+
+def coll_link_stats() -> list:
+    """One row per fabric peer (the /fabric surface): bytes and frames
+    each way, EWMA GB/s, credit stalls, retain grants against fallback
+    copies, staged copies, wire against effective bytes."""
+    return _json_out(_lib().trpc_link_stats).get("links", [])
+
+
+def coll_observe_enable(on: bool = True) -> None:
+    """Arm (or disarm) the observatory's records and per-link
+    accounting. Armed by default; env ``TRPC_COLL_OBSERVE=0`` disarms it
+    at start-up."""
+    _lib().trpc_coll_observe_enable(1 if on else 0)
+
+
+def coll_observe_enabled() -> bool:
+    return bool(_lib().trpc_coll_observe_enabled())
+
+
+def coll_observe_reset() -> None:
+    """Forget the finished records, the advisor table and the straggler
+    baseline, and zero the per-link counters."""
+    _lib().trpc_coll_observe_reset()
 
 
 class GatherHandle:

@@ -1754,12 +1754,14 @@ def phase_exactness(cfg) -> dict:
               [(p, 8, t2[i]) for i, p in enumerate(turn2)]]
     disagg_res = exact_disagg(params, cfg, script)
     cluster_res = exact_cluster(params, cfg, script)
+    registry_res = exact_registry(params, cfg, script)
     del params
     torch.cuda.empty_cache()
     return {"streams": [out["tokens"][i] for i in range(len(prompts))],
             "chat_streams": [t for _, t in chats], "resumes": resumes,
             "cow_copies": cows, "disagg": disagg_res,
-            "cluster": cluster_res, "launches": total_launches}
+            "cluster": cluster_res, "registry": registry_res,
+            "launches": total_launches}
 
 
 def disagg_fleet(params, cfg, **kw):
@@ -1898,11 +1900,19 @@ CLUSTER_KERNELS = {"prefill": ("prefill_attention",),
                    "decode": ("paged_decode_attention", "add_rms_norm")}
 
 
-def check_cluster_launches(cluster) -> dict:
-    out = {"prefill": [cluster_launches(cluster, a)
-                       for a in cluster.prefill_addrs],
-           "decode": [cluster_launches(cluster, a)
-                      for a in cluster.decode_addrs]}
+def cluster_addrs(cluster) -> dict:
+    """role -> the addresses of the worker processes the cluster started
+    with."""
+    return {"prefill": cluster.prefill_addrs, "decode": cluster.decode_addrs}
+
+
+def check_cluster_launches(cluster, addrs=None) -> dict:
+    """Each worker process's launches (``addrs``: role -> addresses,
+    default the ones the cluster started with); fails unless each
+    launched its role's kernels."""
+    addrs = addrs or cluster_addrs(cluster)
+    out = {role: [cluster_launches(cluster, a) for a in addrs[role]]
+           for role in ("prefill", "decode")}
     for role, names in CLUSTER_KERNELS.items():
         for i, got in enumerate(out[role]):
             for name in names:
@@ -1913,25 +1923,25 @@ def check_cluster_launches(cluster) -> dict:
     return out
 
 
-def cold_starts(cluster) -> dict:
-    """Each worker process's cold start: seconds from spawn to READY, and
+def cold_start(cluster, addr: str) -> dict:
+    """One worker process's cold start: seconds from spawn to READY, and
     its weight pull's seconds, wire and effective bytes and groups (the
     worker's own counters, off its /vars)."""
     from brpc_tpu_torch import runtime
 
-    out = {}
-    for role, addrs in (("prefill", cluster.prefill_addrs),
-                        ("decode", cluster.decode_addrs)):
-        for i, addr in enumerate(addrs):
-            v = runtime.http_vars(addr, "cluster_model_fetch")
-            out[f"{role}{i}"] = {
-                "ready_s": cluster.spawn_seconds[addr],
-                "fetch_s": v["cluster_model_fetch_us"] / 1e6,
-                "wire_bytes": int(v["cluster_model_fetch_wire_bytes"]),
-                "effective_bytes": int(
-                    v["cluster_model_fetch_effective_bytes"]),
-                "groups": int(v["cluster_model_fetch_groups"])}
-    return out
+    v = runtime.http_vars(addr, "cluster_model_fetch")
+    return {"ready_s": cluster.spawn_seconds[addr],
+            "fetch_s": v["cluster_model_fetch_us"] / 1e6,
+            "wire_bytes": int(v["cluster_model_fetch_wire_bytes"]),
+            "effective_bytes": int(v["cluster_model_fetch_effective_bytes"]),
+            "groups": int(v["cluster_model_fetch_groups"])}
+
+
+def cold_starts(cluster) -> dict:
+    """``cold_start`` of each worker process the cluster started with."""
+    return {f"{role}{i}": cold_start(cluster, addr)
+            for role, addrs in cluster_addrs(cluster).items()
+            for i, addr in enumerate(addrs)}
 
 
 def fmt_cold_starts(starts: dict) -> str:
@@ -1942,7 +1952,7 @@ def fmt_cold_starts(starts: dict) -> str:
         f"GB/s)" for who, s in starts.items())
 
 
-def worker_memory(cluster) -> dict:
+def worker_memory(cluster, addrs=None) -> dict:
     """Device memory: the rows of ``nvidia-smi
     --query-compute-apps=pid,used_memory`` (pid and MiB of every process
     on the card; in a container the pids may be another namespace's),
@@ -1958,9 +1968,8 @@ def worker_memory(cluster) -> dict:
     res = {"nvidia_smi": [ln.strip() for ln in out.splitlines()
                           if ln.strip()],
            "pids": {"this process": os.getpid()}, "reserved_gib": {}}
-    for role, addrs in (("prefill", cluster.prefill_addrs),
-                        ("decode", cluster.decode_addrs)):
-        for i, addr in enumerate(addrs):
+    for role, role_addrs in (addrs or cluster_addrs(cluster)).items():
+        for i, addr in enumerate(role_addrs):
             res["pids"][f"{role}{i}"] = cluster.workers[addr][0].pid
             v = runtime.http_vars(addr, disagg.DEVICE_MEMORY_COUNTER)
             res["reserved_gib"][f"{role}{i}"] = round(
@@ -1995,6 +2004,243 @@ def exact_cluster(params, cfg, script) -> dict:
         f"DisaggCluster(1, 1, f32) identical to the plain rollout; cold "
         f"starts {fmt_cold_starts(starts)}; launches {launches}")
     return {"cold_starts": starts, "launches": launches}
+
+
+# ---- registry mode: the lease registry and the closed loop ------------------
+
+REGISTRY_REPLICAS = 3
+REGISTRY_TTL_MS = 1500
+
+
+def wait_for(pred, what: str, timeout_s: float):
+    """Poll ``pred`` every 20 ms until it returns a true value; that value
+    and the seconds it took. Fails with ``what`` past ``timeout_s``."""
+    t0 = time.monotonic()
+    while True:
+        got = pred()
+        if got:
+            return got, time.monotonic() - t0
+        if time.monotonic() - t0 > timeout_s:
+            raise AssertionError(f"{what}: not within {timeout_s} s")
+        time.sleep(0.02)
+
+
+def leader_counts(cluster) -> dict:
+    """The registry leader's counters (off its /vars)."""
+    reg = cluster.registry
+    li = reg.leader_index()
+    if li is None:
+        raise AssertionError("the registry has no leader")
+    return reg.counts(li)
+
+
+LEASE_PARTS = ("renew_gap", "wake_late", "load_wait", "rpc", "load")
+
+
+def lease_vars(addr: str) -> dict:
+    """A process's lease counters (renews, re_registers, failovers, and
+    the worst of each of LEASE_PARTS in us: ``<part>_max_us``), off its
+    /vars."""
+    from brpc_tpu_torch import runtime
+
+    pre = "cluster_lease_"
+    return {k[len(pre):]: int(v)
+            for k, v in runtime.http_vars(addr, pre).items()}
+
+
+def live_addrs(cluster) -> dict:
+    """role -> the worker addresses in the router's pools."""
+    return {"prefill": cluster.router.prefills.addrs(),
+            "decode": cluster.router.decodes.addrs()}
+
+
+def registry_members(cluster, role: str) -> list:
+    """The registry's members of ``role``, listed by a live replica."""
+    from brpc_tpu_torch import cluster as cp
+    from brpc_tpu_torch import runtime
+
+    with runtime.Channel(cluster.registry.addrs[cluster.registry.live()[0]],
+                         timeout_ms=5000) as ch:
+        return cp.parse_members(
+            ch.call("Cluster", "list", role.encode()).decode())[1]
+
+
+def elasticity(cluster, wave, probe, tag: str) -> dict:
+    """The closed loop on a registry-fed DisaggCluster(1, 1): ``wave()``,
+    across which the registry must expel nobody; SIGKILL the decode
+    worker, which the registry must expel within two TTLs; an Autoscaler
+    (min 1, max 1 decode worker) spawns the replacement, which the
+    router's watch picks up; ``probe()`` (one request, the run_swarm
+    result) is its first pick, timed from READY to its first token;
+    the registry's leader is SIGKILLed: a new leader, and every worker's
+    lease fails over to it; ``wave()`` again, across which nobody is
+    expelled. Times on the host clock; any leg that fails raises."""
+    from brpc_tpu_torch import disagg
+
+    reg, router = cluster.registry, cluster.router
+    ttl_s = REGISTRY_TTL_MS / 1e3
+    res = {"ttl_ms": REGISTRY_TTL_MS, "replicas": reg.n}
+    if leader_counts(cluster)["lease_expels"]:
+        raise AssertionError(f"[{tag}] an expel before the first wave")
+    res["wave1"] = wave()
+    if leader_counts(cluster)["lease_expels"]:
+        raise AssertionError(f"[{tag}] a live worker was expelled during "
+                             f"the first wave")
+    victim = cluster.decode_addrs[0]
+    killed = lease_vars(victim)
+    t_kill = time.monotonic()
+    cluster.workers[victim][0].kill()
+    _, res["kill_to_expel_s"] = wait_for(
+        lambda: leader_counts(cluster)["lease_expels"] >= 1,
+        f"[{tag}] the killed decode worker's expel", 10 * ttl_s)
+    _, drop_s = wait_for(lambda: victim not in router.decodes.addrs(),
+                         f"[{tag}] the router dropping it", 10 * ttl_s)
+    res["kill_to_router_drop_s"] = res["kill_to_expel_s"] + drop_s
+    if res["kill_to_expel_s"] > 2 * ttl_s:
+        raise AssertionError(f"[{tag}] expel {res['kill_to_expel_s']:.3f} s "
+                             f"after the SIGKILL, past two TTLs")
+    asc = cluster.start_autoscaler(min_workers=1, max_workers=1, poll_s=0.2)
+    try:
+        (_, kind, new), _ = wait_for(
+            lambda: asc.actions and asc.actions[0],
+            f"[{tag}] the autoscaler's replacement",
+            disagg.READY_TIMEOUT_S + 60)
+        t_ready = time.monotonic()
+        if kind != "replace":
+            raise AssertionError(f"[{tag}] autoscaler action {kind}")
+        res["kill_to_spawn_s"] = asc.actions[0][0] - t_kill
+        res["spawn_to_ready_s"] = cluster.spawn_seconds[new]
+        res["replacement_cold_start"] = cold_start(cluster, new)
+        _, res["ready_to_router_pool_s"] = wait_for(
+            lambda: new in router.decodes.addrs(),
+            f"[{tag}] the router's watch picking up {new}", 30)
+        _, res["ready_to_heartbeat_s"] = wait_for(
+            lambda: any(m.addr == new and m.ready
+                        for m in registry_members(cluster, "decode")),
+            f"[{tag}] the replacement's first heartbeat", 30)
+        t_probe = time.monotonic()
+        got = probe()
+        res["probe"] = got["tokens"][0]
+        res["ready_to_first_token_s"] = (t_probe - t_ready
+                                         + got["ttft_s"][0])
+        workers = {"prefill": cluster.prefill_addrs[0],
+                   "replacement decode": new}
+        # Before the leader kill: a gap here is the renew thread's own
+        # (GIL or host stalls); after it, the failover's window adds in.
+        leases = {who: lease_vars(a) for who, a in workers.items()}
+        leases["killed decode"] = killed
+        before = {a: leases[who].get("failovers", 0)
+                  for who, a in workers.items()}
+        watch0 = router.stats()["watch_reconnects"]
+        t0 = time.monotonic()
+        res["killed_leader"] = dead = reg.kill_leader()
+
+        def new_leader():
+            li = reg.leader_index(timeout_s=1.0)
+            return None if li in (None, dead) else (li,)
+
+        (res["new_leader"],), res["leader_kill_to_new_leader_s"] = wait_for(
+            new_leader, f"[{tag}] a new registry leader", 30)
+        wait_for(lambda: all(lease_vars(a).get("failovers", 0) > before[a]
+                             for a in before),
+                 f"[{tag}] every worker lease's failover", 30)
+        res["leader_kill_to_lease_failover_s"] = time.monotonic() - t0
+        res["lease_failovers"] = {
+            who: lease_vars(a).get("failovers", 0) - before[a]
+            for who, a in workers.items()}
+        expels = leader_counts(cluster)["lease_expels"]
+        res["wave2"] = wave()
+        counts = leader_counts(cluster)
+        if counts["lease_expels"] != expels:
+            raise AssertionError(f"[{tag}] a live worker was expelled "
+                                 f"during the second wave: {counts}")
+        if counts["members"] != 3:  # two workers and the router's lease
+            raise AssertionError(f"[{tag}] {counts['members']} members "
+                                 f"after the failover, want 3")
+        if asc.scale_ups != 1:
+            raise AssertionError(f"[{tag}] {asc.scale_ups} scale-ups")
+        res["autoscaler"] = asc.stats()
+    finally:
+        cluster.stop_autoscaler()
+    res["watch_reconnects"] = router.stats()["watch_reconnects"] - watch0
+    res["registry_counts"] = {i: reg.counts(i) for i in reg.live()}
+    res["leases_before_leader_kill"] = leases
+    res["leases"] = {who: lease_vars(a) for who, a in workers.items()}
+    def worst_ms(v: dict) -> dict:
+        return {p: v.get(f"{p}_max_us", 0) / 1e3 for p in LEASE_PARTS}
+
+    res["lease_worst_ms"] = {
+        "before the leader kill": {who: worst_ms(v)
+                                   for who, v in leases.items()},
+        "through the failover": {who: worst_ms(v)
+                                 for who, v in res["leases"].items()}}
+    res["lease_worst_ms"]["through the failover"]["router"] = {
+        p: 1e3 * sec for p, sec in router._lease.worst.items()}
+    res["router"] = {k: router.stats()[k] for k in (
+        "re_prefills", "resumed_streams", "registry_stale",
+        "prefill_workers", "decode_workers", "warming_skips")}
+    log(f"[{tag}] registry-fed control plane ({reg.n} replica processes, "
+        f"TTL {REGISTRY_TTL_MS} ms): SIGKILL -> expel "
+        f"{res['kill_to_expel_s']:.3f} s (router drop "
+        f"{res['kill_to_router_drop_s']:.3f} s); autoscaler spawn "
+        f"{res['kill_to_spawn_s']:.3f} s after the kill, spawn -> READY "
+        f"{res['spawn_to_ready_s']:.2f} s, READY -> router pool "
+        f"{res['ready_to_router_pool_s']:.3f} s, -> first heartbeat "
+        f"{res['ready_to_heartbeat_s']:.3f} s, -> the first token of its "
+        f"first pick {res['ready_to_first_token_s']:.3f} s; kill_leader -> "
+        f"new leader "
+        f"{res['leader_kill_to_new_leader_s']:.3f} s, -> every lease failed "
+        f"over {res['leader_kill_to_lease_failover_s']:.3f} s "
+        f"({res['lease_failovers']}); watch reconnects "
+        f"{res['watch_reconnects']}; each lease's worst renew gap, its "
+        f"parts (wake-up past the period, the wait for the load sample, "
+        f"the renew RPC) and load_fn's own time on its sampler thread, ms: "
+        f"{json.dumps(res['lease_worst_ms'])}")
+    log(f"[{tag}] registry counts by live replica "
+        f"{json.dumps(res['registry_counts'])}; router {res['router']}")
+    return res
+
+
+def exact_registry(params, cfg, script) -> dict:
+    """``script`` through registry-fed worker processes,
+    DisaggCluster(1, 1, f32=True, use_registry=True, registry_replicas=3),
+    before and after the closed-loop script (``elasticity``); every
+    stream of both waves must equal its expected one, and the live
+    worker processes must have launched their kernels."""
+    from brpc_tpu_torch import disagg
+
+    cluster = disagg.DisaggCluster(
+        1, 1, cfg_name="llama3_8b", n_layers=cfg.n_layers, f32=True,
+        weights={"": {k: v.cpu() for k, v in
+                      disagg._flatten_params(params).items()}},
+        decode_slots=4, decode_kv_blocks=64, max_prompt=128,
+        use_registry=True, registry_replicas=REGISTRY_REPLICAS,
+        registry_ttl_ms=REGISTRY_TTL_MS, worker_timeout_ms=600_000)
+    prompt, n, want = script[0][0]
+
+    def probe():
+        got = run_swarm(cluster, [prompt], n)
+        if got["tokens"][0] != want:
+            raise AssertionError(f"f32 registry probe: {got['tokens'][0]} "
+                                 f"!= plain {want}")
+        return got
+
+    try:
+        starts = cold_starts(cluster)
+        loop = elasticity(
+            cluster, lambda: run_waves(cluster, script, "registry-fed"),
+            probe, "exact")
+        launches = check_cluster_launches(cluster, live_addrs(cluster))
+    finally:
+        cluster.close()
+    n_req = sum(len(w) for w in script)
+    log(f"[exact] registry-fed worker processes: the same {n_req} requests "
+        f"through DisaggCluster(1, 1, f32, use_registry, registry_replicas="
+        f"{REGISTRY_REPLICAS}) identical to the plain rollout before and "
+        f"after SIGKILL, replacement and leader kill; cold starts "
+        f"{fmt_cold_starts(starts)}; launches of the live workers "
+        f"{launches}")
+    return {"cold_starts": starts, "elasticity": loop, "launches": launches}
 
 
 def flight_ttfts(n: int) -> tuple:
@@ -2681,13 +2927,40 @@ def phase_disagg(params, cfg, card: str, main_res: dict) -> dict:
     return res
 
 
+def wave_metrics(wave: dict, vocab: int) -> dict:
+    """tokens/s and TTFT p50/p99 of one ``run_swarm`` wave; fails on a
+    token out of the vocabulary."""
+    streams = [wave["tokens"][i] for i in range(len(wave["tokens"]))]
+    for toks in streams:
+        if not all(0 <= t < vocab for t in toks):
+            raise AssertionError("token id out of vocabulary")
+    ttft = sorted(wave["ttft_s"].values())
+    n_tok = sum(len(t) for t in streams)
+    return {"streams": streams, "tokens": n_tok, "wall_s": wave["wall_s"],
+            "tokens_per_s": n_tok / wave["wall_s"],
+            "ttft_p50_ms": 1e3 * ttft[len(ttft) // 2],
+            "ttft_p99_ms": 1e3 * ttft[min(len(ttft) - 1,
+                                          int(0.99 * len(ttft)))]}
+
+
+def kv_failed(addrs) -> dict:
+    """``kv_transfers_failed`` of each worker process, off its /vars."""
+    from brpc_tpu_torch import runtime
+
+    return {a: int(runtime.http_vars(a, "kv_transfers_failed")
+                   ["kv_transfers_failed"]) for a in addrs}
+
+
 def phase_disagg_procs(weights: dict, cfg, card: str, main_res: dict,
                        inproc: dict) -> dict:
-    """The disagg phase's first wave (the same prompts) through worker
-    processes at full width and depth: DisaggCluster(1, 1) serving
+    """The disagg phase's first wave (the same prompts) through
+    registry-fed worker processes at full width and depth:
+    DisaggCluster(1, 1, use_registry=True, registry_replicas=3) serving
     ``weights`` ({"": flat dict in host memory}, which the cluster takes
     out of the dict), a prefill and a decode worker process on this card
-    beside this one."""
+    beside this one and three registry replica processes off it. The
+    wave, the closed-loop script (``elasticity``: SIGKILL, expel,
+    replacement, leader kill), the wave again."""
     from brpc_tpu_torch import disagg, kv_cache
 
     rng = np.random.default_rng(5)
@@ -2699,55 +2972,81 @@ def phase_disagg_procs(weights: dict, cfg, card: str, main_res: dict,
     cluster = disagg.DisaggCluster(
         1, 1, cfg_name="llama3_8b", weights=weights, decode_slots=8,
         decode_kv_blocks=blocks, max_prompt=1024,
-        kv_pool=kv_pool_budget(cfg), worker_timeout_ms=600_000)
+        kv_pool=kv_pool_budget(cfg), use_registry=True,
+        registry_replicas=REGISTRY_REPLICAS,
+        registry_ttl_ms=REGISTRY_TTL_MS, worker_timeout_ms=600_000)
+
+    def probe():
+        got = run_swarm(cluster, [prompts[0]], 4)
+        toks = got["tokens"][0]
+        if len(toks) != 4 or not all(0 <= t < cfg.vocab for t in toks):
+            raise AssertionError(f"probe stream {toks}")
+        return got
+
     try:
         up_s = time.monotonic() - t0
         starts = cold_starts(cluster)
         mem_idle = worker_memory(cluster)
-        wave = run_swarm(cluster, prompts, max_new)
-        launches = check_cluster_launches(cluster)
-        mem = worker_memory(cluster)
+        loop = elasticity(cluster,
+                          lambda: run_swarm(cluster, prompts, max_new),
+                          probe, "disagg-procs")
+        live = live_addrs(cluster)
+        launches = check_cluster_launches(cluster, live)
+        mem = worker_memory(cluster, live)
+        kv = kv_failed(live["prefill"] + live["decode"])
         groups = len(cluster.param_servers[""])
     finally:
         cluster.close()
-    streams = [wave["tokens"][i] for i in range(len(prompts))]
-    for toks in streams:
-        if not all(0 <= t < cfg.vocab for t in toks):
-            raise AssertionError("token id out of vocabulary")
-    ttft = sorted(wave["ttft_s"].values())
-    n_tok = sum(len(t) for t in streams)
+    if any(kv.values()):
+        raise AssertionError(f"failed KV transfers {kv}")
+    waves = [wave_metrics(loop.pop(w), cfg.vocab) for w in ("wave1",
+                                                            "wave2")]
+    streams = waves[0]["streams"]
     res = {
         "card": card, "requests": len(prompts),
         "prompt_lengths": MAIN_LENGTHS, "new_tokens": max_new,
         "cluster_up_s": up_s, "param_server_groups": groups,
         "cold_starts": starts, "device_memory": mem,
         "device_memory_idle": mem_idle,
-        "tokens_per_s": n_tok / wave["wall_s"],
-        "ttft_p50_ms": 1e3 * ttft[len(ttft) // 2],
-        "ttft_p99_ms": 1e3 * ttft[min(len(ttft) - 1,
-                                      int(0.99 * len(ttft)))],
-        "launches": launches,
+        "tokens_per_s": waves[0]["tokens_per_s"],
+        "ttft_p50_ms": waves[0]["ttft_p50_ms"],
+        "ttft_p99_ms": waves[0]["ttft_p99_ms"],
+        "waves": [{k: w[k] for k in ("tokens_per_s", "ttft_p50_ms",
+                                     "ttft_p99_ms", "wall_s")}
+                  for w in waves],
+        "launches": launches, "kv_transfers_failed": kv,
+        "elasticity": loop,
         "streams_equal_in_process": sum(
             a == b for a, b in zip(streams, inproc["wave1_streams"])),
+        "wave2_streams_equal_wave1": sum(
+            a == b for a, b in zip(waves[1]["streams"], streams)),
     }
     log(f"[disagg-procs] Llama-3-8B bf16 {cfg.n_layers} layers, {card}: "
-        f"cluster up in {up_s:.1f} s ({groups} ParamServer groups); cold "
-        f"starts {fmt_cold_starts(starts)}")
+        f"registry-fed cluster ({REGISTRY_REPLICAS} replica processes) up "
+        f"in {up_s:.1f} s ({groups} ParamServer groups); cold starts "
+        f"{fmt_cold_starts(starts)}; the replacement: "
+        f"{fmt_cold_starts({'decode': loop['replacement_cold_start']})}")
     log(f"[disagg-procs] device memory by process (nvidia-smi), idle "
-        f"{json.dumps(mem_idle)}, after the wave {json.dumps(mem)}")
-    log(f"[disagg-procs] {len(prompts)} concurrent requests through router "
-        f"-> prefill worker process -> decode worker process, {n_tok} "
-        f"tokens in {wave['wall_s']:.3f} s = {res['tokens_per_s']:.2f} "
-        f"tok/s; TTFT p50 {res['ttft_p50_ms']:.1f} ms p99 "
-        f"{res['ttft_p99_ms']:.1f} ms; against the in-process disagg run "
+        f"{json.dumps(mem_idle)}, after both waves {json.dumps(mem)}")
+    for i, w in enumerate(waves):
+        log(f"[disagg-procs] wave {i + 1} ({'before' if i == 0 else 'after'}"
+            f" the closed-loop script): {len(prompts)} concurrent requests "
+            f"through router -> prefill worker process -> decode worker "
+            f"process, {w['tokens']} tokens in {w['wall_s']:.3f} s = "
+            f"{w['tokens_per_s']:.2f} tok/s; TTFT p50 {w['ttft_p50_ms']:.1f} "
+            f"ms p99 {w['ttft_p99_ms']:.1f} ms")
+    log(f"[disagg-procs] against the in-process disagg run "
         f"{inproc['tokens_per_s']:.2f} tok/s, p50 "
         f"{inproc['ttft_p50_ms']:.1f}, p99 {inproc['ttft_p99_ms']:.1f}, and "
         f"phase 5 (colocated) {main_res['tokens_per_s']:.2f} tok/s, p50 "
         f"{main_res['ttft_p50_ms']:.1f}, p99 {main_res['ttft_p99_ms']:.1f}; "
-        f"{res['streams_equal_in_process']} of {len(prompts)} streams equal "
-        f"to the in-process run's (bf16: batch shapes may differ)")
-    log(f"[disagg-procs] launches prefill worker {launches['prefill']} "
-        f"decode worker {launches['decode']}")
+        f"{res['streams_equal_in_process']} of {len(prompts)} wave-1 streams "
+        f"equal to the in-process run's, {res['wave2_streams_equal_wave1']} "
+        f"of wave 2's to wave 1's (bf16: batch shapes and prefix hits may "
+        f"differ); kv_transfers_failed {kv}")
+    log(f"[disagg-procs] launches of the live prefill worker "
+        f"{launches['prefill']} and replacement decode worker "
+        f"{launches['decode']}")
     return res
 
 
@@ -2947,7 +3246,7 @@ def phase_landing(card: str) -> dict:
                                          landed["star"][0])
         res["stream"] = {}
         for s, pc in pchans.items():
-            res["stream"][s] = landing_stream(pc, src, nbytes, s)
+            res["stream"][s] = landing_stream(pc, src, nbytes, s, addrs)
         res["sources"] = landing_sources(pchans["star"], nbytes)
         res["yardsticks"] = landing_yardsticks(packed, nbytes)
         res["device_ms"] = landing_device_ms(pchans["star"])
@@ -3084,10 +3383,79 @@ class _Timed:
             setattr(owner, name, fn)
 
 
-def landing_stream(pc, src, nbytes: int, schedule: str) -> dict:
+def fabric_links(addr: str = "") -> list:
+    """The per-link table of this process (``runtime.coll_link_stats``)
+    or, with ``addr``, of the server there (its /fabric page)."""
+    import urllib.request
+
+    from brpc_tpu_torch import runtime
+
+    if not addr:
+        return runtime.coll_link_stats()
+    with urllib.request.urlopen(f"http://{addr}/fabric", timeout=10) as r:
+        return json.loads(r.read().decode()).get("links", [])
+
+
+LINK_KEYS = ("rx_bytes", "tx_bytes", "rx_frames", "tx_frames",
+             "staged_copies", "retain_grants", "retain_fallbacks",
+             "credit_stalls", "crc_errors")
+
+
+def link_growth(after: list, before: list) -> dict:
+    """Device-fabric peer -> how much each of LINK_KEYS grew between two
+    link tables (links that did not move, and the TCP links the /fabric
+    reads themselves ride, left out)."""
+    prev = {link["peer"]: link for link in before}
+    out = {}
+    for link in after:
+        if not link["peer"].startswith("ici://"):
+            continue
+        old = prev.get(link["peer"], {})
+        d = {k: link.get(k, 0) - old.get(k, 0) for k in LINK_KEYS}
+        if any(d.values()):
+            out[link["peer"]] = d
+    return out
+
+
+def observatory_summary(doc: dict) -> dict:
+    """The root's collective records of one stream: how many, their
+    schedules, mean wall ms, how often each hop was the critical one,
+    straggler verdicts; a ring's mean per-hop transit, span, self, in and
+    out ms (keyed by rank); a star's mean ms until each rank's response
+    was in."""
+    recs = doc.get("records", [])
+    mean = lambda xs: sum(xs) / len(xs) / 1e3  # noqa: E731 (us -> ms)
+    out = {"records": len(recs), "scheds": sorted({r["sched"] for r in recs}),
+           "wall_ms": mean([r["wall_us"] for r in recs]) if recs else None,
+           "critical_hop": {}, "stragglers": sum(r["straggler"]
+                                                 for r in recs)}
+    hops, done = {}, {}
+    for r in recs:
+        out["critical_hop"][r["critical_hop"]] = \
+            out["critical_hop"].get(r["critical_hop"], 0) + 1
+        for h in r.get("hops", []):
+            hops.setdefault(h["rank"], []).append(h)
+        for rank, us in r.get("rank_done_us", []):
+            done.setdefault(rank, []).append(us)
+    if hops:
+        out["hops_ms"] = {
+            rank: {k: round(mean([h[f"{k}_us"] for h in hs]), 3)
+                   for k in ("transit", "span", "self", "in_dur", "out_dur")}
+            for rank, hs in sorted(hops.items())}
+    if done:
+        out["rank_done_ms"] = {rank: round(mean(v), 3)
+                               for rank, v in sorted(done.items())}
+    return out
+
+
+def landing_stream(pc, src, nbytes: int, schedule: str, addrs) -> dict:
     """``gather_to_mesh_stream`` over ``LANDING_STREAM_ITERS`` gathers at
     depth 2, every landing checked against the source, with the host's
-    time split between waiting for ranks to arrive and the H2D copies."""
+    time split between waiting for ranks to arrive and the H2D copies;
+    beside it the collective observatory's records of the stream (per-hop
+    transit and span, the critical hop) and how each link's counters
+    (staged copies, retain grants against fallback copies, credit stalls)
+    grew at the root and at the rank processes ``addrs``."""
     from brpc_tpu_torch import mesh_bridge, runtime
 
     h = pc.gather_begin(mesh_bridge.SERVICE, "get")
@@ -3097,6 +3465,8 @@ def landing_stream(pc, src, nbytes: int, schedule: str) -> dict:
     if mode != want:
         raise AssertionError(f"{schedule} handle mode {mode}, want {want}")
     mesh_bridge.reset_stats()
+    runtime.coll_observe_reset()
+    links0 = {a: fabric_links(a) for a in ("", *addrs)}
     n = LANDING_STREAM_ITERS
     got, check_s = 0, 0.0
     with _Timed([(runtime.GatherHandle, "wait_rank", "receive"),
@@ -3119,10 +3489,17 @@ def landing_stream(pc, src, nbytes: int, schedule: str) -> dict:
     if got != n or st["staging_copy_bytes"] != 0 \
             or st["zero_copy_bytes"] != n * nbytes:
         raise AssertionError(f"{schedule} stream: {got} landings, {st}")
+    obs = observatory_summary(runtime.coll_records())
+    if obs["records"] != n:
+        raise AssertionError(f"{schedule} stream: {obs['records']} "
+                             f"observatory records for {n} gathers")
+    links = {a or "root": link_growth(fabric_links(a), links0[a])
+             for a in links0}
     res = {"mode": mode, "iters": n, "ms_per_landing": 1e3 * wall / n,
            "gbps": n * nbytes / wall / 1e9,
            "receive_wait_ms": 1e3 * timed.s["receive"] / n,
-           "h2d_ms": 1e3 * timed.s["h2d"] / n, "stats": st}
+           "h2d_ms": 1e3 * timed.s["h2d"] / n, "stats": st,
+           "observatory": obs, "links": links}
     log(f"[landing] stream {schedule} ({mode} lane), {n} gathers at depth "
         f"2: {res['ms_per_landing']:.2f} ms a landing = "
         f"{res['gbps']:.3f} GB/s (the checks excluded); of a landing's "
@@ -3130,6 +3507,10 @@ def landing_stream(pc, src, nbytes: int, schedule: str) -> dict:
         f"arrive, {res['h2d_ms']:.2f} ms in the H2D copies; "
         f"staging_copy_bytes {st['staging_copy_bytes']}, zero_copy_bytes "
         f"{st['zero_copy_bytes']}")
+    log(f"[landing] stream {schedule}, the observatory's records at the "
+        f"root: {json.dumps(obs)}")
+    log(f"[landing] stream {schedule}, link counters grown over the "
+        f"{n} gathers (root, then each rank process): {json.dumps(links)}")
     return res
 
 

@@ -225,9 +225,11 @@ def test_worker_process_cold_starts_from_jax_param_server():
 
 
 def test_worker_without_weights_or_card_exits_before_ready():
-    """No weights source for the model, a --registry, or no card without
-    --device cpu: the worker prints FAILED and exits 1 before READY, and
-    the cluster raises with that line. Nothing falls back."""
+    """No weights source for the model, a --registry that grants no lease,
+    or no card without --device cpu: the worker prints FAILED and exits 1
+    before READY, and the cluster (static or registry-fed) raises with
+    that line. Nothing falls back."""
+    ps = jps.ParamServer(_jax_model("tiny", 0)[2])
     cases = [
         ("no --params entry for its model",
          ("--model", "m", "--params", "other=127.0.0.1:1", "--device",
@@ -235,21 +237,25 @@ def test_worker_without_weights_or_card_exits_before_ready():
         ("a ParamServer that does not answer",
          ("--model", "m", "--params", "m=127.0.0.1:1", "--device", "cpu"),
          "RpcError"),
-        ("--registry", ("--registry", "127.0.0.1:1", "--device", "cpu"),
-         "ROADMAP A 4b"),
+        ("a --registry that does not answer",
+         ("--model", "m", "--params", f"m=127.0.0.1:{ps.start(0)}",
+          "--registry", "127.0.0.1:1", "--device", "cpu"), "RpcError"),
         ("no card and no --device cpu", ("--model", "", "--params",
                                          "=127.0.0.1:1"), "CUDA"),
     ]
-    for case, argv, want in cases:
-        p, line = _spawn("--role", "decode", "--cfg", "tiny", *argv)
-        rc = p.wait(timeout=60)
-        assert rc == 1 and line.startswith("FAILED ") and want in line, \
-            (case, rc, line)
-    with pytest.raises(RuntimeError, match="FAILED .*CUDA"):
-        disagg.DisaggCluster(1, 1, weights={"": _jax_model("tiny", 0)[2]},
-                             f32=True)
-    with pytest.raises(ValueError, match="ROADMAP A 4b"):
-        disagg.DisaggCluster(1, 1, use_registry=True, device="cpu")
+    try:
+        for case, argv, want in cases:
+            p, line = _spawn("--role", "decode", "--cfg", "tiny", *argv,
+                             env={**os.environ, "BRPC_TPU_F32": "1"})
+            rc = p.wait(timeout=60)
+            assert rc == 1 and line.startswith("FAILED ") and want in line, \
+                (case, rc, line)
+    finally:
+        ps.close()
+    for use_registry in (False, True):
+        with pytest.raises(RuntimeError, match="FAILED .*CUDA"):
+            disagg.DisaggCluster(1, 1, weights={"": _jax_model("tiny", 0)[2]},
+                                 f32=True, use_registry=use_registry)
 
 
 def test_generate_unchanged_against_disagg_cluster(cluster):

@@ -589,8 +589,9 @@ def test_elimit_shed_bounces_to_sibling_prefill():
 def test_router_admission_rejects():
     """A malformed request is EREQUEST; a tenant past its token budget is
     shed with a retriable ELIMIT before any dispatch (its first request,
-    larger than the burst, admits once into debt); registry mode is not
-    ported."""
+    larger than the burst, admits once into debt); a router over a
+    registry that does not answer raises the registry's error after its
+    membership wait, with the reference's errno."""
     prompt = _prompts(95, [5])[0]
     with _Fleet(4) as f:
         ch = runtime.Channel(f.addr, timeout_ms=5000, max_retry=0)
@@ -608,8 +609,13 @@ def test_router_admission_rejects():
         assert e.value.code == runtime.ELIMIT
         assert "retry_after_ms=" in e.value.text
         assert f.router.shed_tenant == 1
-    with pytest.raises(ValueError, match="registry mode is not ported yet"):
-        disagg.DisaggRouter(registry="127.0.0.1:1")
+    codes = []
+    for pkg in (disagg, jdisagg):
+        with pytest.raises(RuntimeError) as e:
+            pkg.DisaggRouter(registry="127.0.0.1:1", membership_wait_s=0.2)
+        codes.append(e.value.code)
+    assert codes[0] == codes[1] and codes[0] in runtime.RETRIABLE_ERRNOS, \
+        codes
 
 
 def test_decode_worker_closed_midstream_redispatches():

@@ -399,3 +399,51 @@ def test_refusals_and_zero_copy_views(ranks, monkeypatch):
     lo = blob.ctypes.data
     assert lo <= views["b"].data_ptr() < lo + blob.nbytes
     assert torch.equal(views["b"].view(torch.int16), torch.from_numpy(bits))
+
+
+def test_observatory_records_match_jax_for_the_same_gathers(ranks):
+    """The collective observatory through each package's runtime: after
+    the same 4-rank star and ring gathers, the port's records agree with
+    the reference's in schedule, ranks, chunking and bytes, hop by hop
+    (rank and payload bytes, for the ring, whose records carry hops);
+    disarmed, neither records a gather; the port's link stats name its
+    fabric peers."""
+    def summary(doc):
+        return [(r["sched"], r["ranks"], r["chunked"], r["req_bytes"],
+                 r["rsp_bytes"], r["payload_bytes"], r["wire_bytes"],
+                 [(h["rank"], h["payload_bytes"], h["wire_bytes"])
+                  for h in r.get("hops", [])])
+                for r in doc["records"]]
+
+    for rt in (runtime, jrt):
+        rt.coll_observe_reset()
+        assert rt.coll_observe_enabled(), rt.__name__
+    try:
+        for sched in ("star", "ring"):
+            with runtime.ParallelChannel(ranks["tch"], schedule=sched) as tpc, \
+                    jrt.ParallelChannel(ranks["jch"], schedule=sched) as jpc:
+                tmb.rpc_all_gather(tpc, "w")
+                jmb.rpc_all_gather(jpc, "w")
+        got, want = runtime.coll_records(), jrt.coll_records()
+        assert summary(got) == summary(want), (summary(got), summary(want))
+        assert [r["sched"] for r in got["records"]] == ["ring_gather",
+                                                        "star"], got
+        assert got["total"] == want["total"] == 2
+        ring = got["records"][0]
+        assert len(ring["hops"]) == RANKS, ring
+        assert 0 <= ring["critical_hop"] < RANKS, ring
+        assert all(h["transit_us"] >= 0 and h["span_us"] >= 0
+                   for h in ring["hops"]), ring
+        peers = {link["peer"] for link in runtime.coll_link_stats()}
+        assert {f"ici://{SLICE}/{i}" for i in range(RANKS)} <= peers, peers
+        for rt in (runtime, jrt):
+            rt.coll_observe_enable(False)
+        with runtime.ParallelChannel(ranks["tch"]) as tpc, \
+                jrt.ParallelChannel(ranks["jch"]) as jpc:
+            tmb.rpc_all_gather(tpc, "w")
+            jmb.rpc_all_gather(jpc, "w")
+        assert runtime.coll_records()["total"] == jrt.coll_records()[
+            "total"] == 2
+    finally:
+        for rt in (runtime, jrt):
+            rt.coll_observe_enable(True)

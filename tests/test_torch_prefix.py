@@ -534,7 +534,21 @@ def test_concurrent_identical_prompts_idempotent(models):
     assert ts["kv_live_blocks"] == 0  # everything released after the swarm
 
 
-def test_eviction_pressure_keeps_hot_prefix_correct(models):
+@pytest.fixture
+def empty_host_stores():
+    """Empty both packages' host page stores (process-wide, keyed by
+    tokens), so pages that other tests' engines exported in this process
+    cannot reach the test's engines: shrink each store to one byte, which
+    evicts every page, then give its budget back."""
+    for rt in (jrt, runtime):
+        budget = rt.kv_tier_stats()["kv_tier_budget_bytes"]
+        rt.kv_host_configure(1)
+        assert rt.kv_tier_stats()["kv_tier_host_pages"] == 0
+        rt.kv_host_configure(budget)
+
+
+def test_eviction_pressure_keeps_hot_prefix_correct(models,
+                                                    empty_host_stores):
     """A pool far smaller than the working set churns cold pages out; the
     hot prompt stays exact whether its pages survived or not."""
     hot = list(range(1, 21))
