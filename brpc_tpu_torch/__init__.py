@@ -1,4 +1,4 @@
-"""brpc_tpu_torch — the serving path of brpc_tpu on PyTorch and CUDA.
+"""brpc_tpu_torch — brpc_tpu on PyTorch and CUDA.
 
 A second package beside ``brpc_tpu``: the same native RPC runtime (the C++
 tree under ``cpp/``, built into its own ``build/torch_native/libtpurpc.so``),
@@ -6,10 +6,22 @@ the same wire formats, and the same serving semantics, with the device
 arrays held as torch tensors on an NVIDIA card and the attention and
 normalisation of the serving path in hand-written CUDA kernels.
 
-- ``brpc_tpu_torch.native`` / ``runtime``: the native builder and the ctypes
-  surface the serving paths need (Server with the lease registry, Channel,
-  ParallelChannel, NativeBatcher, flight records, the KV transfer, the
-  host KV page store, the collective observatory, the metrics dump).
+- ``brpc_tpu_torch.native`` / ``runtime``: the native builder and the
+  reference runtime's whole ctypes surface (Server with stream sinks, TLS,
+  the lease registry and the ``__rd`` service, Channel, writable and
+  bidirectional streams, ParallelChannel, NativeBatcher, flight records,
+  rpcz tracing, fault injection, the KV transfer, the host KV page store,
+  the collective observatory and epoch, the redistribute shard table, the
+  metrics dump).
+- ``brpc_tpu_torch.param_server`` / ``checkpoint``: the TPS1 parameter
+  server, and its TCK1 checkpoints streamed to a durable store that
+  survives a kill -9 and serves them back.
+- ``brpc_tpu_torch.redistribute``: the minimal resharding plan of a named
+  array across rank processes, run over the native ``__rd`` service.
+- ``brpc_tpu_torch.tracing``: rpcz span trees across RPCs, collectives,
+  streams and the serving gateway, and their Chrome-trace dump.
+- ``brpc_tpu_torch.workload``: seeded, byte-deterministic traffic traces
+  and their open-loop replay.
 - ``brpc_tpu_torch.mesh_bridge``: rank shards gathered over RPC and landed
   on the devices straight from the RPC buffer, and scattered back.
 - ``brpc_tpu_torch.models.transformer``: the Llama-style model, its prefill

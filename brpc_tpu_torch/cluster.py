@@ -568,12 +568,20 @@ class MembershipWatcher:
     plane is unreachable the last member set stays in force: after
     ``stale_after`` consecutive failures ``stale`` flips and
     ``on_stale(True)`` fires once; the next fresh watch fires
-    ``on_stale(False)``."""
+    ``on_stale(False)``.
+
+    With ``fence_collectives`` the watcher is the collective plane's
+    out-of-band death signal: whenever a fresh watch shows a member seen
+    before gone (its lease expired or it left), the process's collective
+    membership epoch is bumped (``runtime.coll_epoch_bump``), so frames of
+    collectives planned over the old membership are fenced at every sink.
+    ``fences`` counts the bumps."""
 
     def __init__(self, registry_addr: str, role: str,
                  callback: Callable[[List[Member]], None], *,
                  hold_ms: int = 1000, stale_after: int = 2,
                  on_stale: Optional[Callable[[bool], None]] = None,
+                 fence_collectives: bool = False,
                  autostart: bool = True):
         self.registry_addr = registry_addr
         self.role = role
@@ -584,6 +592,9 @@ class MembershipWatcher:
         self.index = 0
         self.updates = 0
         self.stale = False
+        self.fence_collectives = fence_collectives
+        self.fences = 0
+        self._known_names: set = set()
         self.last_members: List[Member] = []
         self._failures = 0
         self._last_reconnects = 0
@@ -624,6 +635,12 @@ class MembershipWatcher:
         self.index = index
         self.updates += 1
         self.last_members = members
+        if self.fence_collectives:
+            names = {m.addr for m in members}
+            if self._known_names - names:  # someone we knew is gone
+                runtime.coll_epoch_bump()
+                self.fences += 1
+            self._known_names = names
         if self.stale:
             self.stale = False
             if self.on_stale is not None:

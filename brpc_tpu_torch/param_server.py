@@ -32,8 +32,12 @@ and 16 MiB frames over 8 connections move the same bytes about ten
 times as fast (H100 host, ``chip_smoke.py``'s cold starts). Against the
 reference's server, which has no ``info``, it falls back to ``pull``.
 
-Not ported (ROADMAP A 4b): ``snapshot_to``/``restore`` (checkpoint.py) and
-``start_device`` (the device transport).
+Checkpoints (``brpc_tpu_torch.checkpoint``): ``ParamServer.snapshot_to``
+wraps the blob the server keeps in a TCK1 header, without decoding it,
+and streams it to a ``CheckpointStore``; ``ParamServer.restore`` builds a
+server from the store's latest snapshot with the same parameters and
+step count, so pushes go on from N + 1. ``start_device`` serves on the
+device fabric (``ici://slice/chip``) beside TCP.
 """
 
 from __future__ import annotations
@@ -242,6 +246,42 @@ def _check_cap(size: int) -> None:
             f"it in groups")
 
 
+def fetch_ranges(size: int, connect, fetch) -> bytearray:
+    """A blob of ``size`` bytes fetched as ranges of ``RANGE_BYTES`` over
+    ``RANGE_STREAMS`` connections at once: ``connect()`` opens a client
+    for one thread (closed after its ranges), ``fetch(client, offset,
+    length)`` returns a ``runtime.NativeBuffer`` of those bytes."""
+    blob = bytearray(size)
+    offsets = list(range(0, size, RANGE_BYTES))
+    streams = max(1, min(RANGE_STREAMS, len(offsets)))
+
+    def fetch_some(offs) -> None:
+        if not offs:
+            return
+        client = connect()
+        try:
+            for off in offs:
+                n = min(RANGE_BYTES, size - off)
+                buf = fetch(client, off, n)
+                try:
+                    if len(buf) != n:
+                        raise runtime.RpcError(
+                            runtime.ERESPONSE,
+                            f"range of {len(buf)} bytes, want {n}")
+                    blob[off:off + n] = buf.view
+                finally:
+                    buf.release()
+        finally:
+            client.close()
+
+    with ThreadPoolExecutor(max_workers=streams,
+                            thread_name_prefix="blob-range") as ex:
+        for fut in [ex.submit(fetch_some, offsets[k::streams])
+                    for k in range(streams)]:
+            fut.result()
+    return blob
+
+
 class ParamServer:
     """Holds parameters; serves ``pull`` and ``push`` (SGD apply).
 
@@ -254,7 +294,10 @@ class ParamServer:
     def __init__(self, params: Dict[str, object], lr: float = 1e-2,
                  version: int = 0):
         _check_cap(blob_bytes(params))
-        self._blob = _encode(params)  # never written once built
+        self._setup(_encode(params), lr, version)
+
+    def _setup(self, blob: bytearray, lr: float, version: int) -> None:
+        self._blob = blob  # never written once built
         self._lr = lr
         self._mu = threading.Lock()
         self._version = version
@@ -263,6 +306,31 @@ class ParamServer:
         for name in ("pull", "push", "info", "pull_range"):
             self._srv.add_method(self.SERVICE, name,
                                  getattr(self, f"_{name}"))
+
+    # -- checkpoint and resume (brpc_tpu_torch.checkpoint) --------------------
+
+    def snapshot_to(self, store_addr: str) -> int:
+        """Stream a consistent snapshot to a ``CheckpointStore`` and return
+        the step count it holds (its commit confirmed)."""
+        from brpc_tpu_torch import checkpoint
+
+        with self._mu:
+            step, lr, blob = self._version, self._lr, self._blob
+        checkpoint.save_blob(store_addr, step, lr, blob)
+        return step
+
+    @classmethod
+    def restore(cls, store_addr: str) -> "ParamServer":
+        """A server rebuilt from the store's latest snapshot: the same
+        parameters (its blob byte for byte) and step count; pushes go on
+        from N + 1."""
+        from brpc_tpu_torch import checkpoint
+
+        step, lr, body = checkpoint._split(checkpoint.load_blob(store_addr))
+        decode_arrays(body, copy=False)  # the body must decode
+        srv = cls.__new__(cls)
+        srv._setup(bytearray(body), lr, step)
+        return srv
 
     def version(self) -> int:
         with self._mu:
@@ -312,6 +380,10 @@ class ParamServer:
 
     def start(self, port: int = 0) -> int:
         return self._srv.start(port)
+
+    def start_device(self, slice_: int, chip: int) -> None:
+        """Also serve on the device fabric at ``ici://slice_/chip``."""
+        self._srv.start_device(slice_, chip)
 
     def params(self) -> Dict[str, object]:
         with self._mu:
@@ -366,7 +438,6 @@ class ParamClient:
         ``RANGE_BYTES`` over ``RANGE_STREAMS`` connections at once, or one
         ``pull`` from a server without ranges (the reference's). A push
         that lands mid-fetch restarts it."""
-        streams, range_bytes = RANGE_STREAMS, RANGE_BYTES
         for _ in range(self._retries + 1):
             try:
                 size, version = _INFO.unpack(self._call_with_retry("info"))
@@ -374,46 +445,19 @@ class ParamClient:
                 if e.code != runtime.ENOMETHOD:
                     raise
                 return self._call_with_retry("pull")
-            blob = bytearray(size)
-            offsets = list(range(0, size, range_bytes))
             try:
-                with ThreadPoolExecutor(
-                        max_workers=max(1, min(streams, len(offsets))),
-                        thread_name_prefix="blob-range") as ex:
-                    for fut in [ex.submit(self._fetch_ranges, blob, version,
-                                          offsets[k::streams], range_bytes)
-                                for k in range(streams)]:
-                        fut.result()
+                return fetch_ranges(
+                    size, lambda: ParamClient(self._addr,
+                                              retries=self._retries,
+                                              **self._channel_kw),
+                    lambda c, off, n: c._call_with_retry(
+                        "pull_range", _RANGE.pack(version, off, n),
+                        view=True))
             except runtime.RpcError as e:
                 if e.code != runtime.EAPP or "replaced" not in e.text:
                     raise
-                continue  # a push replaced the blob: fetch the new one
-            return blob
+                # A push replaced the blob: fetch the new one.
         raise runtime.RpcError(runtime.EAPP, "blob kept changing mid-fetch")
-
-    def _fetch_ranges(self, blob: bytearray, version: int, offsets,
-                      range_bytes: int) -> None:
-        """Fetch ``blob``'s ranges at ``offsets`` over a channel of this
-        thread's own."""
-        if not offsets:
-            return
-        client = ParamClient(self._addr, retries=self._retries,
-                             **self._channel_kw)
-        try:
-            for off in offsets:
-                n = min(range_bytes, len(blob) - off)
-                buf = client._call_with_retry(
-                    "pull_range", _RANGE.pack(version, off, n), view=True)
-                try:
-                    if len(buf) != n:
-                        raise runtime.RpcError(
-                            runtime.ERESPONSE,
-                            f"range of {len(buf)} bytes, want {n}")
-                    blob[off:off + n] = buf.view
-                finally:
-                    buf.release()
-        finally:
-            client.close()
 
     def push(self, grads: Dict[str, object]) -> int:
         rsp = self._call_with_retry("push", encode_arrays(grads))

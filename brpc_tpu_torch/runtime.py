@@ -1,13 +1,15 @@
-"""ctypes surface of the native RPC runtime, as far as the serving paths
-need it: Server (unary handlers, TCP or the device fabric, the lease
-registry), Channel (unary calls, a retry policy, naming urls with a load
-balancer) and bidirectional streams, the fan-out ParallelChannel with its
+"""ctypes surface of the native RPC runtime, the reference runtime's whole
+surface: Server (unary handlers, stream sinks, TLS, TCP or the device
+fabric, the lease registry, the ``__rd`` redistribute service), Channel
+(unary calls, a retry policy, TLS, naming urls with a load balancer),
+writable and bidirectional streams, the fan-out ParallelChannel with its
 progressive gather and the wire-integrity rail, the collective
-observatory's records and link stats, the process's framed-protocol body
-cap, the request batcher, error codes, the flight recorder's stamps and
-notes, the KV transfer of disaggregated serving (layer-wise sender,
-receive pool, claim), the host-tier KV page store with the peer page
-pull, and the metrics dump.
+observatory's records, link stats and schedule advisor, the membership
+epoch, the redistribute shard table, fault injection, the process's
+framed-protocol body cap, the request batcher, error codes, the flight
+recorder, rpcz tracing, the KV transfer of disaggregated serving
+(layer-wise sender, receive pool, claim), the host-tier KV page store with
+the peer page pull, and the metrics dump.
 
 The C ABI is ``cpp/trpc/c_api.h``; the library is this package's own build
 (``native.lib()``). Handlers and stream sinks run on native worker threads
@@ -19,6 +21,7 @@ from __future__ import annotations
 import ctypes
 import json
 import queue
+import re
 import threading
 import time
 import traceback
@@ -218,6 +221,58 @@ def _lib() -> ctypes.CDLL:
         lib.trpc_coll_observe_enable.argtypes = [ctypes.c_int]
         lib.trpc_coll_observe_enabled.argtypes = []
         lib.trpc_coll_observe_reset.argtypes = []
+        lib.trpc_server_add_stream_sink.argtypes = [
+            ctypes.c_void_p, ctypes.c_char_p, ctypes.c_char_p, _STREAM_SINK,
+            ctypes.c_void_p]
+        lib.trpc_stream_open.argtypes = [
+            ctypes.c_void_p, ctypes.c_char_p, ctypes.c_char_p,
+            ctypes.POINTER(ctypes.c_uint64), ctypes.c_char_p,
+            ctypes.c_size_t]
+        lib.trpc_stream_write.argtypes = [
+            ctypes.c_uint64, ctypes.c_char_p, ctypes.c_size_t]
+        lib.trpc_server_enable_tls.argtypes = [
+            ctypes.c_void_p, ctypes.c_char_p, ctypes.c_char_p]
+        lib.trpc_channel_create_tls.argtypes = [
+            ctypes.c_char_p, ctypes.c_char_p, ctypes.c_int, ctypes.c_int,
+            ctypes.c_char_p, ctypes.c_char_p]
+        lib.trpc_channel_create_tls.restype = ctypes.c_void_p
+        lib.trpc_rd_enable.argtypes = [ctypes.c_void_p]
+        lib.trpc_rd_put.argtypes = [
+            ctypes.c_char_p, ctypes.c_char_p, ctypes.c_size_t]
+        lib.trpc_rd_get.argtypes = [
+            ctypes.c_char_p, c_char_pp, ctypes.POINTER(ctypes.c_size_t)]
+        lib.trpc_rd_drop.argtypes = [ctypes.c_char_p]
+        lib.trpc_rd_stats.argtypes = [
+            ctypes.POINTER(ctypes.c_longlong), ctypes.c_int]
+        lib.trpc_trace_set_sampling.argtypes = [
+            ctypes.c_int, ctypes.c_longlong]
+        lib.trpc_trace_fetch.argtypes = [ctypes.c_ulonglong, c_char_pp]
+        lib.trpc_trace_fetch.restype = ctypes.c_size_t
+        lib.trpc_trace_dump.argtypes = [c_char_pp]
+        lib.trpc_trace_dump.restype = ctypes.c_size_t
+        lib.trpc_trace_count.argtypes = []
+        lib.trpc_trace_count.restype = ctypes.c_ulonglong
+        lib.trpc_trace_set_tail.argtypes = [ctypes.c_int]
+        lib.trpc_trace_promote.argtypes = [ctypes.c_ulonglong]
+        lib.trpc_trace_promote.restype = ctypes.c_ulonglong
+        lib.trpc_trace_pending.argtypes = []
+        lib.trpc_trace_pending.restype = ctypes.c_ulonglong
+        lib.trpc_fault_set.argtypes = [ctypes.c_char_p]
+        lib.trpc_fault_counters.argtypes = [
+            ctypes.POINTER(ctypes.c_ulonglong), ctypes.c_int]
+        lib.trpc_coll_debug.argtypes = [ctypes.POINTER(ctypes.c_int)] * 4
+        lib.trpc_coll_advise.argtypes = [
+            ctypes.c_ulonglong, ctypes.POINTER(ctypes.c_double)]
+        lib.trpc_coll_advise2.argtypes = [
+            ctypes.c_ulonglong, ctypes.c_uint,
+            ctypes.POINTER(ctypes.c_double)]
+        lib.trpc_coll_epoch.argtypes = []
+        lib.trpc_coll_epoch.restype = ctypes.c_ulonglong
+        lib.trpc_coll_epoch_observe.argtypes = [ctypes.c_ulonglong]
+        lib.trpc_coll_link_quarantined.argtypes = [ctypes.c_char_p]
+        lib.trpc_flight_count.argtypes = []
+        lib.trpc_flight_count.restype = ctypes.c_ulonglong
+        lib.trpc_flight_reset.argtypes = []
         for fn in (lib.trpc_init, lib.trpc_server_start,
                    lib.trpc_server_stop, lib.trpc_server_add_method,
                    lib.trpc_call, lib.trpc_stream_close,
@@ -241,14 +296,24 @@ def _lib() -> ctypes.CDLL:
                    lib.trpc_pchan_gather_end, lib.trpc_pchan_gather_mode,
                    lib.trpc_coll_crc_enabled, lib.trpc_server_add_registry,
                    lib.trpc_server_add_registry2, lib.trpc_registry_counts,
-                   lib.trpc_coll_observe_enabled):
+                   lib.trpc_coll_observe_enabled,
+                   lib.trpc_server_add_stream_sink, lib.trpc_stream_open,
+                   lib.trpc_stream_write, lib.trpc_server_enable_tls,
+                   lib.trpc_rd_enable, lib.trpc_rd_put, lib.trpc_rd_get,
+                   lib.trpc_rd_drop, lib.trpc_rd_stats,
+                   lib.trpc_fault_set, lib.trpc_fault_counters,
+                   lib.trpc_coll_advise, lib.trpc_coll_advise2,
+                   lib.trpc_coll_link_quarantined,
+                   lib.trpc_trace_set_sampling):
             fn.restype = ctypes.c_int
         for fn in (lib.trpc_server_destroy, lib.trpc_channel_destroy,
                    lib.trpc_call_respond,
                    lib.trpc_buf_free, lib.trpc_batcher_destroy,
                    lib.trpc_kv_tier_note_fill, lib.trpc_pchan_destroy,
                    lib.trpc_coll_crc_enable, lib.trpc_coll_observe_enable,
-                   lib.trpc_coll_observe_reset):
+                   lib.trpc_coll_observe_reset, lib.trpc_trace_set_tail,
+                   lib.trpc_coll_debug, lib.trpc_coll_epoch_observe,
+                   lib.trpc_flight_reset):
             fn.restype = None
         rc = lib.trpc_init(0)
         if rc != 0:
@@ -303,6 +368,14 @@ class RpcError(RuntimeError):
     def retriable(self) -> bool:
         return self.code in RETRIABLE_ERRNOS
 
+    @property
+    def retry_after_ms(self) -> Optional[int]:
+        """A shedding router's backoff hint, the ``retry_after_ms=N`` token
+        of the error text (the cluster control plane's ELIMIT rejections
+        carry one); None without it."""
+        m = re.search(r"retry_after_ms=(\d+)", self.text)
+        return int(m.group(1)) if m else None
+
 
 class RetryPolicy:
     """Channel retry behaviour: attempt budget, exponential backoff with
@@ -322,6 +395,42 @@ class RetryPolicy:
         self.backoff_max_ms = backoff_max_ms
         self.jitter = jitter
         self.retriable = list(retriable) if retriable is not None else None
+
+
+def fault_inject(spec: str) -> None:
+    """Arm (or with ``""`` disarm) the process-wide fault-injection shim
+    at the native frame send/receive boundary, e.g.
+    ``fault_inject("seed=42,send_drop=0.1,send_kill=0.02,delay_ms=20")``
+    (env ``TRPC_FAULT_SPEC`` arms it at start-up). Disarm it before other
+    work in the process."""
+    if _lib().trpc_fault_set(spec.encode()) != 0:
+        raise ValueError(f"bad fault spec {spec!r}")
+
+
+FAULT_COUNTER_NAMES = (
+    "send_drop", "send_delay", "send_trunc", "send_corrupt", "send_kill",
+    "recv_drop", "recv_delay", "recv_kill", "send_frames", "recv_chunks",
+    "payload_corrupt",
+)
+
+
+def fault_counters() -> dict:
+    """The shim's injection counters since it was last (re)configured."""
+    buf = (ctypes.c_ulonglong * len(FAULT_COUNTER_NAMES))()
+    n = _lib().trpc_fault_counters(buf, len(buf))
+    return dict(zip(FAULT_COUNTER_NAMES[:n], [int(v) for v in buf[:n]]))
+
+
+def _c_buf(data):
+    """``data`` in a form a ``const char*`` argument takes: ``bytes`` as
+    they are, a writable buffer (a ``bytearray`` or a slice of one) in
+    place, anything else copied once."""
+    if isinstance(data, bytes):
+        return data
+    mv = memoryview(data)
+    if mv.readonly or not mv.c_contiguous:
+        return bytes(mv)
+    return (ctypes.c_char * mv.nbytes).from_buffer(mv.cast("B"))
 
 
 def _native_bytes(ptr, n: int):
@@ -392,7 +501,8 @@ class Server:
     def add_method(self, service: str, method: str,
                    fn: Callable[[bytes], bytes]) -> None:
         """Serve ``service.method`` with ``fn(request) -> response``
-        (``bytes`` or a ``bytearray``; sync, on a native worker thread). A raise fails the call with EAPP and
+        (``bytes``, or any buffer: a writable one is sent in place; sync,
+        on a native worker thread). A raise fails the call with EAPP and
         the exception's text; ``remaining_budget_ms()`` reads the caller's
         deadline inside ``fn``."""
         lib = self._lib
@@ -412,10 +522,7 @@ class Server:
                     rsp = fn(req)
                 finally:
                     _handler_ctx.deadline_mono = prev
-                if rsp is None:
-                    rsp = b""
-                elif not isinstance(rsp, bytes):  # a bytearray: no copy
-                    rsp = (ctypes.c_char * len(rsp)).from_buffer(rsp)
+                rsp = b"" if rsp is None else _c_buf(rsp)
                 lib.trpc_call_respond(call, rsp, len(rsp), 0, None)
             except Exception as e:  # noqa: BLE001 — surface as RPC error
                 lib.trpc_call_respond(call, None, 0, EAPP,
@@ -426,6 +533,44 @@ class Server:
                                         method.encode(), trampoline, None)
         if rc != 0:
             raise OSError(rc, "add_method failed")
+
+    def add_stream_sink(self, service: str, method: str,
+                        fn: Callable[[int, Optional[bytes]], None]) -> None:
+        """Accept streams (``Channel.open_stream``) on ``service.method``:
+        ``fn(stream_id, data)`` runs for each message on a native worker
+        thread, and once with ``data`` None when the peer closed the
+        stream."""
+        @_STREAM_SINK
+        def sink(_arg, sid, data_ptr, data_len):
+            # An exception cannot cross into native code: print it, as the
+            # message is lost either way.
+            try:
+                fn(sid, ctypes.string_at(data_ptr, data_len)
+                   if data_ptr else None)
+            except Exception:  # noqa: BLE001
+                traceback.print_exc()
+
+        self._callbacks.append(sink)
+        rc = self._lib.trpc_server_add_stream_sink(
+            self._h, service.encode(), method.encode(), sink, None)
+        if rc != 0:
+            raise OSError(rc, "add_stream_sink failed")
+
+    def enable_tls(self, cert_file: str, key_file: str) -> None:
+        """Serve TLS on the data port (call before ``start``); plaintext
+        clients keep working on the same port (the first byte tells)."""
+        rc = self._lib.trpc_server_enable_tls(
+            self._h, cert_file.encode(), key_file.encode())
+        if rc != 0:
+            raise OSError(rc, "enable_tls failed")
+
+    def enable_redistribute(self) -> None:
+        """Register the native ``__rd`` service (shard get, fetch, commit,
+        drop), the data plane of ``brpc_tpu_torch.redistribute``. Call
+        before ``start``."""
+        rc = self._lib.trpc_rd_enable(self._h)
+        if rc != 0:
+            raise RpcError(rc, "rd enable failed (server already started?)")
 
     def add_registry(self, default_ttl_ms: int = 3000, *,
                      wal_path: str = "", self_addr: str = "",
@@ -499,6 +644,12 @@ class Server:
         except Exception:  # noqa: BLE001 — interpreter may be tearing down
             pass
 
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
 
 class Channel:
     """Client stub to ``"ip:port"``, a device-fabric coordinate
@@ -507,13 +658,23 @@ class Channel:
     live membership, followed natively): ``call`` makes a unary call,
     ``open_stream_rx`` opens the serving gateway's token-delivery stream.
     ``retry_policy`` replaces the bare ``max_retry`` with backoff-spaced
-    retries gated on an errno whitelist."""
+    retries gated on an errno whitelist. ``tls`` (or a ``tls_ca_file`` to
+    verify the server's chain against, with ``tls_sni_host`` the name to
+    pin) speaks TLS; it takes no retry policy."""
 
     def __init__(self, addr: str, timeout_ms: int = -1, max_retry: int = -1,
                  retry_policy: Optional[RetryPolicy] = None, *,
-                 lb: str = ""):
+                 lb: str = "", tls: bool = False, tls_ca_file: str = "",
+                 tls_sni_host: str = ""):
         self._lib = _lib()
-        if retry_policy is None:
+        use_tls = tls or tls_ca_file or tls_sni_host
+        if retry_policy is not None and use_tls:
+            raise ValueError("retry_policy with TLS is not supported")
+        if use_tls:
+            self._h = self._lib.trpc_channel_create_tls(
+                addr.encode(), lb.encode(), timeout_ms, max_retry,
+                tls_ca_file.encode(), tls_sni_host.encode())
+        elif retry_policy is None:
             self._h = self._lib.trpc_channel_create(
                 addr.encode(), lb.encode(), timeout_ms, max_retry)
         else:
@@ -555,6 +716,19 @@ class Channel:
             raise RpcError(rc, err.value.decode(errors="replace"))
         return NativeBuffer(self._lib, rsp_ptr, rsp_len.value)
 
+    def open_stream(self, service: str, method: str) -> "Stream":
+        """Open a flow-controlled byte stream to a server's stream sink
+        (``Server.add_stream_sink``); on the device fabric it is the bulk
+        lane. Writes block while the peer's window is full."""
+        sid = ctypes.c_uint64(0)
+        err = ctypes.create_string_buffer(256)
+        rc = self._lib.trpc_stream_open(self._h, service.encode(),
+                                        method.encode(), ctypes.byref(sid),
+                                        err, len(err))
+        if rc != 0:
+            raise RpcError(rc, err.value.decode(errors="replace"))
+        return Stream(self._lib, sid.value)
+
     def open_stream_rx(self, service: str, method: str,
                        request: bytes = b"") -> "ReadableStream":
         """Open a bidirectional stream: ``request`` rides the RPC body and
@@ -579,6 +753,37 @@ class Channel:
         if self._h:
             self._lib.trpc_channel_destroy(self._h)
             self._h = None
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+
+class Stream:
+    """Writable half of a stream opened by ``Channel.open_stream``."""
+
+    def __init__(self, lib, sid: int):
+        self._lib = lib
+        self.id = sid
+        self._closed = False
+
+    def write(self, data) -> None:
+        """Write one message (``bytes``, or a writable buffer sent in
+        place); blocks while the peer's window is full. A stream the peer
+        closed, or whose connection died, raises RpcError(ECLOSE), which
+        is retriable on a fresh stream."""
+        buf = _c_buf(data)
+        rc = self._lib.trpc_stream_write(self.id, buf, len(buf))
+        if rc != 0:
+            raise RpcError(rc, "stream closed by peer" if rc == ECLOSE
+                           else "stream write failed")
+
+    def close(self) -> None:
+        if not self._closed:
+            self._closed = True
+            self._lib.trpc_stream_close(self.id)
 
     def __enter__(self):
         return self
@@ -629,10 +834,23 @@ class ReadableStream:
             self.closed = True
         return msg
 
+    def __iter__(self):
+        while True:
+            msg = self.read()
+            if msg is None:
+                return
+            yield msg
+
     def close(self) -> None:
         """Abandon the stream (the server observes a peer close)."""
         if self.id:
             self._lib.trpc_stream_close(self.id)
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
 
 
 # Keeps rx-sink trampolines alive until their stream's close callback.
@@ -653,11 +871,126 @@ def coll_crc_enabled() -> bool:
     return bool(_lib().trpc_coll_crc_enabled())
 
 
+def coll_epoch() -> int:
+    """This process's collective membership epoch. Collective frames carry
+    it; a receiver adopts the larger and rejects older requests (the fence
+    after a rank death)."""
+    return int(_lib().trpc_coll_epoch())
+
+
 def coll_epoch_bump() -> int:
     """Advance this process's collective membership epoch, fencing the
     frames of every collective started under the old one, and return the
     new value: the out-of-band death signal of a registry watch."""
     return int(_lib().trpc_coll_epoch_bump())
+
+
+def coll_epoch_observe(epoch: int) -> None:
+    """Adopt ``epoch`` if it is newer than this process's (a coordinator
+    that broadcasts a reformation)."""
+    _lib().trpc_coll_epoch_observe(int(epoch))
+
+
+def coll_link_quarantined(peer: str) -> bool:
+    """Whether the link to ``peer`` ("ip:port") is quarantined: its crc32c
+    errors passed ``TRPC_COLL_CRC_QUARANTINE_ERRS`` (default 8). The
+    schedule advisor and the mesh2d orientation route around it."""
+    return bool(_lib().trpc_coll_link_quarantined(peer.encode()))
+
+
+def coll_debug() -> dict:
+    """The collective plumbing's occupancy, for drain and leak checks: live
+    root collectives and relay hops, chunk assemblies (this call sweeps
+    the expired ones), pickup waiters and stashes. All four drain to 0
+    once the collectives in flight finish or expire (``coll_records``
+    carries the same under ``"debug"``)."""
+    vals = [ctypes.c_int(0) for _ in range(4)]
+    _lib().trpc_coll_debug(*[ctypes.byref(v) for v in vals])
+    return {"collectives": vals[0].value,
+            "chunk_assemblies": vals[1].value,
+            "pickup_waiters": vals[2].value,
+            "pickup_stashes": vals[3].value}
+
+
+# Schedule names as the observatory's records and advisor give them
+# (cpp/trpc/coll_observatory.h CollObsSched).
+COLL_SCHED_NAMES = ("star", "ring_gather", "ring_reduce", "reduce_scatter",
+                    "mesh2d_gather", "mesh2d_reduce", "mesh2d_gather_row",
+                    "mesh2d_reduce_row")
+
+
+def coll_advise(payload_bytes: int,
+                allowed: Optional[list] = None) -> Optional[dict]:
+    """The measured best schedule for a payload of ``payload_bytes`` (the
+    nearest populated advisor bucket), ``{"sched", "gbps"}``; None until a
+    collective was recorded. ``allowed`` limits the vote to those
+    ``COLL_SCHED_NAMES``; cells older than ``TRPC_COLL_ADVISOR_STALE_S``
+    (600 s) never vote."""
+    gbps = ctypes.c_double(0)
+    if allowed is None:
+        sched = _lib().trpc_coll_advise(payload_bytes, ctypes.byref(gbps))
+    else:
+        mask = 0
+        for name in allowed:
+            mask |= 1 << COLL_SCHED_NAMES.index(name)
+        sched = _lib().trpc_coll_advise2(payload_bytes, mask,
+                                         ctypes.byref(gbps))
+    if sched < 0:
+        return None
+    return {"sched": COLL_SCHED_NAMES[sched], "gbps": gbps.value}
+
+
+# ---- the redistribute shard table (cpp/trpc/redistribute.cc) ---------------
+
+def rd_put(name: str, data) -> None:
+    """Put a complete named shard into this process's redistribute table
+    (copied into registered send-arena blocks, so a pull over a device
+    link posts it by descriptor)."""
+    buf = _c_buf(data)
+    rc = _lib().trpc_rd_put(name.encode(), buf, len(buf))
+    if rc != 0:
+        raise RpcError(rc, f"rd_put {name!r} failed")
+
+
+def rd_get(name: str) -> bytes:
+    """The bytes of a complete entry; KeyError when there is none, and
+    RpcError while a fetch still assembles it."""
+    lib = _lib()
+    out = ctypes.POINTER(ctypes.c_char)()
+    n = ctypes.c_size_t(0)
+    rc = lib.trpc_rd_get(name.encode(), ctypes.byref(out), ctypes.byref(n))
+    if rc == EREQUEST:
+        raise KeyError(name)
+    if rc != 0:
+        raise RpcError(rc, f"rd_get {name!r} failed")
+    try:
+        return ctypes.string_at(out, n.value)
+    finally:
+        lib.trpc_buf_free(out)
+
+
+def rd_drop(name: str) -> bool:
+    """Drop an entry; True when it existed."""
+    return _lib().trpc_rd_drop(name.encode()) == 0
+
+
+RD_STAT_NAMES = ("entries", "bytes", "serves", "pulls", "pull_bytes",
+                 "local_bytes", "fetch_errors")
+
+
+def rd_stats() -> dict:
+    """The table's entries and bytes, and its serve, pull and fetch
+    counters."""
+    vals = (ctypes.c_longlong * len(RD_STAT_NAMES))()
+    n = _lib().trpc_rd_stats(vals, len(vals))
+    return {k: int(vals[i]) for i, k in enumerate(RD_STAT_NAMES[:n])}
+
+
+def redistribute(*args, **kwargs):
+    """``brpc_tpu_torch.redistribute.redistribute`` (the planner and the
+    executor live there)."""
+    from brpc_tpu_torch import redistribute as _rd
+    return _rd.redistribute(*args, **kwargs)
 
 
 # ---- the collective and fabric observatory (cpp/trpc/coll_observatory.h) ----
@@ -1375,3 +1708,68 @@ def flight_records(max_items: int = 4096, oldest_first: bool = True) -> list:
     if oldest_first:
         recs.reverse()
     return recs[-max_items:] if oldest_first else recs[:max_items]
+
+
+def flight_count() -> int:
+    """Flight records finished since the process started."""
+    return int(_lib().trpc_flight_count())
+
+
+def flight_reset() -> None:
+    """Forget the finished flight records (flights in progress keep
+    recording)."""
+    _lib().trpc_flight_reset()
+
+
+# ---- distributed tracing (rpcz, cpp/trpc/rpcz*) ----------------------------
+
+def trace_set_sampling(enabled: bool, max_per_sec: int = 1000) -> None:
+    """Turn span collection on or off. ``max_per_sec`` budgets the traces
+    this process starts; a request sampled upstream is always continued.
+    Off (the default), the unsampled path allocates no span."""
+    _lib().trpc_trace_set_sampling(1 if enabled else 0, max_per_sec)
+
+
+def trace_fetch(trace_id: int = 0) -> list:
+    """The spans of one finished trace as dicts (``trace_id`` 0: the whole
+    ring, newest first), after a flush of the collector. Ids are hex
+    strings; a span has its start, end and latency in us, its error code
+    and its annotations with span-relative times."""
+    lib = _lib()
+    out = ctypes.POINTER(ctypes.c_char)()
+    n = lib.trpc_trace_fetch(trace_id, ctypes.byref(out))
+    try:
+        return json.loads(ctypes.string_at(out, n).decode(errors="replace"))
+    finally:
+        lib.trpc_buf_free(out)
+
+
+def trace_dump() -> dict:
+    """The span ring as a Chrome trace (a dict with ``traceEvents``), for
+    Perfetto or chrome://tracing."""
+    return _json_out(_lib().trpc_trace_dump)
+
+
+def trace_count() -> int:
+    """Spans collected since the process started (after a flush); it does
+    not move while sampling is off."""
+    return int(_lib().trpc_trace_count())
+
+
+def trace_set_tail(enabled: bool) -> None:
+    """Tail sampling: every request gets spans, but those the head budget
+    declined wait in a bounded pending ring and reach the store only when
+    the request's flight record ends slow, failed or degraded. Works with
+    head sampling off."""
+    _lib().trpc_trace_set_tail(1 if enabled else 0)
+
+
+def trace_promote(trace_id: int) -> int:
+    """Move every pending span of ``trace_id`` into the store; returns how
+    many moved."""
+    return int(_lib().trpc_trace_promote(trace_id))
+
+
+def trace_pending() -> int:
+    """Spans waiting in the tail-sampling pending ring."""
+    return int(_lib().trpc_trace_pending())

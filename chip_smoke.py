@@ -24,13 +24,23 @@ their plain backwards, the ring's backward against dense autograd at S
 8192 and timed at S 32768, one f32 train_step at Llama-3-8B width (2
 layers) against the plain autograd step, the bf16 step at width (4
 layers, tokens [2, 2049]) beside the plain one, and the dp x tp dry-run
-twin in an NCCL world of one. Last, device landing: four rank processes
+twin in an NCCL world of one. Then checkpoint and resume: a 1-layer
+Llama-3-8B in bf16 takes two train steps, is saved to a CheckpointStore
+process on disk, the store is killed with SIGKILL and restarted, and the
+loaded weights must be torch.equal on the card and give step 3's loss
+bit for bit; a ParamServer round-trips through the same store. Phase 5's
+engine also serves four traced requests, whose span trees must be
+complete, and an open-loop replay of a compiled workload, which must
+complete every request. Then device landing: four rank processes
 on the device fabric each hold a tensor-parallel quarter of one
 Llama-3-8B layer; the mesh bridge gathers them over a star and a ring
 pchan onto the card, bit-equal to the source, and a 1-layer Llama-3-8B
 built from the landed bytes streams tokens bit-equal to the same model
 loaded with .to("cuda"); then the pipelined lane, the H2D sources and a
-scatter round trip.
+scatter round trip. Last, resharding: four rank processes hold row
+shards of one Llama-3-8B w_gate, redistributed into column shards over
+TCP and then over the device fabric, each landed torch.equal on the
+card.
 
     python3 chip_smoke.py            # all phases, one card
     python3 chip_smoke.py --profile  # + two short profiled swarms
@@ -53,6 +63,8 @@ import json
 import os
 import re
 import select
+import shutil
+import signal
 import struct
 import subprocess
 import sys
@@ -1638,6 +1650,213 @@ def phase_train() -> dict:
     return res
 
 
+# ---- checkpoint and resume ----------------------------------------------------
+
+# A 1-layer Llama-3-8B in bf16 is 1,268,789,248 parameters, 2.54 GB of TCK1:
+# one blob under param_server.MAX_BLOB_BYTES (f32 masters, 5.08 GB, are not).
+CKPT_PARAMS = 1_268_789_248
+CKPT_TOKENS = (1, 513)
+CKPT_STEPS = 2
+CKPT_LR = 1e-3
+CKPT_KEEP = 2
+
+
+def spawn_store(directory: str) -> tuple:
+    """A CheckpointStore process on ``directory``: (process, address,
+    its recovery's seconds, steps it recovered)."""
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "brpc_tpu_torch.checkpoint", "--dir",
+         directory, "--keep", str(CKPT_KEEP)],
+        stdin=subprocess.PIPE, stdout=subprocess.PIPE, text=True, cwd=HERE)
+    ready, _, _ = select.select([proc.stdout], [], [], 300)
+    line = proc.stdout.readline().split() if ready else []
+    if not line or line[0] != "READY":
+        proc.kill()
+        proc.wait()
+        raise AssertionError(f"the store process did not start: {line!r}")
+    return proc, f"127.0.0.1:{int(line[1])}", float(line[2]), int(line[3])
+
+
+def kill_store(proc) -> None:
+    if proc.poll() is None:
+        proc.send_signal(signal.SIGKILL)
+    proc.wait()
+
+
+def ckpt_vars(addr: str) -> dict:
+    from brpc_tpu_torch import runtime
+
+    return runtime.http_vars(addr, "ckpt_")
+
+
+def phase_checkpoint(card: str, report_dir: str) -> dict:
+    """Checkpoint and resume at Llama-3-8B width: a 1-layer bf16 model on
+    the card takes CKPT_STEPS train_steps (K2, K2b, K3, K3b), is saved to
+    a CheckpointStore process with a directory (keep 2), the store is
+    killed with SIGKILL and restarted on its directory, and the loaded
+    parameters, moved onto the card, must be torch.equal to those saved;
+    step 3 from them must give the originals' loss bit for bit (or, if
+    two step-3 runs from the originals differ, stay within their spread).
+    Then a ParamServer of the same weights round-trips through
+    snapshot_to / restore byte-identical. The snapshot files are removed
+    at the end."""
+    from brpc_tpu_torch import checkpoint, disagg, ops, param_server, train
+    from brpc_tpu_torch.models import transformer
+
+    t_phase = time.monotonic()
+    cfg = dataclasses.replace(transformer.TransformerConfig.llama3_8b(),
+                              n_layers=1)
+    params = transformer.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(51), device="cuda")
+    tokens = torch.randint(0, cfg.vocab, CKPT_TOKENS, device="cuda",
+                           generator=torch.Generator(device="cuda")
+                           .manual_seed(52))
+    ops.reset_launch_counts()
+    losses = []
+    for _ in range(CKPT_STEPS):
+        params, loss = train.train_step(params, tokens, cfg, lr=CKPT_LR)
+        losses.append(float(loss))
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    L = cfg.n_layers
+    want = {"prefill_attention": L, "attention_backward": L, "rms_norm": 1,
+            "add_rms_norm": 2 * L, "rms_norm_backward": 1,
+            "add_rms_norm_backward": 2 * L}
+    for name, n in want.items():
+        if launches[name] != CKPT_STEPS * n:
+            raise AssertionError(f"{CKPT_STEPS} train steps launched {name} "
+                                 f"{launches[name]} times, want "
+                                 f"{CKPT_STEPS * n}")
+    flat = disagg._flatten_params(params)
+    n_params = sum(t.numel() for t in flat.values())
+    nbytes = checkpoint.checkpoint_bytes(flat)
+    if n_params != CKPT_PARAMS or nbytes > param_server.MAX_BLOB_BYTES:
+        raise AssertionError(f"{n_params} parameters, {nbytes} bytes")
+    directory = os.path.join(report_dir, "ckpt")
+    shutil.rmtree(directory, ignore_errors=True)
+    os.makedirs(directory)
+    free = shutil.disk_usage(directory).free
+    if free < CKPT_KEEP * nbytes + (1 << 30):
+        raise AssertionError(f"{directory} has {free} bytes free, less than "
+                             f"{CKPT_KEEP} snapshots of {nbytes} and 1 GiB")
+    res = {"card": card, "params": n_params, "bytes": nbytes,
+           "train_losses": losses, "launches": launches}
+    proc, addr, _, n0 = spawn_store(directory)
+    try:
+        if n0:
+            raise AssertionError(f"a fresh store recovered {n0} steps")
+        v0 = ckpt_vars(addr)
+        t0 = time.monotonic()
+        checkpoint.save_checkpoint(addr, CKPT_STEPS, CKPT_LR, flat,
+                                   timeout_s=600)
+        res["save_s"] = time.monotonic() - t0
+        v1 = ckpt_vars(addr)
+        for key in ("write", "fsync"):
+            res[f"commit_{key}_s"] = (v1.get(f"ckpt_{key}_us", 0)
+                                      - v0.get(f"ckpt_{key}_us", 0)) / 1e6
+        kill_store(proc)
+        t0 = time.monotonic()
+        proc, addr, res["recover_s"], n1 = spawn_store(directory)
+        res["restart_s"] = time.monotonic() - t0
+        if n1 != 1:
+            raise AssertionError(f"the restarted store recovered {n1} steps")
+        t0 = time.monotonic()
+        step, lr, host = checkpoint.load_checkpoint(addr)
+        res["load_s"] = time.monotonic() - t0
+        t0 = time.monotonic()
+        loaded = {k: torch.as_tensor(v).to("cuda") for k, v in host.items()}
+        torch.cuda.synchronize()
+        res["h2d_s"] = time.monotonic() - t0
+        if (step, lr) != (CKPT_STEPS, CKPT_LR):
+            raise AssertionError(f"restored step {step} lr {lr}")
+        if set(loaded) != set(flat):
+            raise AssertionError("restored names differ")
+        for k, t in flat.items():
+            if loaded[k].dtype != t.dtype or not torch.equal(loaded[k], t):
+                raise AssertionError(f"restored {k} differs")
+        restored = disagg._unflatten_params(loaded)
+        del loaded
+        # Step 3 from the originals twice and from the restored parameters.
+        runs = [train.train_step(p, tokens, cfg, lr=CKPT_LR)
+                for p in (params, params, restored)]
+        (new_a, loss_a), (new_b, loss_b), (new_r, loss_r) = runs
+        fa, fb, fr = (disagg._flatten_params(n) for n in (new_a, new_b, new_r))
+        spread = abs(float(loss_a) - float(loss_b))
+        res["step3"] = {
+            "loss": float(loss_a), "loss_rerun": float(loss_b),
+            "loss_restored": float(loss_r),
+            "rerun_bit_equal": bool(torch.equal(loss_a, loss_b)),
+            "restored_bit_equal": bool(torch.equal(loss_r, loss_a)),
+            # Parameters whose update differs between two runs from the
+            # same weights (an op of the backward that is not
+            # deterministic), and between the restored and original runs.
+            "update_differs_rerun": [k for k in sorted(fa)
+                                     if not torch.equal(fa[k], fb[k])],
+            "update_differs_restored": [k for k in sorted(fa)
+                                        if not torch.equal(fa[k], fr[k])],
+        }
+        if res["step3"]["rerun_bit_equal"]:
+            if not res["step3"]["restored_bit_equal"]:
+                raise AssertionError(f"step 3: restored loss {float(loss_r)!r}"
+                                     f" vs {float(loss_a)!r}")
+        elif abs(float(loss_r) - float(loss_a)) > spread:
+            raise AssertionError(f"step 3: restored loss {float(loss_r)!r} "
+                                 f"outside the reruns' spread {spread!r}")
+        del runs, new_a, new_b, new_r, fa, fb, fr, restored
+        # The ParamServer's round trip: its blob wrapped as it is.
+        srv = param_server.ParamServer(host, lr=CKPT_LR,
+                                       version=CKPT_STEPS + 1)
+        del host
+        try:
+            t0 = time.monotonic()
+            if srv.snapshot_to(addr) != CKPT_STEPS + 1:
+                raise AssertionError("snapshot_to: wrong step")
+            res["ps_snapshot_s"] = time.monotonic() - t0
+            t0 = time.monotonic()
+            back = param_server.ParamServer.restore(addr)
+            res["ps_restore_s"] = time.monotonic() - t0
+            try:
+                if back.version() != CKPT_STEPS + 1 or back._blob != srv._blob:
+                    raise AssertionError("ParamServer.restore: the blob or "
+                                         "the version differs")
+            finally:
+                back.close()
+        finally:
+            srv.close()
+        res["steps_kept"] = checkpoint.list_checkpoints(addr)
+        if res["steps_kept"] != [CKPT_STEPS, CKPT_STEPS + 1]:
+            raise AssertionError(f"the store keeps {res['steps_kept']}")
+        res["files"] = sorted(os.listdir(directory))
+    finally:
+        kill_store(proc)
+        shutil.rmtree(directory, ignore_errors=True)
+    del params, flat
+    torch.cuda.empty_cache()
+    gb = nbytes / 1e9
+    res["phase_s"] = time.monotonic() - t_phase
+    s3 = res["step3"]
+    log(f"[ckpt] {card}: 1-layer Llama-3-8B bf16, {n_params} parameters, "
+        f"{nbytes} bytes of TCK1 after {CKPT_STEPS} train_steps on tokens "
+        f"{list(CKPT_TOKENS)} (losses {losses}; launches {launches}); "
+        f"save_checkpoint {res['save_s']:.3f} s = {gb / res['save_s']:.3f} "
+        f"GB/s (the commit's write {res['commit_write_s']:.3f} s, fsync "
+        f"{res['commit_fsync_s']:.3f} s); SIGKILL, restart "
+        f"{res['restart_s']:.3f} s (recovery {res['recover_s']:.3f} s); "
+        f"load_checkpoint {res['load_s']:.3f} s = {gb / res['load_s']:.3f} GB/s, to the card "
+        f"{res['h2d_s']:.3f} s; every tensor torch.equal")
+    log(f"[ckpt] step 3: loss {s3['loss']!r}, rerun {s3['loss_rerun']!r} "
+        f"(bit-equal {s3['rerun_bit_equal']}), restored "
+        f"{s3['loss_restored']!r} (bit-equal {s3['restored_bit_equal']}); "
+        f"updates that differ between reruns {s3['update_differs_rerun']}, "
+        f"restored vs original {s3['update_differs_restored']}; ParamServer "
+        f"snapshot_to (its blob as it is, no encode) "
+        f"{res['ps_snapshot_s']:.3f} s = {gb / res['ps_snapshot_s']:.3f} "
+        f"GB/s, restore {res['ps_restore_s']:.3f} s = "
+        f"{gb / res['ps_restore_s']:.3f} GB/s, blob byte-identical; kept "
+        f"{res['steps_kept']}; phase {res['phase_s']:.1f} s")
+    return res
+
+
 # ---- phases 4 and 5: the serving path -----------------------------------------
 
 def run_swarm(engine, prompts, max_new: int) -> dict:
@@ -2554,6 +2773,216 @@ def decode_step_split(params, cfg) -> dict:
     return res
 
 
+# Traced requests on phase 5's engine: two cold prompts and two that extend
+# a phase-5 prompt (prefix hits: resumes on K4), TRACE_NEW tokens each.
+TRACE_COLD = (64, 300)
+TRACE_RESUMES = ((3, 23), (6, 40))  # (phase-5 prompt, fresh tokens)
+TRACE_NEW = 8
+TRACE_SPAN_MARKS = ("queue_wait_us=", "prefill_us=", "terminal frame")
+
+
+def note_value(texts, key: str):
+    """The integer after ``key=`` in the first annotation that has it."""
+    for t in texts:
+        m = re.search(re.escape(key) + r"=(\d+)", t)
+        if m:
+            return int(m.group(1))
+    return None
+
+
+def traced_requests(eng, cfg, prompts, report_dir: str) -> dict:
+    """TRACE_COLD and TRACE_RESUMES sent at once through ServingClients
+    with tracing on: each request's span tree must hold the serving span
+    with its queue wait and prefill, one emit mark per token, the terminal
+    frame, and the ``__stream`` span. The Chrome dump goes to the report
+    directory; tracing is off again on return."""
+    from brpc_tpu_torch import ops, serving, tracing
+
+    rng = np.random.default_rng(7)
+    reqs = [rng.integers(0, cfg.vocab, n).tolist() for n in TRACE_COLD]
+    reqs += [prompts[i] + rng.integers(0, cfg.vocab, n).tolist()
+             for i, n in TRACE_RESUMES]
+    out, errors = {}, []
+
+    def one(i, prompt):
+        try:
+            first = []
+            t0 = time.monotonic()
+            with serving.ServingClient(f"127.0.0.1:{eng.port}",
+                                       timeout_ms=600_000) as c:
+                toks = list(c.generate(
+                    prompt, TRACE_NEW,
+                    on_first_token=lambda: first.append(time.monotonic())))
+                out[i] = (toks, c.last_trace_id, 1e3 * (first[0] - t0))
+        except Exception as e:  # noqa: BLE001 — re-raised below
+            errors.append(e)
+
+    resumes0 = eng.stats()["resumes"]
+    tracing.enable(100000)
+    try:
+        ops.reset_launch_counts()
+        threads = [threading.Thread(target=one, args=(i, p))
+                   for i, p in enumerate(reqs)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        launches = ops.launch_counts()
+        if errors:
+            raise errors[0]
+        rows = []
+        for i, prompt in enumerate(reqs):
+            toks, tid, ttft_ms = out[i]
+            if len(toks) != TRACE_NEW or not tid:
+                raise AssertionError(f"traced request {i}: {len(toks)} "
+                                     f"tokens, trace id {tid}")
+            deadline = time.monotonic() + 10
+            while True:
+                spans = tracing.fetch(tid)
+                sv = [s for s in spans if s["service"] == "serving"]
+                texts = [a["text"] for a in sv[0]["annotations"]] if sv \
+                    else []
+                if (any("terminal frame" in t for t in texts) and any(
+                        s["service"] == "__stream" for s in spans)) or \
+                        time.monotonic() > deadline:
+                    break
+                time.sleep(0.05)
+            missing = [m for m in TRACE_SPAN_MARKS
+                       if not any(m in t for t in texts)]
+            emits = sum("emit" in t for t in texts)
+            if missing or emits != TRACE_NEW or not any(
+                    s["service"] == "__stream" for s in spans):
+                raise AssertionError(
+                    f"traced request {i}: tree lacks {missing}, {emits} "
+                    f"emit marks (want {TRACE_NEW}), services "
+                    f"{sorted({s['service'] for s in spans})}")
+            rows.append({"prompt": len(prompt), "trace_id": f"{tid:x}",
+                         "spans": len(spans), "client_ttft_ms": ttft_ms,
+                         "queue_wait_ms": note_value(texts,
+                                                     "queue_wait_us") / 1e3,
+                         "prefill_ms": note_value(texts, "prefill_us") / 1e3,
+                         "server_ttft_ms": note_value(texts, "ttft_us") / 1e3})
+        path = os.path.join(report_dir, "trace.json")
+        dump = tracing.dump(path)
+        spans_total = tracing.count()
+    finally:
+        tracing.disable()
+    resumes = eng.stats()["resumes"] - resumes0
+    L = cfg.n_layers
+    for name in ("paged_decode_attention", "prefill_attention", "rms_norm",
+                 "add_rms_norm", "paged_prefill_attention"):
+        if not launches[name]:
+            raise AssertionError(f"the traced requests never launched {name}"
+                                 f": {launches}")
+    if launches["paged_prefill_attention"] != L * resumes or not resumes:
+        raise AssertionError(f"K4 launched "
+                             f"{launches['paged_prefill_attention']} times "
+                             f"over {resumes} resumes")
+    for r in rows:
+        log(f"[trace] prompt {r['prompt']} tokens, trace {r['trace_id']} "
+            f"({r['spans']} spans): client TTFT {r['client_ttft_ms']:.1f} ms"
+            f" = queue wait {r['queue_wait_ms']:.1f} + prefill "
+            f"{r['prefill_ms']:.1f} ms (server TTFT "
+            f"{r['server_ttft_ms']:.1f} ms)")
+    log(f"[trace] {len(rows)} requests x {TRACE_NEW} tokens traced, {resumes}"
+        f" resumes; {len(dump['traceEvents'])} Chrome events in {path}; "
+        f"{spans_total} spans collected in the process; launches {launches}")
+    return {"requests": rows, "resumes": resumes, "launches": launches,
+            "chrome_events": len(dump["traceEvents"])}
+
+
+# The replayed workload: bench.py's forge leg's diurnal shape (3 tiers, 6
+# tenants) with prompts of a 128-token shared prefix and 8-64 fresh tokens.
+REPLAY_SPEC = dict(
+    name="chip_replay", seed=20, sessions=64, duration_s=8.0,
+    arrival="diurnal", diurnal_amplitude=0.5, diurnal_period_s=8.0,
+    turns=(1, 1), think_time_s=(0.05, 0.2), prefix_families=8,
+    prefix_tokens=128, turn_tokens=(8, 64), max_new=(4, 16), tenants=6,
+    tier_mix=(("interactive", 0.45), ("standard", 0.35), ("batch", 0.2)))
+
+
+def replayed_workload(eng, cfg) -> dict:
+    """REPLAY_SPEC compiled twice (byte-equal), then replayed open-loop
+    through ServingClients tagged by tenant and tier: every request must
+    complete and none may shed."""
+    from brpc_tpu_torch import ops, runtime, serving, workload
+
+    spec = workload.WorkloadSpec(vocab=cfg.vocab, max_prompt_tokens=1024,
+                                 **REPLAY_SPEC)
+    text = workload.compile_workload(spec)
+    if text != workload.compile_workload(spec):
+        raise AssertionError("the workload did not compile byte-equal")
+    _, budgets, reqs = workload.load_workload(text)
+    tls = threading.local()
+    clients, mu = [], threading.Lock()
+
+    def issue(r, st):
+        cache = getattr(tls, "clients", None)
+        if cache is None:
+            cache = tls.clients = {}
+        c = cache.get((r.tenant, r.tier))
+        if c is None:
+            c = cache[(r.tenant, r.tier)] = serving.ServingClient(
+                f"127.0.0.1:{eng.port}", timeout_ms=120_000,
+                tenant=r.tenant, tier=r.tier)
+            with mu:
+                clients.append(c)
+        first = []
+        t0 = time.monotonic()
+        try:
+            got = list(c.generate(list(r.prompt), r.max_new,
+                                  on_first_token=lambda: first.append(
+                                      time.monotonic())))
+            st.note(r, "ok" if len(got) == r.max_new else "errors",
+                    tokens=len(got), ttft_s=first[0] - t0 if first else None)
+        except runtime.RpcError as e:
+            st.note(r, "shed" if e.code == runtime.ELIMIT else "errors",
+                    hinted=e.retry_after_ms is not None)
+
+    ops.reset_launch_counts()
+    t0 = time.monotonic()
+    try:
+        stats = workload.replay(reqs, issue, drivers=16)
+    finally:
+        for c in clients:
+            c.close()
+    wall = time.monotonic() - t0
+    launches = ops.launch_counts()
+    for name in ("paged_decode_attention", "prefill_attention",
+                 "paged_prefill_attention", "rms_norm", "add_rms_norm"):
+        if not launches[name]:
+            raise AssertionError(f"the replay never launched {name}: "
+                                 f"{launches}")
+    snap = stats.snapshot()
+    tiers = {}
+    for tier, c in sorted(snap["by_tier"].items()):
+        tiers[tier] = {k: c[k] for k in ("n", "ok", "shed", "errors", "hung",
+                                         "good_tokens")}
+        tiers[tier]["ttft_p50_ms"] = 1e3 * workload.pct(c["ttfts"], 0.5)
+        tiers[tier]["ttft_p99_ms"] = 1e3 * workload.pct(c["ttfts"], 0.99)
+    ok = sum(t["ok"] for t in tiers.values())
+    tokens = sum(t["good_tokens"] for t in tiers.values())
+    res = {"requests": len(reqs), "sessions": spec.sessions,
+           "prompt_tokens": [min(len(r.prompt) for r in reqs),
+                             max(len(r.prompt) for r in reqs)],
+           "wall_s": wall, "late_ms_max": snap["late_ms_max"],
+           "tokens_per_s": tokens / wall, "tiers": tiers,
+           "tenants": {k: c["ok"] for k, c in sorted(
+               snap["by_tenant"].items())},
+           "budgets": budgets, "launches": launches}
+    log(f"[replay] {len(reqs)} requests of {spec.sessions} sessions over "
+        f"{spec.duration_s} s ({spec.arrival}, prompts "
+        f"{res['prompt_tokens'][0]}-{res['prompt_tokens'][1]} tokens): "
+        f"{ok} ok in {wall:.2f} s, {tokens} tokens = "
+        f"{res['tokens_per_s']:.2f} tok/s, issue late by at most "
+        f"{snap['late_ms_max']:.1f} ms; by tier {json.dumps(tiers)}; ok by "
+        f"tenant {res['tenants']}; launches {launches}")
+    if ok != len(reqs):
+        raise AssertionError(f"replay: {ok} of {len(reqs)} completed: "
+                             f"{json.dumps(tiers)}")
+    return res
+
+
 def phase_main(params, cfg, init_s: float, card: str, profile_it: bool,
                report_dir: str) -> dict:
     from brpc_tpu_torch import kv_cache, ops, serving
@@ -2573,6 +3002,8 @@ def phase_main(params, cfg, init_s: float, card: str, profile_it: bool,
         launches = ops.launch_counts()
         stats = eng.stats()
         segments = ttft_breakdown(len(prompts))
+        traced = traced_requests(eng, cfg, prompts, report_dir)
+        replayed = replayed_workload(eng, cfg)
         prof = (profile_swarm(eng, prompts, 8, report_dir) if profile_it
                 else None)
     finally:
@@ -2612,7 +3043,7 @@ def phase_main(params, cfg, init_s: float, card: str, profile_it: bool,
         "weights_init_s": init_s, "ttft_segments_ms": segments,
         "mean_batch_occupancy": stats["mean_batch_occupancy"],
         "launches": launches, "bare_decode_step": bare,
-        "profile": prof,
+        "profile": prof, "traced": traced, "replay": replayed,
     }
     log(f"[main] Llama-3-8B bf16 32 layers, {card}: {len(prompts)} "
         f"concurrent requests, {n_tok} tokens in {out['wall_s']:.3f} s = "
@@ -3574,6 +4005,178 @@ def landing_yardsticks(packed, nbytes: int) -> dict:
     return res
 
 
+# ---- resharding ---------------------------------------------------------------
+
+RESHARD_RANKS = 4
+RESHARD_SLICE = 8             # the phase's device-fabric coordinates
+RESHARD_SHAPE = (4096, 14336)  # one Llama-3-8B w_gate, bf16
+
+_RESHARD_RANK_SRC = r"""
+import struct, sys
+sys.path.insert(0, sys.argv[1])
+from brpc_tpu_torch import runtime
+runtime.rd_put("w_gate", sys.stdin.buffer.read(int(sys.argv[4])))
+srv = runtime.Server()
+srv.enable_redistribute()
+
+def put(req):
+    (n,) = struct.unpack_from("<H", req)
+    runtime.rd_put(req[2:2 + n].decode(), req[2 + n:])
+    return b"ok"
+
+def stats(_req):
+    st = runtime.rd_stats()
+    return struct.pack("<3q", st["entries"], st["pulls"], st["pull_bytes"])
+
+def crc(req):
+    runtime.coll_crc_enable(req == b"1")
+    return b"ok"
+
+srv.add_method("R", "put", put)
+srv.add_method("R", "get", lambda req: runtime.rd_get(req.decode()))
+srv.add_method("R", "stats", stats)
+srv.add_method("R", "crc", crc)
+port = srv.start(0)
+srv.start_device(int(sys.argv[2]), int(sys.argv[3]))
+print("READY", port, flush=True)
+sys.stdin.read()
+"""
+
+
+def reshard_pass(chans, peers, src, dst, name: str, rank_addrs) -> dict:
+    """One redistribute of ``name`` from ``src`` to ``dst`` with ``peers``
+    as the addresses ranks pull from: host seconds, what moved, and each
+    rank's pulls and fabric links."""
+    from brpc_tpu_torch import redistribute
+
+    before = [fabric_links(a) for a in rank_addrs]
+    stats0 = [struct.unpack("<3q", ch.call("R", "stats")) for ch in chans]
+    t0 = time.perf_counter()
+    moved = redistribute.redistribute(chans, peers, src, dst, name)
+    s = time.perf_counter() - t0
+    pulls, links = [], {}
+    for r, (ch, a) in enumerate(zip(chans, rank_addrs)):
+        entries, n, nb = struct.unpack("<3q", ch.call("R", "stats"))
+        if entries != 1:
+            raise AssertionError(f"rank {r} holds {entries} entries")
+        pulls.append({"pulls": n - stats0[r][1],
+                      "pull_bytes": nb - stats0[r][2]})
+        for peer, d in link_growth(fabric_links(a), before[r]).items():
+            links[f"rank{r}<-{peer}"] = d
+    return {"s": s, "gb_per_s": moved["total_bytes"] / s / 1e9,
+            "moved": moved, "pulls": pulls, "links": links}
+
+
+def phase_reshard(card: str) -> dict:
+    """Resharding at full width: four port rank processes, each with the
+    ``__rd`` service, hold a row shard of one Llama-3-8B ``w_gate`` (bf16,
+    made on the card); the port's planner turns it into column shards,
+    over TCP first, then over the device fabric with the crc32c rail
+    armed. Each pass lands every rank's new shard on the card, where it
+    must be torch.equal to the source's column slice."""
+    from brpc_tpu_torch import redistribute, runtime
+
+    k = RESHARD_RANKS
+    t_phase = time.monotonic()
+    w = torch.randn(RESHARD_SHAPE, generator=torch.Generator(device="cuda")
+                    .manual_seed(61), device="cuda").to(torch.bfloat16)
+    flat = w.cpu().view(torch.int16).numpy().tobytes()
+    mesh = redistribute.Mesh((k,), ("x",))
+    rows = mesh.sharding(RESHARD_SHAPE, 2, ("x", None))
+    cols = mesh.sharding(RESHARD_SHAPE, 2, (None, "x"))
+    shards = [b"".join(flat[o:o + n] for o, n in rows.ranges[r])
+              for r in range(k)]
+    plan = redistribute.plan_redistribute(rows, cols)
+    steps = [len(p) for p in plan]
+    env = dict(os.environ, TRPC_FABRIC_NS=f"chip-reshard-{os.getpid()}",
+               TRPC_DEVICE_ARENA_MB=str(LANDING_ARENA_MB),
+               TRPC_FABRIC_RETAIN_MB=str(LANDING_RETAIN_MB))
+    t0 = time.monotonic()
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", _RESHARD_RANK_SRC, HERE, str(RESHARD_SLICE),
+         str(r), str(len(shards[r]))],
+        stdin=subprocess.PIPE, stdout=subprocess.PIPE, env=env)
+        for r in range(k)]
+    res = {"card": card, "ranks": k, "shape": list(RESHARD_SHAPE),
+           "bytes": len(flat), "plan_steps": steps}
+    chans = []
+    try:
+        addrs = []
+        for r, p in enumerate(procs):
+            p.stdin.write(shards[r])
+            p.stdin.flush()
+            ready, _, _ = select.select([p.stdout], [], [], 120)
+            line = p.stdout.readline().decode() if ready else ""
+            if not line.startswith("READY "):
+                raise AssertionError(f"reshard rank {r} did not start "
+                                     f"(exit {p.poll()}, said {line!r})")
+            addrs.append(f"127.0.0.1:{int(line.split()[1])}")
+        res["ranks_up_s"] = time.monotonic() - t0
+        chans = [runtime.Channel(a, timeout_ms=300_000) for a in addrs]
+        width = RESHARD_SHAPE[1] // k
+        fabric = [f"ici://{RESHARD_SLICE}/{r}" for r in range(k)]
+        for how, peers in (("tcp", addrs), ("fabric", fabric)):
+            if how == "fabric":
+                for r, ch in enumerate(chans):
+                    nb = b"w_gate"
+                    if ch.call("R", "put", struct.pack("<H", len(nb)) + nb
+                               + shards[r]) != b"ok" or \
+                            ch.call("R", "crc", b"1") != b"ok":
+                        raise AssertionError(f"rank {r}: reset failed")
+            crc0 = [crc_errors(a) for a in addrs]
+            res[how] = rp = reshard_pass(chans, peers, rows, cols, "w_gate",
+                                        addrs)
+            t1 = time.perf_counter()
+            for r, ch in enumerate(chans):
+                got = torch.frombuffer(bytearray(ch.call("R", "get",
+                                                         b"w_gate")),
+                                       dtype=torch.int16)
+                got = got.view(torch.bfloat16).reshape(
+                    RESHARD_SHAPE[0], width).to("cuda")
+                if not torch.equal(got, w[:, r * width:(r + 1) * width]):
+                    raise AssertionError(f"{how}: rank {r}'s column shard "
+                                         f"differs from the source")
+            torch.cuda.synchronize()
+            rp["land_s"] = time.perf_counter() - t1
+            rp["crc_errors"] = [crc_errors(a) - c for a, c in zip(addrs, crc0)]
+            staged = sum(d.get("staged_copies", 0)
+                         for d in rp["links"].values())
+            grants = sum(d.get("retain_grants", 0)
+                         for d in rp["links"].values())
+            fallbacks = sum(d.get("retain_fallbacks", 0)
+                            for d in rp["links"].values())
+            rp["link_totals"] = {"staged_copies": staged,
+                                "retain_grants": grants,
+                                "retain_fallbacks": fallbacks}
+            log(f"[reshard] {how}: {card}: w_gate {RESHARD_SHAPE} bf16 "
+                f"({len(flat)} bytes) rows -> columns over {k} rank "
+                f"processes: {rp['s']:.3f} s = {rp['gb_per_s']:.3f} GB/s "
+                f"(host clock; {rp['moved']['pull_bytes']} bytes pulled, "
+                f"{rp['moved']['local_bytes']} local; plan steps a rank "
+                f"{steps}); rd_stats a rank {rp['pulls']}; fabric links "
+                f"{rp['link_totals']}; crc32c drops {rp['crc_errors']}; every "
+                f"column shard torch.equal on the card (landed in "
+                f"{rp['land_s']:.3f} s)")
+    finally:
+        for ch in chans:
+            ch.close()
+        for p in procs:
+            try:
+                p.stdin.close()
+            except OSError:
+                pass
+        for p in procs:
+            try:
+                p.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                p.wait()
+    res["phase_s"] = time.monotonic() - t_phase
+    log(f"[reshard] ranks up in {res['ranks_up_s']:.1f} s; phase "
+        f"{res['phase_s']:.1f} s")
+    return res
+
+
 def main() -> int:
     faulthandler.enable()
     # The host tier keeps its pages on the heap: in the registered send
@@ -3624,6 +4227,7 @@ def main() -> int:
     cases = phase_kernels()
     report["parallel"] = parallel = phase_parallel()
     report["train"] = trained = phase_train()
+    report["checkpoint"] = phase_checkpoint(card, args.report_dir)
     from brpc_tpu_torch import runtime
     from brpc_tpu_torch.models import transformer
 
@@ -3665,6 +4269,7 @@ def main() -> int:
     del weights
     gc.collect()
     report["landing"] = phase_landing(card)
+    report["reshard"] = phase_reshard(card)
     report["kernel_cases"] = cases
     with open(os.path.join(args.report_dir, "chip_smoke_report.json"),
               "w") as f:
