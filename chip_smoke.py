@@ -218,10 +218,16 @@ def ptxas_summary(path: str) -> list:
         for line in f:
             if "Compiling entry function" in line:
                 m = re.search(r"\d([a-z_]+_kernel)I(13__nv_bfloat16|f)"
-                              r"(?:Li(\d+)E)?", line)
+                              r"(?:Lb([01])E)?(?:Li(\d+)E)?(?:Lb([01])E)?",
+                              line)
+                flag = ("" if not m or m.group(3) is None else
+                        ", fused" if m.group(3) == "1" else ", alone")
+                form = ("" if not m or m.group(1) != "norm_kernel"
+                        or m.group(5) is None else
+                        ", gain first" if m.group(5) == "1" else ", late")
                 name = (f"{m.group(1)}<{'bf16' if m.group(2) != 'f' else 'f32'}"
-                        f"{', ' + m.group(3) if m.group(3) else ''}>"
-                        if m else line.split("'")[1])
+                        f"{flag}{', ' + m.group(4) if m.group(4) else ''}"
+                        f"{form}>" if m else line.split("'")[1])
             elif name and "spill" in line:
                 spill = line.strip()
             elif name and "Used" in line:
@@ -574,7 +580,10 @@ def check_rms_norm(dtype, gen, rows: int) -> dict:
     def plain():
         return norm.rms_norm_plain(x, g, eps)
 
-    err, _ = compare(f"rms_norm rows={rows}", kern(), plain(), dtype)
+    out = kern()
+    err, _ = compare(f"rms_norm rows={rows}", out, plain(), dtype)
+    if not torch.equal(out, kern()):
+        raise AssertionError(f"rms_norm rows={rows}: a rerun differs")
     F = torch.nn.functional
     g_dt = g.to(dtype)
 
@@ -585,7 +594,8 @@ def check_rms_norm(dtype, gen, rows: int) -> dict:
     nbytes = 2 * rows * D * itemsize + D * 4
     b, by = bound_ms(nbytes, 4.0 * rows * D, dtype)
     return {"shape": f"x[{rows},{D}]", "max_abs_err": err,
-            "ms": time_ms(kern), "plain_ms": time_ms(plain),
+            "host_us": host_us(kern), "ms": time_ms(kern),
+            "plain_ms": time_ms(plain),
             "bound_ms": b, "bound_by": by, "library_ms": time_ms(lib),
             "device_ms": device_ms(kern), "library_device_ms": device_ms(lib)}
 
@@ -614,6 +624,9 @@ def check_add_rms_norm(dtype, gen, rows: int) -> dict:
         raise AssertionError(f"add_rms_norm rows={rows}: the sum differs "
                              f"from x + delta")
     err, _ = compare(f"add_rms_norm rows={rows}", h_got, h_want, dtype)
+    s_again, h_again = kern()
+    if not (torch.equal(s_again, s_got) and torch.equal(h_again, h_got)):
+        raise AssertionError(f"add_rms_norm rows={rows}: a rerun differs")
     F = torch.nn.functional
     g_dt = g.to(dtype)
 
@@ -625,9 +638,24 @@ def check_add_rms_norm(dtype, gen, rows: int) -> dict:
     nbytes = 4 * rows * D * itemsize + D * 4
     b, by = bound_ms(nbytes, 5.0 * rows * D, dtype)
     return {"shape": f"x[{rows},{D}] + delta", "max_abs_err": err,
+            "host_us": host_us(kern), "add_host_us": host_us(lambda: x + delta),
             "ms": time_ms(kern), "plain_ms": time_ms(plain),
             "bound_ms": b, "bound_by": by, "library_ms": time_ms(lib),
             "device_ms": device_ms(kern), "library_device_ms": device_ms(lib)}
+
+
+def host_us(fn, calls: int = 1000) -> float:
+    """Host microseconds per call of fn() over ``calls`` calls with no
+    synchronisation between them: what the caller's thread pays to
+    enqueue the work."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / calls * 1e6
 
 
 def fmt_ms(x) -> str:
@@ -637,6 +665,13 @@ def fmt_ms(x) -> str:
 def phase_kernels() -> dict:
     gen = torch.Generator(device="cuda").manual_seed(0)
     cases = {name: [] for name in REPLACES if "backward" not in name}
+    # The smallest launch torch makes, for the device times below: a
+    # one-element fill.
+    z = torch.zeros(1, device="cuda")
+    floor = device_ms(z.zero_, iters=50)
+    log(f"[kernel] launch_floor torch.zeros(1).zero_(): device_ms "
+        f"{'not measured' if floor is None else f'{floor:.5f}'} ms "
+        f"{time_ms(z.zero_):.4f}")
     for dtype in (torch.bfloat16, torch.float32):
         tag = str(dtype).replace("torch.", "")
         runs = [("paged_decode_attention", check_paged_decode(
@@ -661,7 +696,10 @@ def phase_kernels() -> dict:
             plan = (f" splits {r['splits']} x {r['tiles_per_split']} tiles, "
                     f"{r['grid_blocks']} blocks, {r['masked_row_splits']} "
                     f"fully masked (row, split) pairs;" if "splits" in r
-                    else "")
+                    else f" host_us {r['host_us']:.2f}"
+                    + (f" (x + delta alone {r['add_host_us']:.2f})"
+                       if "add_host_us" in r else "") + ";"
+                    if "host_us" in r else "")
             dev = ("" if "device_ms" not in r else
                    f" device_ms {fmt_ms(r['device_ms'])} library_device_ms "
                    f"{fmt_ms(r['library_device_ms'])}")
@@ -4222,6 +4260,9 @@ def main() -> int:
         if f32_simt_kernel(line) and not (" 0 bytes spill stores" in line
                                           and " 0 bytes spill loads" in line):
             raise AssertionError(f"an f32 SIMT kernel spills: {line}")
+        if line.startswith("norm_kernel<") and " 0 bytes spill stores" \
+                not in line:
+            raise AssertionError(f"a K3 kernel spills: {line}")
     report["build_s"] = {"native": t_native, "kernels": t_kernels}
     report["sass_mma"] = sass_mma_counts(_build)
     cases = phase_kernels()

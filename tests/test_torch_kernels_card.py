@@ -116,6 +116,51 @@ def test_kernels_match_plain_on_card(cuda_device):
             s_want, h_want = norm.add_rms_norm_plain(rows, delta, g, 1e-5)
             assert torch.equal(s, s_want), f"add_rms_norm sum {case}"
             _assert_close(h, h_want, dtype, f"add_rms_norm {case}")
+        _norm_cases(dev, dtype)
+
+
+# K3 at D 4096: the decode shape, prefill's 1000 rows, rows around an
+# H100's 132 SMs, around 3 rows an SM (396), where the kernel that loads
+# the gain before the sum gives way to the one that loads it late, and
+# around the rows the card holds at once (4 to 8 blocks on each SM); then
+# the rows K3 alone takes apart from 16-byte chunks (D not a multiple of
+# 16 bytes' worth of elements: the scalar lead and tail) and a row it
+# reads twice (more than 8 chunks a thread).
+NORM_ROWS = [1, 8, 131, 132, 133, 396, 397, 528, 529, 660, 661, 1000]
+NORM_ODD = [(torch.float32, 5, 4099), (torch.float32, 2, 3),
+            (torch.bfloat16, 3, 4100), (torch.float32, 2, 70000)]
+
+
+def _norm_cases(dev, dtype):
+    gen = torch.Generator(device=dev).manual_seed(7)
+    for n in NORM_ROWS:
+        case = f"{dtype} rows={n} D=4096"
+        x, delta = (torch.randn((n, 4096), generator=gen, device=dev)
+                    .to(dtype) for _ in range(2))
+        g = 1.0 + 0.1 * torch.randn(4096, generator=gen, device=dev)
+        out = norm.rms_norm(x, g, 1e-5)
+        _assert_close(out, norm.rms_norm_plain(x, g, 1e-5), dtype,
+                      f"rms_norm {case}")
+        assert torch.equal(out, norm.rms_norm(x, g, 1e-5)), \
+            f"rms_norm rerun {case}"
+        s, h = norm.add_rms_norm(x, delta, g, 1e-5)
+        s_want, h_want = norm.add_rms_norm_plain(x, delta, g, 1e-5)
+        assert torch.equal(s, s_want), f"add_rms_norm sum {case}"
+        _assert_close(h, h_want, dtype, f"add_rms_norm {case}")
+        s2, h2 = norm.add_rms_norm(x, delta, g, 1e-5)
+        assert torch.equal(s2, s) and torch.equal(h2, h), \
+            f"add_rms_norm rerun {case}"
+    for dt, n, d in NORM_ODD:
+        if dt != dtype:
+            continue
+        case = f"{dtype} rows={n} D={d}"
+        x = torch.randn((n, d), generator=gen, device=dev).to(dtype)
+        g = 1.0 + 0.1 * torch.randn(d, generator=gen, device=dev)
+        out = norm.rms_norm(x, g, 1e-5)
+        _assert_close(out, norm.rms_norm_plain(x, g, 1e-5), dtype,
+                      f"rms_norm {case}")
+        assert torch.equal(out, norm.rms_norm(x, g, 1e-5)), \
+            f"rms_norm rerun {case}"
 
 
 @pytest.mark.cuda

@@ -17,6 +17,14 @@ library call (SDPA with an explicit mask) are named too, and those of
 its K1 library call at phase 5's last decode step.
 
     python3 tools/torch_backward_ab.py [--all] PARENT_DIR . . PARENT_DIR
+    python3 tools/torch_backward_ab.py --k3 8,529,1000 PARENT_DIR . . PARENT_DIR
+
+With ``--k3 ROWS`` only K3 and its fused form run, at D 4096 and each of
+the comma-separated row counts, in bf16 and f32 (chip_smoke.py's own
+checks: the plain version, the fused sum ``torch.equal`` to x + delta,
+a bit-identical rerun), beside the device time of the smallest launch
+torch makes (a one-element ``zero_``) and the registers and spills ptxas
+gave each K3 instance.
 
 Prints the card's name and power limit, then one "[ab]" line per round
 and case. Needs a CUDA card; builds each checkout's kernels into its own
@@ -68,7 +76,30 @@ def result(case: str, r: dict, library: str, split: dict) -> None:
         "by_kernel": split}), flush=True)
 
 
-def one(root: str, everything: bool) -> None:
+def k3(chip_smoke, _build, rows_list: list) -> None:
+    """K3 alone and fused at D 4096 and each row count, as RESULT lines,
+    after the launch floor's, then one PTXAS line per K3 instance."""
+    import torch
+
+    z = torch.zeros(1, device="cuda")
+    result("launch_floor zero_ [1]", {
+        "ms": chip_smoke.time_ms(z.zero_),
+        "device_ms": chip_smoke.device_ms(z.zero_, iters=50)}, "n/a", {})
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for dtype in (torch.bfloat16, torch.float32):
+        tag = str(dtype)[6:]
+        for rows in rows_list:
+            for name, check in (("rms_norm", chip_smoke.check_rms_norm),
+                                ("add_rms_norm",
+                                 chip_smoke.check_add_rms_norm)):
+                r = check(dtype, gen, rows)
+                result(f"{name} {tag} {r['shape']}", r, "library", {})
+    for line in chip_smoke.ptxas_summary(_build.PTXAS_LOG):
+        if "norm" in line and "backward" not in line:
+            print("PTXAS " + line, flush=True)
+
+
+def one(root: str, everything: bool, k3_rows: list) -> None:
     """The cases in the checkout at ``root``, as RESULT lines."""
     sys.path.insert(0, root)
     import torch
@@ -78,6 +109,9 @@ def one(root: str, everything: bool) -> None:
     from brpc_tpu_torch.ops import ring_attention as ra
 
     _build.build()
+    if k3_rows:
+        k3(chip_smoke, _build, k3_rows)
+        return
     if everything:
         for name, rs in chip_smoke.phase_kernels().items():
             for r in rs:
@@ -269,11 +303,21 @@ def sdpa_backward(q, k, v):
 
 def main() -> int:
     args = sys.argv[1:]
+    one_root = None
     if args[:1] == ["--one"]:
-        one(os.path.abspath(args[1]), args[2:3] == ["--all"])
-        return 0
+        one_root, args = os.path.abspath(args[1]), args[2:]
     everything = args[:1] == ["--all"]
-    roots = args[1:] if everything else args
+    if everything:
+        args = args[1:]
+    k3_rows = []
+    if args[:1] == ["--k3"]:
+        k3_rows, args = [int(r) for r in args[1].split(",")], args[2:]
+    if one_root:
+        one(one_root, everything, k3_rows)
+        return 0
+    flags = (["--all"] if everything else []) + (
+        ["--k3", ",".join(map(str, k3_rows))] if k3_rows else [])
+    roots = args
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -283,12 +327,14 @@ def main() -> int:
         root = os.path.abspath(root)
         out = subprocess.run(
             [sys.executable, os.path.abspath(__file__), "--one", root]
-            + (["--all"] if everything else []),
+            + flags,
             cwd=root, capture_output=True, text=True)
         if out.returncode != 0:
             print(out.stdout[-2000:], out.stderr[-4000:], file=sys.stderr)
             return out.returncode
         for line in out.stdout.splitlines():
+            if line.startswith("PTXAS "):
+                print(f"[ab] round {i} {root}: ptxas {line[6:]}", flush=True)
             if not line.startswith("RESULT "):
                 continue
             r = json.loads(line[len("RESULT "):])
